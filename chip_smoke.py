@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port of Dropout Decoding once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+
+1. Card identity: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
+   versions.
+2. Build: compiles ``dropoutdecoding_tpu_torch/csrc/*.cu`` for sm_90a (or
+   reuses the build in ``dropoutdecoding_tpu_torch/_build/``).
+3. Kernel vs plain twin at the slice shapes: K1 (ensemble decode attention,
+   B=1, M in {1, 3}, H = KH = 32, D = 128, S = 1152, bf16, with mask
+   holes; a G = 4 case and the fp32 instantiation) and K2 (visual-token
+   uncertainty at [1, 576, 32064] fp32, with and without ``valid``).  Times
+   are the median of 30 warmed launches with CUDA events, L2 flushed
+   before each.
+4. Small-model reference: a narrow LLaVA in fp32 through
+   ``LlavaEngine.generate`` on the card (kernels) and on the CPU (plain
+   twins), with the same injected mask draws: tokens must be equal.
+5. End to end: ``LlavaEngine.generate`` at full LLaVA-1.5-7B width and depth
+   with synthetic bf16 weights, greedy then exact K=3, 32 new tokens each,
+   with the launch counts checked.
+
+Prints the kernels' JSON line, the card line, and as the last line
+``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
+GPU is present or the port is missing.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # atol; see CHANGES.md
+K2_RTOL = 1e-4
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip()
+
+
+def identity() -> str:
+    from dropoutdecoding_tpu_torch.ops import _build
+
+    card = _card_line()
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True, check=True)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
+    return card
+
+
+def build() -> None:
+    from dropoutdecoding_tpu_torch.ops import _build
+
+    how = "reused" if _build.library_path().exists() else "built"
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    print(f"kernels {how}: {path.name} in {time.perf_counter() - t0:.2f} s")
+    for line in path.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+
+
+_FLUSH = None
+
+
+def time_ms(fn, reps: int = 30) -> float:
+    """Median device time of one ``fn()`` call, in ms, with L2 cold.
+
+    ``fn`` is captured in a CUDA graph behind a 64 MB write that evicts the
+    50 MB L2; the graph without ``fn`` is timed too and subtracted.  Graph
+    replay keeps host launch latency out of the number, which eager timing
+    with events would include.
+    """
+    global _FLUSH
+    if _FLUSH is None:
+        _FLUSH = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    flush_only, both = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(flush_only):
+        _FLUSH.zero_()
+    with torch.cuda.graph(both):
+        _FLUSH.zero_()
+        fn()
+
+    def median_replay(graph):
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    return median_replay(both) - median_replay(flush_only)
+
+
+def _k1_inputs(B, M, H, KH, D, S, cur, dtype, seed, dead_member=False):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, kn, vn = rnd(B, M, H, D), rnd(B, M, KH, D), rnd(B, M, KH, D)
+    kc, vc = rnd(B, S, KH, D), rnd(B, S, KH, D)
+    slots = torch.arange(S, device="cuda")
+    mask = (slots < cur).expand(B, M, S).clone()
+    holes = torch.rand(B, M, S, generator=g, device="cuda") < 0.4
+    mask &= ~(holes & (slots >= 5) & (slots < 5 + 576))  # dropped visual tokens
+    if dead_member:
+        mask[:, -1] = False  # attends only its own token
+    return q, kc, vc, kn, vn, mask
+
+
+def check_kernels() -> dict:
+    """Each kernel against its plain twin on the card; returns the JSON
+    records of the slice-shape cases, keyed by kernel."""
+    from dropoutdecoding_tpu_torch.ops.attention import ensemble_decode_attention
+    from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import (
+        ensemble_decode_attention_fused,
+    )
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
+        vision_uncertainty_fused,
+        vision_uncertainty_twin,
+    )
+
+    records = {}
+    S, cur = 1152, 620
+    k1_cases = [  # (label, B, M, H, KH, D, dtype, dead member)
+        ("M=3 G=1 bf16", 1, 3, 32, 32, 128, torch.bfloat16, False),
+        ("M=1 G=1 bf16", 1, 1, 32, 32, 128, torch.bfloat16, False),
+        ("M=3 G=1 bf16 dead member", 1, 3, 32, 32, 128, torch.bfloat16, True),
+        ("M=3 G=4 bf16", 1, 3, 32, 8, 128, torch.bfloat16, False),
+        ("M=3 G=1 fp32", 1, 3, 32, 32, 128, torch.float32, False),
+    ]
+    for i, (label, B, M, H, KH, D, dtype, dead) in enumerate(k1_cases):
+        args = _k1_inputs(B, M, H, KH, D, S, cur, dtype, seed=100 + i, dead_member=dead)
+        got = ensemble_decode_attention_fused(*args)
+        torch.cuda.synchronize()
+        ref = ensemble_decode_attention(*args)
+        err = (got.float() - ref.float()).abs().max().item()
+        ms = time_ms(lambda: ensemble_decode_attention_fused(*args))
+        plain_ms = time_ms(lambda: ensemble_decode_attention(*args))
+        print(
+            f"K1 {label}: max_abs_err {err:.3e} (atol {K1_TOL[dtype]:g}), "
+            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+        )
+        if not err <= K1_TOL[dtype]:
+            raise AssertionError(f"K1 {label}: max_abs_err {err} > {K1_TOL[dtype]}")
+        if i == 0:
+            records["K1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    logits = 3.0 * torch.randn(1, 576, 32064, generator=g, device="cuda")
+    valid = torch.rand(1, 576, generator=g, device="cuda") > 0.1
+    for label, v in (("no valid", None), ("valid", valid)):
+        got = vision_uncertainty_fused(logits, v)
+        torch.cuda.synchronize()
+        ref = vision_uncertainty_twin(logits, v)
+        err = 0.0
+        for key, r in ref.items():
+            d = (got[key] - r).abs()
+            # rtol against each field's scale: var is ~1e-6, epis ~1
+            bound = K2_RTOL * r.abs().max().item()
+            if not d.max().item() <= bound:
+                raise AssertionError(f"K2 {label} {key}: {d.max().item()} > {bound}")
+            err = max(err, d.max().item())
+        ms = time_ms(lambda: vision_uncertainty_fused(logits, v))
+        plain_ms = time_ms(lambda: vision_uncertainty_twin(logits, v))
+        print(
+            f"K2 {label}: max_abs_err {err:.3e} (rtol {K2_RTOL:g}), "
+            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+        )
+        if v is None:
+            records["K2"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return records
+
+
+def _narrow_config():
+    from dropoutdecoding_tpu_torch.utils.config import ClipVisionConfig, LlamaConfig, LlavaConfig
+
+    return LlavaConfig(
+        text=LlamaConfig(
+            vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=4, head_dim=64,
+        ),
+        vision=ClipVisionConfig(
+            hidden_size=128, intermediate_size=256, num_hidden_layers=3,
+            num_attention_heads=4, image_size=112, patch_size=14,
+        ),
+        image_token_index=500,
+    )
+
+
+def small_reference() -> None:
+    """A narrow LLaVA in fp32 on the card (kernels) and on the CPU (plain
+    twins) with one table of injected mask draws: equal tokens, close epis.
+    Weights are scaled up from the synthetic recipe so the logits are
+    sharp enough for argmax to be stable against summation order."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+
+    cfg = _narrow_config()
+    params = synthetic_llava_params(cfg, "cpu", torch.float32, seed=3)
+
+    def sharpen(tree):
+        return {k: sharpen(v) if isinstance(v, dict) else (v * 10 if v.dim() >= 2 else v)
+                for k, v in tree.items()}
+
+    params = LlavaParams(*(sharpen(p) for p in params))
+    rng = np.random.default_rng(5)
+    draws = torch.from_numpy(rng.random((16, 1, 3, cfg.vision.num_patches), dtype=np.float32))
+    ids = np.array([[1, 17, 29, 500, 41, 53, 67, 71, 83]])
+    pixels = rng.normal(size=(1, 3, 112, 112)).astype(np.float32)
+    gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1, pad_token_id=0)
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = LlavaParams(*(_to(part, device) for part in params))
+        for ensemble in (False, True):
+            eng = LlavaEngine(
+                cfg=cfg, params=p, gen=gen, max_len=128, ensemble=ensemble,
+                uniform=lambda step, row, m, n: draws[step, row, m, :n],
+            )
+            state = eng.prefill(ids, pixels)
+            out[device, ensemble] = (eng.generate(ids, pixels).tokens, state.epis.cpu())
+    for ensemble in (False, True):
+        (tok_g, epis_g), (tok_c, epis_c) = out["cuda", ensemble], out["cpu", ensemble]
+        err = (epis_g - epis_c).abs().max().item()
+        # fp32 on two devices: every matmul sums in another order, and epis
+        # = -alea - C cancels terms of about log V
+        bound = 1e-4 * epis_c.abs().max().item()
+        label = "exact K=3" if ensemble else "greedy"
+        print(
+            f"narrow fp32 {label}: card {tok_g[0].tolist()} cpu {tok_c[0].tolist()} "
+            f"epis err {err:.2e} (bound {bound:.2e})"
+        )
+        if not np.array_equal(tok_g, tok_c):
+            raise AssertionError(f"narrow {label}: card tokens differ from the CPU twins'")
+        if not err <= bound:
+            raise AssertionError(f"narrow {label}: epis differs by {err} > {bound}")
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+def _sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def end_to_end() -> dict:
+    """LlavaEngine.generate at full LLaVA-1.5-7B width and depth, bf16
+    synthetic weights: greedy, then exact K=3, 32 new tokens each.
+    Returns the main path's (exact K=3) launch counts."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import (
+        ensemble_decode_attention_fused as k1,
+    )
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import vision_uncertainty_fused as k2
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig, LlavaConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+
+    cfg = LlavaConfig()  # LLaVA-1.5-7B: Vicuna-7B + CLIP ViT-L/336
+    params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
+    print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
+
+    rng = np.random.default_rng(11)
+    ids = rng.integers(2, 32000, size=(1, 20))
+    ids[0, 0], ids[0, 5] = 1, cfg.image_token_index  # BOS; "USER: <image> ..."
+    pixels = rng.normal(size=(1, 3, 336, 336)).astype(np.float32)
+    T, max_len, L = 32, 1152, cfg.text.num_hidden_layers  # 1152 = 576 + 64 + 512
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    S = ids.shape[1] + cfg.vision.num_patches - 1
+
+    LlavaEngine(  # warm-up: cuBLAS handles, allocator pools
+        cfg=cfg, params=params, gen=GenerationConfig(max_new_tokens=3, eos_token_id=-1),
+        max_len=max_len,
+    ).generate(ids, pixels)
+
+    counts = {}
+    for label, ensemble, per_step in (("greedy", False, L), ("exact K=3", True, 2 * L)):
+        eng = LlavaEngine(cfg=cfg, params=params, gen=gen, max_len=max_len, ensemble=ensemble)
+        prefill_s = statistics.median(_sync_time(lambda: eng.prefill(ids, pixels))[1] for _ in range(3))
+        state = eng.prefill(ids, pixels)
+        _, decode_s = _sync_time(lambda: eng.decode(state))
+
+        torch.cuda.reset_peak_memory_stats()
+        k1.launches = k2.launches = 0
+        result, total_s = _sync_time(lambda: eng.generate(ids, pixels))  # the main path
+        counts[label] = (k1.launches, k2.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        tok = result.tokens
+        if tok.shape != (1, T) or not ((tok >= 0) & (tok < cfg.text.vocab_size)).all():
+            raise AssertionError(f"{label}: bad tokens {tok}")
+        unc = eng.prefill(ids, pixels).uncertainty
+        for key, v in unc.items():
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"{label}: non-finite uncertainty field {key}")
+        if unc["epis_uncert_per_token"].shape != (1, cfg.vision.num_patches):
+            raise AssertionError(f"{label}: epis shape {tuple(unc['epis_uncert_per_token'].shape)}")
+        want = ((T - 1) * per_step, 1)
+        print(
+            f"{label}: prompt {S} tokens, prefill {prefill_s * 1e3:.1f} ms, decode "
+            f"{(T - 1) / decode_s:.2f} tokens/s ({decode_s / (T - 1) * 1e3:.2f} ms/step), "
+            f"generate {T / total_s:.2f} tokens/s end to end, peak {peak:.2f} GiB, "
+            f"launches K1 {counts[label][0]} K2 {counts[label][1]} (want {want[0]}, {want[1]}); "
+            f"tokens {tok[0, :8].tolist()}..."
+        )
+        if counts[label] != want:
+            raise AssertionError(f"{label}: launch counts {counts[label]} != {want}")
+    return {"K1": counts["exact K=3"][0], "K2": counts["exact K=3"][1]}
+
+
+KERNELS = {
+    "K1": {
+        "name": "ensemble_decode_attention",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K2": {
+        "name": "vision_uncertainty",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
+    },
+}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks in full fp32
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    card = identity()
+    build()
+    records = check_kernels()
+    small_reference()
+    launches = end_to_end()
+    kernels = [
+        {**KERNELS[k], "launches": launches[k], **records[k]} for k in ("K1", "K2")
+    ]
+    print(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

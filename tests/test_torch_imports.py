@@ -1,0 +1,89 @@
+"""The PyTorch port stands alone: it imports no JAX, its config copies agree
+with the JAX package's field by field, and ``chip_smoke.py`` refuses to run
+without a GPU."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+
+from dropoutdecoding_tpu.utils import config as jax_config
+from dropoutdecoding_tpu_torch.utils import config as torch_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import dropoutdecoding_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "dropoutdecoding_tpu.")))
+print(len(names), leaked)
+"""
+
+
+def _run(args, cwd=ROOT, timeout=120):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run(
+        [sys.executable, *args], cwd=cwd, env=env, capture_output=True, text=True,
+        timeout=timeout,
+    )
+
+
+def test_port_modules_import_no_jax():
+    proc = _run(["-c", _IMPORT_ALL])
+    assert proc.returncode == 0, proc.stderr
+    n, leaked = proc.stdout.strip().split(" ", 1)
+    assert int(n) >= 18  # every module of the slice was imported
+    assert leaked == "[]", f"port modules pulled in {leaked}"
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["LlamaConfig", "ClipVisionConfig", "LlavaConfig", "EnsembleConfig", "GenerationConfig"],
+)
+def test_config_copies_agree(name):
+    ours, ref = getattr(torch_config, name)(), getattr(jax_config, name)()
+    assert [f.name for f in dataclasses.fields(ours)] == [
+        f.name for f in dataclasses.fields(ref)
+    ]
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+
+
+def test_config_constructors_agree():
+    hf = {
+        "text_config": {
+            "vocab_size": 64, "hidden_size": 48, "intermediate_size": 96,
+            "num_hidden_layers": 2, "num_attention_heads": 4,
+            "num_key_value_heads": 2, "rope_theta": 5e5,
+        },
+        "vision_config": {
+            "hidden_size": 32, "intermediate_size": 64, "num_hidden_layers": 3,
+            "num_attention_heads": 4, "image_size": 28, "patch_size": 7,
+        },
+        "image_token_index": 32,
+    }
+    ours = torch_config.LlavaConfig.from_hf_dict(hf)
+    ref = jax_config.LlavaConfig.from_hf_dict(hf)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.vision.num_patches == ref.vision.num_patches == 16
+    for n in range(7):
+        assert torch_config.EnsembleConfig.voting_probs_for(
+            n
+        ) == jax_config.EnsembleConfig.voting_probs_for(n)
+    assert torch_config.EnsembleConfig().k == jax_config.EnsembleConfig().k == 3
+
+
+def test_chip_smoke_refuses_without_gpu(tmp_path):
+    # on a machine without CUDA it must exit non-zero and print no result
+    proc = _run([os.path.join(ROOT, "chip_smoke.py")])
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    # alone in a directory, without the port beside it, it fails too
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    proc = _run([str(alone)], cwd=tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
