@@ -7,20 +7,25 @@ Phases, each fatal on failure:
 
 1. Card identity: ``nvidia-smi`` name and power limit, torch, CUDA and nvcc
    versions.
-2. Build: compiles ``dropoutdecoding_tpu_torch/csrc/*.cu`` for sm_90a (or
-   reuses the build in ``dropoutdecoding_tpu_torch/_build/``).
+2. Build: compiles ``dropoutdecoding_tpu_torch/csrc/*.cu`` for sm_90a, one
+   nvcc per source, all at once (or reuses the build in
+   ``dropoutdecoding_tpu_torch/_build/``).
 3. Kernel vs plain twin at the slice shapes: K1 (ensemble decode attention,
    B=1, M in {1, 3}, H = KH = 32, D = 128, S = 1152, bf16, with mask
-   holes; a G = 4 case and the fp32 instantiation) and K2 (visual-token
-   uncertainty at [1, 576, 32064] fp32, with and without ``valid``).  Times
-   are the median of 30 warmed launches with CUDA events, L2 flushed
-   before each.
+   holes; a G = 4 case and the fp32 instantiation), K3 (the same over an
+   int8 cache with scales in [0.01, 0.03]), K4 (the int8 cache append at
+   [32, 1, 1152, 4096] and a B = 2 case, bit-equal) and K2 (visual-token
+   uncertainty at [1, 576, 32064] fp32, with and without ``valid``).
+   Times are the median of 30 CUDA-graph replays, L2 flushed before each.
 4. Small-model reference: a narrow LLaVA in fp32 through
    ``LlavaEngine.generate`` on the card (kernels) and on the CPU (plain
-   twins), with the same injected mask draws: tokens must be equal.
-5. End to end: ``LlavaEngine.generate`` at full LLaVA-1.5-7B width and depth
-   with synthetic bf16 weights, greedy then exact K=3, 32 new tokens each,
-   with the launch counts checked.
+   twins), with the same injected mask draws, with dense weights and a
+   dense cache, then int8 fused weights and ``int8_kv=True``: tokens must
+   be equal.
+5. End to end: ``LlavaEngine.generate`` at full LLaVA-1.5-7B width and depth,
+   greedy then exact K=3, 32 new tokens each, with every kernel's launch
+   count checked: first synthetic bf16 weights and a bf16 cache (K1, K2),
+   then synthetic int8 fused weights and an int8 cache (K2, K3, K4).
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -29,6 +34,7 @@ GPU is present or the port is missing.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -37,7 +43,13 @@ import time
 import torch
 
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # atol; see CHANGES.md
+K3_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # bf16: of max|ref|, fp32: atol
 K2_RTOL = 1e-4
+# narrow model, card vs CPU: epis within this share of its largest value.
+# int8 gets a few times its measured gap: the int8 head rounds its input to
+# bf16, so a hidden value near a rounding boundary can round apart on the
+# two devices.  See CHANGES.md.
+NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3}
 
 
 def _card_line() -> str:
@@ -55,6 +67,8 @@ def identity() -> str:
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True, check=True)
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
+    print(f"host: cpu capability {torch.backends.cpu.get_cpu_capability()}, "
+          f"{torch.get_num_threads()} threads, {os.cpu_count()} cpus")
     print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}")
     return card
 
@@ -114,29 +128,45 @@ def time_ms(fn, reps: int = 30) -> float:
     return median_replay(both) - median_replay(flush_only)
 
 
-def _k1_inputs(B, M, H, KH, D, S, cur, dtype, seed, dead_member=False):
+def _decode_inputs(B, M, H, KH, D, S, cur, dtype, seed, dead_member=False, int8=False):
+    """K1's arguments (q, kc, vc, kn, vn, mask), or with ``int8`` K3's
+    (q, kq, ks, vq, vs, kn, vn, mask)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     q, kn, vn = rnd(B, M, H, D), rnd(B, M, KH, D), rnd(B, M, KH, D)
-    kc, vc = rnd(B, S, KH, D), rnd(B, S, KH, D)
+    kc, vc = (None, None) if int8 else (rnd(B, S, KH, D), rnd(B, S, KH, D))
     slots = torch.arange(S, device="cuda")
     mask = (slots < cur).expand(B, M, S).clone()
     holes = torch.rand(B, M, S, generator=g, device="cuda") < 0.4
     mask &= ~(holes & (slots >= 5) & (slots < 5 + 576))  # dropped visual tokens
     if dead_member:
         mask[:, -1] = False  # attends only its own token
-    return q, kc, vc, kn, vn, mask
+    if not int8:
+        return q, kc, vc, kn, vn, mask
+
+    def panel():
+        return torch.randint(-127, 128, (B, S, KH, D), dtype=torch.int8, device="cuda",
+                             generator=g)
+
+    def scales():
+        return torch.empty(B, KH, S, device="cuda").uniform_(0.01, 0.03, generator=g)
+
+    return q, panel(), scales(), panel(), scales(), kn, vn, mask
 
 
 def check_kernels() -> dict:
     """Each kernel against its plain twin on the card; returns the JSON
     records of the slice-shape cases, keyed by kernel."""
-    from dropoutdecoding_tpu_torch.ops.attention import ensemble_decode_attention
+    from dropoutdecoding_tpu_torch.ops.attention import (
+        ensemble_decode_attention,
+        ensemble_decode_attention_int8kv,
+    )
     from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import (
         ensemble_decode_attention_fused,
+        ensemble_decode_attention_int8kv_fused,
     )
     from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
         vision_uncertainty_fused,
@@ -145,29 +175,41 @@ def check_kernels() -> dict:
 
     records = {}
     S, cur = 1152, 620
-    k1_cases = [  # (label, B, M, H, KH, D, dtype, dead member)
+    cases = [  # (label, B, M, H, KH, D, dtype, dead member)
         ("M=3 G=1 bf16", 1, 3, 32, 32, 128, torch.bfloat16, False),
         ("M=1 G=1 bf16", 1, 1, 32, 32, 128, torch.bfloat16, False),
         ("M=3 G=1 bf16 dead member", 1, 3, 32, 32, 128, torch.bfloat16, True),
         ("M=3 G=4 bf16", 1, 3, 32, 8, 128, torch.bfloat16, False),
         ("M=3 G=1 fp32", 1, 3, 32, 32, 128, torch.float32, False),
     ]
-    for i, (label, B, M, H, KH, D, dtype, dead) in enumerate(k1_cases):
-        args = _k1_inputs(B, M, H, KH, D, S, cur, dtype, seed=100 + i, dead_member=dead)
-        got = ensemble_decode_attention_fused(*args)
-        torch.cuda.synchronize()
-        ref = ensemble_decode_attention(*args)
-        err = (got.float() - ref.float()).abs().max().item()
-        ms = time_ms(lambda: ensemble_decode_attention_fused(*args))
-        plain_ms = time_ms(lambda: ensemble_decode_attention(*args))
-        print(
-            f"K1 {label}: max_abs_err {err:.3e} (atol {K1_TOL[dtype]:g}), "
-            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
-        )
-        if not err <= K1_TOL[dtype]:
-            raise AssertionError(f"K1 {label}: max_abs_err {err} > {K1_TOL[dtype]}")
-        if i == 0:
-            records["K1"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    attention = (  # (kernel, wrapper, plain twin, int8 cache, tolerance, seed base)
+        ("K1", ensemble_decode_attention_fused, ensemble_decode_attention, False, K1_TOL, 100),
+        ("K3", ensemble_decode_attention_int8kv_fused, ensemble_decode_attention_int8kv, True,
+         K3_TOL, 200),
+    )
+    for name, kernel, twin, int8, tol, seed in attention:
+        for i, (label, B, M, H, KH, D, dtype, dead) in enumerate(cases):
+            args = _decode_inputs(
+                B, M, H, KH, D, S, cur, dtype, seed=seed + i, dead_member=dead, int8=int8
+            )
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            ref = twin(*args)
+            err = (got.float() - ref.float()).abs().max().item()
+            relative = int8 and dtype == torch.bfloat16
+            bound = tol[dtype] * (ref.float().abs().max().item() if relative else 1.0)
+            ms = time_ms(lambda: kernel(*args))
+            plain_ms = time_ms(lambda: twin(*args))
+            print(
+                f"{name} {label}: max_abs_err {err:.3e} (bound {bound:.3e}), "
+                f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
+            )
+            if not err <= bound:
+                raise AssertionError(f"{name} {label}: max_abs_err {err} > {bound}")
+            if i == 0:
+                records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    records["K4"] = check_cache_append()
 
     g = torch.Generator(device="cuda").manual_seed(7)
     logits = 3.0 * torch.randn(1, 576, 32064, generator=g, device="cuda")
@@ -195,6 +237,53 @@ def check_kernels() -> dict:
     return records
 
 
+def check_cache_append() -> dict:
+    """K4 against its twin from the same random int8 cache: the whole q and
+    s buffers must be bit-equal.  Returns the record of the 7B-shape case."""
+    from dropoutdecoding_tpu_torch.ops.cuda_cache_append import (
+        cache_append_int8,
+        cache_append_int8_twin,
+    )
+
+    record = None
+    # (label, L, B, S, KH, D, cur_len, dtype)
+    cases = [
+        ("[32, 1, 1152, 4096] bf16", 32, 1, 1152, 32, 128, [620], torch.bfloat16),
+        ("[32, 2, 1152, 4096] bf16, cur_len 620 / 1151", 32, 2, 1152, 32, 128, [620, 1151],
+         torch.bfloat16),
+        ("[32, 1, 1152, 4096] fp32", 32, 1, 1152, 32, 128, [7], torch.float32),
+    ]
+    for i, (label, L, B, S, KH, D, cur, dtype) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(300 + i)
+        kq, vq = (torch.randint(-127, 128, (L, B, S, KH * D), dtype=torch.int8, device="cuda",
+                                generator=g) for _ in range(2))
+        ks, vs = (torch.rand(L, B, KH, S, device="cuda", generator=g) for _ in range(2))
+        k_new, v_new = (3 * torch.randn(L, B, KH, D, device="cuda", generator=g) for _ in range(2))
+        k_new[0, 0, 0] = 0.0  # a zero row: scale 1
+        k_new, v_new = k_new.to(dtype), v_new.to(dtype)
+        cur_len = torch.tensor(cur, dtype=torch.long, device="cuda")
+        got = [t.clone() for t in (kq, ks, vq, vs)]
+        ref = [t.clone() for t in (kq, ks, vq, vs)]
+        cache_append_int8(*got, cur_len, k_new, v_new)
+        torch.cuda.synchronize()
+        cache_append_int8_twin(*ref, cur_len, k_new, v_new)
+        diff = [int((a != b).sum()) for a, b in zip(got, ref)]  # per kq, ks, vq, vs
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref))
+        changed = sum(int((a != b).sum()) for a, b in zip(got, (kq, ks, vq, vs)))
+        ms = time_ms(lambda: cache_append_int8(*got, cur_len, k_new, v_new))
+        plain_ms = time_ms(lambda: cache_append_int8_twin(*ref, cur_len, k_new, v_new))
+        print(
+            f"K4 {label}: {sum(diff)} elements differ from the twin (want 0; kq, ks, vq, vs: "
+            f"{diff}), max_abs_err {err:g}, {changed} written, kernel {ms * 1e3:.1f} us, "
+            f"plain {plain_ms * 1e3:.1f} us"
+        )
+        if sum(diff) or not changed:
+            raise AssertionError(f"K4 {label}: {diff} elements differ, {changed} written")
+        if record is None:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return record
+
+
 def _narrow_config():
     from dropoutdecoding_tpu_torch.utils.config import ClipVisionConfig, LlamaConfig, LlavaConfig
 
@@ -211,17 +300,21 @@ def _narrow_config():
     )
 
 
-def small_reference() -> None:
+def small_reference(int8: bool) -> None:
     """A narrow LLaVA in fp32 on the card (kernels) and on the CPU (plain
     twins) with one table of injected mask draws: equal tokens, close epis.
     Weights are scaled up from the synthetic recipe so the logits are
-    sharp enough for argmax to be stable against summation order."""
+    sharp enough for argmax to be stable against summation order.  With
+    ``int8``: the LM's weights quantized and fused, as the JAX CLI's
+    ``--quantize int8``, and an int8 KV cache.  A CPU prefill in fp64
+    anchors the epis of both sides, so a miss shows which side moved."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
     from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+    from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params
 
     cfg = _narrow_config()
     params = synthetic_llava_params(cfg, "cpu", torch.float32, seed=3)
@@ -231,6 +324,9 @@ def small_reference() -> None:
                 for k, v in tree.items()}
 
     params = LlavaParams(*(sharpen(p) for p in params))
+    if int8:
+        params = params._replace(lm=fuse_projections(quantize_llama_params(params.lm)))
+    tier = "int8" if int8 else "fp32"
     rng = np.random.default_rng(5)
     draws = torch.from_numpy(rng.random((16, 1, 3, cfg.vision.num_patches), dtype=np.float32))
     ids = np.array([[1, 17, 29, 500, 41, 53, 67, 71, 83]])
@@ -241,30 +337,44 @@ def small_reference() -> None:
         p = LlavaParams(*(_to(part, device) for part in params))
         for ensemble in (False, True):
             eng = LlavaEngine(
-                cfg=cfg, params=p, gen=gen, max_len=128, ensemble=ensemble,
+                cfg=cfg, params=p, gen=gen, max_len=128, ensemble=ensemble, int8_kv=int8,
                 uniform=lambda step, row, m, n: draws[step, row, m, :n],
             )
             state = eng.prefill(ids, pixels)
             out[device, ensemble] = (eng.generate(ids, pixels).tokens, state.epis.cpu())
+    wide = LlavaParams(*(_to(part, "cpu", torch.float64) for part in params))
+    epis64 = LlavaEngine(cfg=cfg, params=wide, gen=gen, max_len=128, int8_kv=int8).prefill(
+        ids, pixels.astype(np.float64)
+    ).epis
     for ensemble in (False, True):
         (tok_g, epis_g), (tok_c, epis_c) = out["cuda", ensemble], out["cpu", ensemble]
-        err = (epis_g - epis_c).abs().max().item()
+        d = (epis_g - epis_c).abs()
+        err, worst = d.max().item(), int(d.argmax())
         # fp32 on two devices: every matmul sums in another order, and epis
         # = -alea - C cancels terms of about log V
-        bound = 1e-4 * epis_c.abs().max().item()
+        bound = NARROW_EPIS_RTOL[tier] * epis_c.abs().max().item()
         label = "exact K=3" if ensemble else "greedy"
         print(
-            f"narrow fp32 {label}: card {tok_g[0].tolist()} cpu {tok_c[0].tolist()} "
-            f"epis err {err:.2e} (bound {bound:.2e})"
+            f"narrow {tier} {label}: card {tok_g[0].tolist()} cpu {tok_c[0].tolist()} "
+            f"epis err {err:.2e} (bound {bound:.2e}); from the fp64 prefill: card "
+            f"{(epis_g - epis64).abs().max().item():.2e}, cpu "
+            f"{(epis_c - epis64).abs().max().item():.2e}; worst token {worst}: card "
+            f"{epis_g.flatten()[worst].item():.7g} cpu {epis_c.flatten()[worst].item():.7g} "
+            f"fp64 {epis64.flatten()[worst].item():.7g}"
         )
         if not np.array_equal(tok_g, tok_c):
-            raise AssertionError(f"narrow {label}: card tokens differ from the CPU twins'")
+            raise AssertionError(f"narrow {tier} {label}: card tokens differ from the CPU twins'")
         if not err <= bound:
-            raise AssertionError(f"narrow {label}: epis differs by {err} > {bound}")
+            raise AssertionError(f"narrow {tier} {label}: epis differs by {err} > {bound}")
 
 
-def _to(tree, device):
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+def _to(tree, device, float_dtype=None):
+    """``tree`` on ``device``; with ``float_dtype``, its float leaves in it."""
+    def leaf(v):
+        return v.to(device, float_dtype) if float_dtype and v.is_floating_point() else v.to(device)
+
+    return {k: _to(v, device, float_dtype) if isinstance(v, dict) else leaf(v)
+            for k, v in tree.items()}
 
 
 def _sync_time(fn):
@@ -275,70 +385,120 @@ def _sync_time(fn):
     return out, time.perf_counter() - t0
 
 
-def end_to_end() -> dict:
-    """LlavaEngine.generate at full LLaVA-1.5-7B width and depth, bf16
-    synthetic weights: greedy, then exact K=3, 32 new tokens each.
-    Returns the main path's (exact K=3) launch counts."""
-    import numpy as np
-
-    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+def _wrappers() -> dict:
+    """Each kernel's wrapper, keyed by kernel; each counts its launches."""
+    from dropoutdecoding_tpu_torch.ops.cuda_cache_append import cache_append_int8
     from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import (
-        ensemble_decode_attention_fused as k1,
+        ensemble_decode_attention_fused,
+        ensemble_decode_attention_int8kv_fused,
     )
-    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import vision_uncertainty_fused as k2
-    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig, LlavaConfig
-    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import vision_uncertainty_fused
 
-    cfg = LlavaConfig()  # LLaVA-1.5-7B: Vicuna-7B + CLIP ViT-L/336
-    params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
-    print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
+    return {
+        "K1": ensemble_decode_attention_fused,
+        "K2": vision_uncertainty_fused,
+        "K3": ensemble_decode_attention_int8kv_fused,
+        "K4": cache_append_int8,
+    }
 
-    rng = np.random.default_rng(11)
-    ids = rng.integers(2, 32000, size=(1, 20))
-    ids[0, 0], ids[0, 5] = 1, cfg.image_token_index  # BOS; "USER: <image> ..."
-    pixels = rng.normal(size=(1, 3, 336, 336)).astype(np.float32)
+
+def drive(cfg, params, tier: str, int8_kv: bool, ids, pixels) -> dict:
+    """Greedy, then exact K=3: 32 new tokens each through
+    ``LlavaEngine.generate`` (the main path), with every kernel's launch
+    count set to 0 just before and checked just after.  Returns the exact
+    K=3 run's counts."""
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    wrappers = _wrappers()
     T, max_len, L = 32, 1152, cfg.text.num_hidden_layers  # 1152 = 576 + 64 + 512
     gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
     S = ids.shape[1] + cfg.vision.num_patches - 1
 
     LlavaEngine(  # warm-up: cuBLAS handles, allocator pools
         cfg=cfg, params=params, gen=GenerationConfig(max_new_tokens=3, eos_token_id=-1),
-        max_len=max_len,
+        max_len=max_len, int8_kv=int8_kv,
     ).generate(ids, pixels)
 
-    counts = {}
+    counts = None
     for label, ensemble, per_step in (("greedy", False, L), ("exact K=3", True, 2 * L)):
-        eng = LlavaEngine(cfg=cfg, params=params, gen=gen, max_len=max_len, ensemble=ensemble)
+        eng = LlavaEngine(
+            cfg=cfg, params=params, gen=gen, max_len=max_len, ensemble=ensemble, int8_kv=int8_kv
+        )
         prefill_s = statistics.median(_sync_time(lambda: eng.prefill(ids, pixels))[1] for _ in range(3))
         state = eng.prefill(ids, pixels)
         _, decode_s = _sync_time(lambda: eng.decode(state))
+        del state
 
         torch.cuda.reset_peak_memory_stats()
-        k1.launches = k2.launches = 0
+        for fn in wrappers.values():
+            fn.launches = 0
         result, total_s = _sync_time(lambda: eng.generate(ids, pixels))  # the main path
-        counts[label] = (k1.launches, k2.launches)
+        counts = {k: fn.launches for k, fn in wrappers.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
 
         tok = result.tokens
         if tok.shape != (1, T) or not ((tok >= 0) & (tok < cfg.text.vocab_size)).all():
-            raise AssertionError(f"{label}: bad tokens {tok}")
+            raise AssertionError(f"{tier} {label}: bad tokens {tok}")
         unc = eng.prefill(ids, pixels).uncertainty
         for key, v in unc.items():
             if not torch.isfinite(v).all():
-                raise AssertionError(f"{label}: non-finite uncertainty field {key}")
+                raise AssertionError(f"{tier} {label}: non-finite uncertainty field {key}")
         if unc["epis_uncert_per_token"].shape != (1, cfg.vision.num_patches):
-            raise AssertionError(f"{label}: epis shape {tuple(unc['epis_uncert_per_token'].shape)}")
-        want = ((T - 1) * per_step, 1)
+            raise AssertionError(
+                f"{tier} {label}: epis shape {tuple(unc['epis_uncert_per_token'].shape)}"
+            )
+        attention = (T - 1) * per_step  # every layer of every decode forward
+        want = {
+            "K1": 0 if int8_kv else attention,
+            "K2": 1,
+            "K3": attention if int8_kv else 0,
+            "K4": T - 1 if int8_kv else 0,  # one append per decode step
+        }
         print(
-            f"{label}: prompt {S} tokens, prefill {prefill_s * 1e3:.1f} ms, decode "
+            f"{tier} {label}: prompt {S} tokens, prefill {prefill_s * 1e3:.1f} ms, decode "
             f"{(T - 1) / decode_s:.2f} tokens/s ({decode_s / (T - 1) * 1e3:.2f} ms/step), "
             f"generate {T / total_s:.2f} tokens/s end to end, peak {peak:.2f} GiB, "
-            f"launches K1 {counts[label][0]} K2 {counts[label][1]} (want {want[0]}, {want[1]}); "
-            f"tokens {tok[0, :8].tolist()}..."
+            f"launches {counts} (want {want}); tokens {tok[0, :8].tolist()}..."
         )
-        if counts[label] != want:
-            raise AssertionError(f"{label}: launch counts {counts[label]} != {want}")
-    return {"K1": counts["exact K=3"][0], "K2": counts["exact K=3"][1]}
+        if counts != want:
+            raise AssertionError(f"{tier} {label}: launch counts {counts} != {want}")
+    return counts
+
+
+def end_to_end() -> dict:
+    """LlavaEngine.generate at full LLaVA-1.5-7B width and depth, first with
+    synthetic bf16 weights and a bf16 cache, then with synthetic int8 fused
+    weights and an int8 cache.  Returns each kernel's launch count from the
+    exact K=3 run of the tier that runs it."""
+    import gc
+
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.config import LlavaConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_int8_lm, synthetic_llava_params
+
+    cfg = LlavaConfig()  # LLaVA-1.5-7B: Vicuna-7B + CLIP ViT-L/336
+    rng = np.random.default_rng(11)
+    ids = rng.integers(2, 32000, size=(1, 20))
+    ids[0, 0], ids[0, 5] = 1, cfg.image_token_index  # BOS; "USER: <image> ..."
+    pixels = rng.normal(size=(1, 3, 336, 336)).astype(np.float32)
+
+    params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
+    print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
+    dense = drive(cfg, params, "bf16", False, ids, pixels)
+
+    # free the bf16 tower before the int8 one exists; keep vision + projector
+    vision, projector = params.vision, params.projector
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, secs = _sync_time(lambda: synthetic_int8_lm(cfg.text, "cuda", seed=0))
+    params = LlavaParams(vision, projector, lm)
+    print(f"synthetic int8 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
+    int8 = drive(cfg, params, "int8", True, ids, pixels)
+    return {"K1": dense["K1"], "K2": dense["K2"], "K3": int8["K3"], "K4": int8["K4"]}
 
 
 KERNELS = {
@@ -354,6 +514,18 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
     },
+    "K3": {
+        "name": "ensemble_decode_attention_int8kv",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:234",
+    },
+    "K4": {
+        "name": "cache_append_int8",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/cache_append.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:605",
+    },
 }
 
 
@@ -367,11 +539,10 @@ def main() -> int:
     card = identity()
     build()
     records = check_kernels()
-    small_reference()
+    small_reference(int8=False)
+    small_reference(int8=True)
     launches = end_to_end()
-    kernels = [
-        {**KERNELS[k], "launches": launches[k], **records[k]} for k in ("K1", "K2")
-    ]
+    kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

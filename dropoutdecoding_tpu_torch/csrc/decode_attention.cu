@@ -1,10 +1,13 @@
-// K1: ensemble decode attention for Hopper (sm_90a).
+// K1 and K3: ensemble decode attention for Hopper (sm_90a), over a dense
+// cache (K1) or an int8 cache with per-(token, head) scales (K3).
 //
-// Replaces the TPU kernel ensemble_decode_attention_fused
+// K1 replaces the TPU kernel ensemble_decode_attention_fused
 // (dropoutdecoding_tpu/ops/pallas_decode_attention.py:166, body _kernel_bf16
-// :111) and its layered twin ensemble_decode_attention_layered (:533): the
-// layer index is a pointer offset into the [L, B, S, KH, D] cache, taken by
-// the Python wrapper.
+// :111) and its layered twin ensemble_decode_attention_layered (:533); K3
+// replaces ensemble_decode_attention_int8kv_fused (:234, body _kernel :48)
+// and its layered twin ensemble_decode_attention_int8kv_layered (:457,
+// _kernel_layered_int8 :322).  In both, the layer index is a pointer offset
+// into the full cache, taken by the Python wrapper.
 //
 // For each (b, m, h) with kv group g = h / G (G = H / KH, the repeat_kv
 // interleave), the output is the softmax over the cache scores q.k_s/sqrt(D)
@@ -32,8 +35,19 @@
 // softmaxes with the self score (fp32 online-softmax rescaling) and writes
 // the output in the input type.
 //
-// Templated on bf16 and fp32 inputs; every sum is fp32.  Simple and correct
-// first: wgmma and TMA are later work.
+// K3 is the same two passes with the cache panels in int8 (one 16-byte load
+// is 16 values; a D = 128 head row is 128 B) and the scales of the tile's 64
+// slots, contiguous in the head-major [B, KH, S] layout, staged beside them.
+// The key scale multiplies the score after the dot, and the value scale the
+// unnormalised probability before PV, as the reference does; the softmax
+// denominator takes the unscaled probabilities.  At the int8 slice's fill
+// (620 slots x 32 heads x 128 x 2 panels) a layer reads 5.1 MB, about 1.5 us
+// at 3.35 TB/s; K1 runs at ~13x its byte floor, so latency (the launch, the
+// dependent load-reduce chain of each tile, the combine), not bytes, is what
+// bounds this simple version.
+//
+// Templated on bf16 and fp32 activations and on the cache element type; every
+// sum is fp32.  Simple and correct first: wgmma and TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,6 +62,7 @@ constexpr int kMaxDPerLane = 8;  // D <= 256
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
@@ -99,23 +114,30 @@ __device__ __forceinline__ void load_rows(T* __restrict__ dst, const T* __restri
 
 __host__ __device__ constexpr size_t align16(size_t bytes) { return (bytes + 15) & ~size_t(15); }
 
-// Shared-memory layout of partial_kernel, in bytes.
+// Shared-memory layout of partial_kernel, in bytes; elem is the size of a
+// cache element.
 struct Smem {
-  size_t q, p, k, v, total;
+  size_t q, p, ks, vs, k, v, total;
   __host__ __device__ Smem(int R, int D, int chunk, size_t elem) {
     q = 0;                                                  // [R, D] fp32, pre-scaled
     p = align16(q + (size_t)R * D * sizeof(float));         // [R, chunk] fp32
-    k = align16(p + (size_t)R * chunk * sizeof(float));     // [chunk, D] T
-    v = align16(k + (size_t)chunk * D * elem);              // [chunk, D] T
+    ks = align16(p + (size_t)R * chunk * sizeof(float));    // [chunk] fp32 key scales
+    vs = align16(ks + (size_t)chunk * sizeof(float));       // [chunk] fp32 value scales
+    k = align16(vs + (size_t)chunk * sizeof(float));        // [chunk, D] C
+    v = align16(k + (size_t)chunk * D * elem);              // [chunk, D] C
     total = align16(v + (size_t)chunk * D * elem);
   }
 };
 
-template <typename T>
+// T: activation type; C: cache element type (T for K1, int8_t for K3, whose
+// ks / vs are then non-null).
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads) partial_kernel(
     const T* __restrict__ q,           // [B, M, H, D]
-    const T* __restrict__ kc,          // [B, S, KH, D]
-    const T* __restrict__ vc,          // [B, S, KH, D]
+    const C* __restrict__ kc,          // [B, S, KH, D]
+    const C* __restrict__ vc,          // [B, S, KH, D]
+    const float* __restrict__ ks,      // [B, KH, S] key scales, or null
+    const float* __restrict__ vs,      // [B, KH, S] value scales, or null
     const uint8_t* __restrict__ mask,  // [B, M, S]
     float* __restrict__ part_m,        // [B*KH, nsplit, R]
     float* __restrict__ part_l,        // [B*KH, nsplit, R]
@@ -146,16 +168,27 @@ __global__ void __launch_bounds__(kThreads) partial_kernel(
   }
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem lay(R, D, chunk, sizeof(T));
+  const Smem lay(R, D, chunk, sizeof(C));
   float* q_s = reinterpret_cast<float*>(smem_raw + lay.q);
   float* p_s = reinterpret_cast<float*>(smem_raw + lay.p);
-  T* k_s = reinterpret_cast<T*>(smem_raw + lay.k);
-  T* v_s = reinterpret_cast<T*>(smem_raw + lay.v);
+  float* ks_s = reinterpret_cast<float*>(smem_raw + lay.ks);
+  float* vs_s = reinterpret_cast<float*>(smem_raw + lay.vs);
+  C* k_s = reinterpret_cast<C*>(smem_raw + lay.k);
+  C* v_s = reinterpret_cast<C*>(smem_raw + lay.v);
+  const bool scaled = ks != nullptr;
 
-  // The group's K and V panels for this tile, every load in flight at once.
+  // The group's K and V panels for this tile, every load in flight at once,
+  // and for an int8 cache the tile's scale rows.
   const size_t row0 = (((size_t)b * S + s0) * KH + g) * D;
   load_rows(k_s, kc + row0, (size_t)KH * D, n, D);
   load_rows(v_s, vc + row0, (size_t)KH * D, n, D);
+  if (scaled) {
+    const size_t srow = ((size_t)b * KH + g) * S + s0;
+    for (int s = tid; s < n; s += kThreads) {
+      ks_s[s] = ks[srow + s];
+      vs_s[s] = vs[srow + s];
+    }
+  }
   for (int i = tid; i < R * D; i += kThreads) {
     const int r = i / D, d = i - r * D;
     const int m = r / G, j = r - m * G;
@@ -166,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) partial_kernel(
   // Scores: one warp per slot, lanes across D; every query row of the
   // group reads the slot's key once.
   for (int s = warp; s < n; s += kWarps) {
-    const T* krow = k_s + s * D;
+    const C* krow = k_s + s * D;
     float kv[kMaxDPerLane];
 #pragma unroll
     for (int i = 0; i < kMaxDPerLane; ++i) {
@@ -185,13 +218,14 @@ __global__ void __launch_bounds__(kThreads) partial_kernel(
       if (lane == 0) {
         const int m = r / G;
         const bool on = mask[((size_t)b * M + m) * S + s0 + s] != 0;
-        p_s[r * chunk + s] = on ? acc : -INFINITY;
+        p_s[r * chunk + s] = on ? (scaled ? acc * ks_s[s] : acc) : -INFINITY;
       }
     }
   }
   __syncthreads();
 
-  // The tile's softmax statistics per row: one warp per row.
+  // The tile's softmax statistics per row: one warp per row.  The sum takes
+  // the unscaled exponentials; PV reads them times the value scale.
   for (int r = warp; r < R; r += kWarps) {
     float* pr = p_s + r * chunk;
     float mx = -INFINITY;
@@ -201,7 +235,7 @@ __global__ void __launch_bounds__(kThreads) partial_kernel(
     for (int s = lane; s < n; s += 32) {
       const float sc = pr[s];
       const float e = sc == -INFINITY ? 0.f : expf(sc - mx);
-      pr[s] = e;
+      pr[s] = scaled ? e * vs_s[s] : e;
       sum += e;
     }
     sum = warp_sum(sum);
@@ -288,21 +322,23 @@ __global__ void __launch_bounds__(kThreads) combine_kernel(
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* kc, const void* vc, const void* kn,
-                   const void* vn, const void* mask, void* out, void* part_m,
-                   void* part_l, void* part_acc, int B, int M, int H, int KH, int S,
-                   int D, int chunk, float scale, cudaStream_t stream) {
+template <typename T, typename C>
+cudaError_t launch(const void* q, const void* kc, const void* ks, const void* vc,
+                   const void* vs, const void* kn, const void* vn, const void* mask,
+                   void* out, void* part_m, void* part_l, void* part_acc, int B, int M,
+                   int H, int KH, int S, int D, int chunk, float scale,
+                   cudaStream_t stream) {
   const int R = M * (H / KH);
   const int nsplit = (S + chunk - 1) / chunk;
-  const size_t smem = Smem(R, D, chunk, sizeof(T)).total;
+  const size_t smem = Smem(R, D, chunk, sizeof(C)).total;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(partial_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(partial_kernel<T, C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  partial_kernel<T><<<dim3(B * KH, nsplit), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
+  partial_kernel<T, C><<<dim3(B * KH, nsplit), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const C*>(kc), static_cast<const C*>(vc),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
       static_cast<const uint8_t*>(mask), static_cast<float*>(part_m),
       static_cast<float*>(part_l), static_cast<float*>(part_acc), M, H, KH, S, D, chunk,
       scale);
@@ -331,12 +367,32 @@ extern "C" int dd_ensemble_decode_attention(
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(q, k_cache, v_cache, k_new, v_new, key_mask, out, part_m,
-                              part_l, part_acc, B, M, H, KH, S, D, chunk, scale, st);
+    return (int)launch<float, float>(q, k_cache, nullptr, v_cache, nullptr, k_new, v_new,
+                                     key_mask, out, part_m, part_l, part_acc, B, M, H, KH, S,
+                                     D, chunk, scale, st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k_cache, v_cache, k_new, v_new, key_mask, out,
-                                      part_m, part_l, part_acc, B, M, H, KH, S, D, chunk,
-                                      scale, st);
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_cache, nullptr, v_cache, nullptr, k_new, v_new, key_mask, out, part_m, part_l,
+        part_acc, B, M, H, KH, S, D, chunk, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3: the int8 cache q leaves [B, S, KH, D] and their scales [B, KH, S];
+// q and the new K/V in the activation dtype.
+extern "C" int dd_ensemble_decode_attention_int8kv(
+    int dtype, const void* q, const void* kq, const void* ks, const void* vq, const void* vs,
+    const void* k_new, const void* v_new, const void* key_mask, void* out, void* part_m,
+    void* part_l, void* part_acc, int B, int M, int H, int KH, int S, int D, int chunk,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (ks == nullptr || vs == nullptr) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float, int8_t>(q, kq, ks, vq, vs, k_new, v_new, key_mask, out, part_m,
+                                      part_l, part_acc, B, M, H, KH, S, D, chunk, scale, st);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, int8_t>(q, kq, ks, vq, vs, k_new, v_new, key_mask, out,
+                                              part_m, part_l, part_acc, B, M, H, KH, S, D,
+                                              chunk, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

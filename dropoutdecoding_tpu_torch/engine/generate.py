@@ -8,8 +8,13 @@ Per generated token, exact mode runs:
   2. the overlap keep-set from that forward's argmax, and the K members'
      drop masks from the prefill-time epistemic uncertainty;
   3. one M=K forward in which every member reads the shared cache
-     (K1, ``ops/cuda_decode_attention.py``);
-  4. the vote, and an append of only the winner's K/V to the cache.
+     (K1 over a dense cache, K3 over an int8 one,
+     ``ops/cuda_decode_attention.py``);
+  4. the vote, and an append of only the winner's K/V to the cache (K4,
+     ``ops/cuda_cache_append.py``, quantizes it into an int8 cache).
+
+``int8_kv=True`` with int8 weights (``utils/quantize.py``) is the JAX
+package's deployment tier (``--quantize int8 --int8-kv``).
 
 The loop makes no host sync per token: it reads ``done`` back only every
 ``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.
@@ -17,8 +22,9 @@ The loop makes no host sync per token: it reads ``done`` back only every
 Not ported yet (each raises ``NotImplementedError``): fused mode
 (``EnsembleConfig.fused_step``), sampling (``GenerationConfig.do_sample``),
 the text-mask policies, the mask policies other than "epis",
-"random_image" and "none" (among them ``epis_kl``), and the quantized
-tiers (``models/llama.py``).
+"random_image" and "none" (among them ``epis_kl``), and int4 weights
+(``models/llama.py``).  The JAX engine's w8a8 and int8-prefix-cache
+options have no counterpart yet (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -79,6 +85,7 @@ class LlavaEngine:
     ensemble: bool = True  # False => plain greedy
     text_logits_mask: bool = False
     text_mask_policy: str = "none"
+    int8_kv: bool = False  # int8 KV cache (K3 reads it, K4 appends to it)
     uniform: UniformSource | None = None
 
     def __post_init__(self):
@@ -129,7 +136,9 @@ class LlavaEngine:
         uncert = vision_uncertainty_auto(img_logits)
         topk_ids = exact_top_k_ids(img_logits, self.ens.topk)
 
-        cache = llama_mod.empty_cache(cfg.text, B, self.max_len, self.dtype, self.device)
+        cache = llama_mod.empty_cache(
+            cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv
+        )
         llama_mod.cache_seed(cache, kv)
         return PrefillState(
             cache=cache,

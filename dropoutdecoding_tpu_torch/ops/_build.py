@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
-No PyTorch header is compiled, so a build takes seconds.  The library is
-named by a hash of the sources and flags and cached under
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into one shared library
+with a plain C interface, which is loaded with ``ctypes``.  No PyTorch
+header is compiled, so a build takes seconds.  The library is named by a
+hash of the sources and flags and cached under
 ``dropoutdecoding_tpu_torch/_build/`` (ignored by git); it is built at the
 first kernel call, never at import.
 
@@ -24,10 +25,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+# No --use_fast_math: K4's quantizer must divide in IEEE fp32 to stay
+# bit-equal to its plain twin.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -35,6 +38,11 @@ _SIGNATURES = {
     # dtype, q, k_cache, v_cache, k_new, v_new, key_mask, out,
     # part_m, part_l, part_acc, B, M, H, KH, S, D, chunk, scale, stream
     "dd_ensemble_decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_F, _P],
+    # dtype, q, kq, ks, vq, vs, k_new, v_new, key_mask, out,
+    # part_m, part_l, part_acc, B, M, H, KH, S, D, chunk, scale, stream
+    "dd_ensemble_decode_attention_int8kv": [_I] + [_P] * 12 + [_I] * 7 + [_F, _P],
+    # dtype, k_new, v_new, kq, ks, vq, vs, cur_len, L, B, KH, S, D, stream
+    "dd_cache_append_int8": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # x, w, m, z, a, b, scratch, c, B, L, V, stream
     "dd_vision_uncertainty": [_P] * 8 + [_I] * 3 + [_P],
 }
@@ -66,21 +74,36 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources unless a library for their hash exists."""
+    """Compile the sources unless a library for their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
     log = out.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}); see {log}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: another process never loads a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        jobs = [
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(sources(), objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in jobs
+        ]
+        runs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(jobs, procs)]
+        if all(rc == 0 for _, _, rc in runs):
+            lib = Path(tmp) / out.name
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            runs.append((cmd, proc.stdout, proc.returncode))
+        log.write_text("".join(" ".join(cmd) + "\n" + text for cmd, text, _ in runs))
+        failed = [run for run in runs if run[2] != 0]
+        if failed:
+            cmd, text, rc = failed[0]
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}; see {log}\n{text}")
+        os.replace(lib, out)  # atomic: another process never loads a partial file
     return out
 
 

@@ -8,6 +8,8 @@
   its own key mask, plus each member's own new token.  It is the plain twin
   of the CUDA kernel in ``ops/cuda_decode_attention.py``: that wrapper calls
   it for CPU tensors, and ``chip_smoke.py`` holds the kernel against it.
+- ``ensemble_decode_attention_int8kv``: the same over an int8 cache with
+  per-(token, head) scales; the plain twin of K3.
 
 Operands in a reduced type are upcast to fp32 for the dots, which is what
 the JAX package's ``preferred_element_type=float32`` einsums compute (exact
@@ -102,4 +104,51 @@ def ensemble_decode_attention(
     self_probs = probs[..., -1:].to(vn.dtype).float()
     out = torch.einsum("bmhs,bshd->bmhd", cache_probs, vc.float())
     out = out + self_probs * vn.float()
+    return out.to(q.dtype)
+
+
+def ensemble_decode_attention_int8kv(
+    q: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    key_mask: torch.Tensor,
+) -> torch.Tensor:
+    """``ensemble_decode_attention`` over an int8 cache (``utils/quantize.
+    quantize_kv`` layout); the plain twin of K3 (``ops/
+    cuda_decode_attention.py``).
+
+    The per-key scales fold into the scores after the dot, the per-value
+    scales into the probabilities before PV, and those probabilities are
+    rounded to the activation dtype, as the JAX op does
+    (``dropoutdecoding_tpu/ops/attention.py:75``).
+
+    Args:
+      q: [B, M, H, D]; kq, vq: [B, S, KH, D] int8; ks, vs: [B, KH, S] f32
+      (the cache's stored scale layout); k_new, v_new: [B, M, KH, D]
+      (unquantized current token); key_mask: [B, M, S] bool.
+    Returns:
+      [B, M, H, D] in q's dtype.
+    """
+    B, M, H, D = q.shape
+    n_rep = H // kq.shape[2]
+    kc = repeat_kv(kq.to(q.dtype), n_rep).float()
+    vc = repeat_kv(vq.to(q.dtype), n_rep)
+    ksr = ks.repeat_interleave(n_rep, dim=1)  # [B, H, S]
+    vsr = vs.repeat_interleave(n_rep, dim=1)
+    kn = repeat_kv(k_new, n_rep).float()
+    vn = repeat_kv(v_new, n_rep).float()
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    cache_scores = torch.einsum("bmhd,bshd->bmhs", qf, kc) * scale
+    cache_scores = cache_scores * ksr[:, None]
+    cache_scores = cache_scores.masked_fill(~key_mask.bool()[:, :, None, :], _NEG_INF)
+    self_scores = (qf * kn).sum(-1, keepdim=True) * scale
+    probs = torch.softmax(torch.cat([cache_scores, self_scores], dim=-1), dim=-1)
+    cache_probs = (probs[..., :-1] * vsr[:, None]).to(vc.dtype).float()
+    out = torch.einsum("bmhs,bshd->bmhd", cache_probs, vc.float())
+    out = out + probs[..., -1:] * vn
     return out.to(q.dtype)

@@ -10,13 +10,22 @@ import numpy as np
 import torch
 
 from ..models.llava import LlavaParams
-from .config import LlavaConfig
+from .config import LlamaConfig, LlavaConfig
 
 
 def _to_torch(tree, device, dtype):
+    """Float leaves go to ``dtype``; integer leaves keep their type, and a
+    quantized leaf's scale stays fp32 (``utils/quantize.quantize_matrix``)."""
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
-    a = np.ascontiguousarray(np.asarray(tree, dtype=np.float32))
+        scale_dtype = torch.float32 if "q" in tree or "q4" in tree else dtype
+        return {
+            k: _to_torch(v, device, scale_dtype if k in ("s", "s4") else dtype)
+            for k, v in tree.items()
+        }
+    a = np.asarray(tree)
+    if a.dtype.kind in "iub":
+        return torch.from_numpy(np.array(a)).to(device=device)
+    a = np.ascontiguousarray(a, dtype=np.float32)
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
@@ -98,3 +107,40 @@ def synthetic_llava_params(
         "lm_head": nrm(E, V),
     }
     return LlavaParams(vision=vision, projector=projector, lm=lm)
+
+
+def synthetic_int8_lm(cfg: LlamaConfig, device: torch.device | str, seed: int = 0) -> dict:
+    """Llama params with the projections and ``lm_head`` made directly in
+    int8 on ``device`` ({"q", "s"}, ``utils/quantize`` layout), so a bf16
+    tower never exists just to be quantized; counterpart of
+    ``dropoutdecoding_tpu/utils/synthetic.py:12``.  Uniform int8 bytes (std
+    about 73.9) with scale 0.02 / 73.9 give a dequantized std of about
+    0.02; embeddings are normal(0, 0.02) and norms 1, in bf16.  The
+    projections come fused, as ``qkv_proj`` / ``gate_up_proj``
+    (``utils/quantize.fuse_projections`` layout, the JAX CLI's default on
+    one device).  At the Vicuna-7B defaults the int8 tower is about 6.6 GB."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def qmat(*shape):
+        q = torch.randint(-128, 128, shape, dtype=torch.int8, device=device, generator=gen)
+        s = torch.full((*shape[:-2], 1, shape[-1]), 0.02 / 73.9, device=device)
+        return {"q": q, "s": s}
+
+    D, I, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_hidden_layers
+    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    layers = {
+        "input_ln": torch.ones(L, D, dtype=torch.bfloat16, device=device),
+        "post_attn_ln": torch.ones(L, D, dtype=torch.bfloat16, device=device),
+        "o_proj": qmat(L, H * Dh, D),
+        "down_proj": qmat(L, I, D),
+        "qkv_proj": qmat(L, D, (H + 2 * KH) * Dh),
+        "gate_up_proj": qmat(L, D, 2 * I),
+    }
+    embed = torch.empty(V, D, device=device).normal_(0.0, 0.02, generator=gen)
+    return {
+        "embed_tokens": embed.to(torch.bfloat16),
+        "layers": layers,
+        "norm": torch.ones(D, dtype=torch.bfloat16, device=device),
+        "lm_head": qmat(D, V),
+    }

@@ -207,12 +207,16 @@ def test_decode_step_members_share_cache(tiny, rng):
 
 
 def test_unported_branches_raise(tiny):
+    """int8 weights and the int8 cache are ported (``test_torch_quantize.py``);
+    int4 leaves and w8a8 still raise."""
     cfg = tiny["tcfg"].text
-    with pytest.raises(NotImplementedError, match="int8 KV"):
-        tllama.empty_cache(cfg, 1, 8, torch.float32, "cpu", quantized=True)
-    lm = dict(tiny["tp"].lm, lm_head={"q": None, "s": None})
-    with pytest.raises(NotImplementedError, match="quantized"):
-        tllama.lm_head(lm, torch.zeros(1, 48))
+    int4 = {"q4": torch.zeros(24, 64, dtype=torch.int8), "s4": torch.ones(1, 64)}
+    with pytest.raises(NotImplementedError, match="int4"):
+        tllama.lm_head(dict(tiny["tp"].lm, lm_head=int4), torch.zeros(1, 48))
+    layers = dict(tiny["tp"].lm["layers"], o_proj={k: v[None] for k, v in int4.items()})
     x = torch.zeros(1, 3, 48)
+    pos = torch.zeros(1, 3, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="int4"):
+        tllama.prefill(dict(tiny["tp"].lm, layers=layers), cfg, x, pos)
     with pytest.raises(NotImplementedError, match="w8a8"):
-        tllama.prefill(tiny["tp"].lm, cfg, x, torch.zeros(1, 3, dtype=torch.long), w8a8=True)
+        tllama.prefill(tiny["tp"].lm, cfg, x, pos, w8a8=True)
