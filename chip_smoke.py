@@ -14,18 +14,25 @@ Phases, each fatal on failure:
    B=1, M in {1, 3}, H = KH = 32, D = 128, S = 1152, bf16, with mask
    holes; a G = 4 case and the fp32 instantiation), K3 (the same over an
    int8 cache with scales in [0.01, 0.03]), K4 (the int8 cache append at
-   [32, 1, 1152, 4096] and a B = 2 case, bit-equal) and K2 (visual-token
-   uncertainty at [1, 576, 32064] fp32, with and without ``valid``).
-   Times are the median of 30 CUDA-graph replays, L2 flushed before each.
+   [32, 1, 1152, 4096] and a B = 2 case, bit-equal), K2 (visual-token
+   uncertainty at [1, 576, 32064] fp32, with and without ``valid``) and K5
+   (flash prefill at B=1, S=2950, H=32, KH=8, D=128, bf16, with a padded
+   key-mask tail; G=1, fp32, and rows with no attendable key).  Times are
+   the median of 30 CUDA-graph replays, L2 flushed before each.
 4. Small-model reference: a narrow LLaVA in fp32 through
    ``LlavaEngine.generate`` on the card (kernels) and on the CPU (plain
    twins), with the same injected mask draws, with dense weights and a
-   dense cache, then int8 fused weights and ``int8_kv=True``: tokens must
-   be equal.
-5. End to end: ``LlavaEngine.generate`` at full LLaVA-1.5-7B width and depth,
-   greedy then exact K=3, 32 new tokens each, with every kernel's launch
-   count checked: first synthetic bf16 weights and a bf16 cache (K1, K2),
-   then synthetic int8 fused weights and an int8 cache (K2, K3, K4).
+   dense cache, then int8 fused weights and ``int8_kv=True``; then a
+   narrow LLaVA-NeXT in fp32 whose merged prompt (1320 tokens) runs K5:
+   tokens must be equal.
+5. End to end, greedy then exact K=3, 32 new tokens each, with every
+   kernel's launch count checked: ``LlavaEngine.generate`` at full
+   LLaVA-1.5-7B width and depth, first with synthetic bf16 weights and a
+   bf16 cache (K1, K2), then synthetic int8 fused weights and an int8 cache
+   (K2, K3, K4); then ``LlavaNextEngine.generate`` at full
+   LLaVA-v1.6-Mistral-7B width and depth with synthetic bf16 weights and
+   one 640 x 480 image (5 tiles, 2340 of 2928 visual slots real), whose
+   2947-token prefill runs K5 in every layer (K1 at G=4, K2 with ``valid``).
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -45,11 +52,15 @@ import torch
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # atol; see CHANGES.md
 K3_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # bf16: of max|ref|, fp32: atol
 K2_RTOL = 1e-4
+# K5 (atol, rtol): the kernel rounds the unnormalised exp terms to bf16 for
+# PV, the twin the normalised probabilities, and sums run in another order,
+# so an output may round to the neighbouring bf16 value: 2^-7 of itself.
+K5_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (2e-5, 0.0)}
 # narrow model, card vs CPU: epis within this share of its largest value.
 # int8 gets a few times its measured gap: the int8 head rounds its input to
 # bf16, so a hidden value near a rounding boundary can round apart on the
 # two devices.  See CHANGES.md.
-NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3}
+NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "next": 1e-4}
 
 
 def _card_line() -> str:
@@ -210,6 +221,7 @@ def check_kernels() -> dict:
                 records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
     records["K4"] = check_cache_append()
+    records["K5"] = check_flash_prefill()
 
     g = torch.Generator(device="cuda").manual_seed(7)
     logits = 3.0 * torch.randn(1, 576, 32064, generator=g, device="cuda")
@@ -284,6 +296,55 @@ def check_cache_append() -> dict:
     return record
 
 
+def check_flash_prefill() -> dict:
+    """K5 against its twin: the LLaVA-NeXT prefill shape with a padded key
+    tail, at G = 4 and G = 1 in bf16 and in fp32, and two smaller cases
+    whose first rows have no attendable key (the twin's softmax is uniform
+    over all S keys there).  No output may be NaN or Inf.  Returns the
+    record of the first case."""
+    from dropoutdecoding_tpu_torch.ops.attention import chunked_prefill_attention
+    from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
+
+    record = None
+    cases = [  # (label, B, S, H, KH, D, dtype, real keys, masked leading keys)
+        ("S=2950 G=4 bf16", 1, 2950, 32, 8, 128, torch.bfloat16, 2362, 0),
+        ("S=2950 G=1 bf16", 1, 2950, 32, 32, 128, torch.bfloat16, 2362, 0),
+        ("S=2950 G=4 fp32", 1, 2950, 32, 8, 128, torch.float32, 2362, 0),
+        ("B=2 S=700 G=2 D=64 bf16, rows without keys", 2, 700, 8, 4, 64, torch.bfloat16, 650, 5),
+        ("S=1100 G=2 D=16 fp32, rows without keys", 1, 1100, 4, 2, 16, torch.float32, 1000, 5),
+    ]
+    for i, (label, B, S, H, KH, D, dtype, real, lead) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(400 + i)
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+        q, k, v = rnd(B, S, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D)
+        mask = (torch.arange(S, device="cuda") < real).expand(B, S).clone()
+        mask[:, :lead] = False
+        got = flash_prefill_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = chunked_prefill_attention(q, k, v, mask)
+        finite = bool(torch.isfinite(got).all())
+        diff = (got.float() - ref.float()).abs()
+        err = diff.max().item()
+        atol, rtol = K5_TOL[dtype]
+        within = bool((diff <= atol + rtol * ref.float().abs()).all())
+        ms = time_ms(lambda: flash_prefill_attention(q, k, v, mask))
+        plain_ms = time_ms(lambda: chunked_prefill_attention(q, k, v, mask))
+        flops = 4 * B * H * D * S * (S + 1) / 2  # causal QK^T and PV
+        print(
+            f"K5 {label}: max_abs_err {err:.3e} (bound {atol:g} + {rtol:g} |ref|), finite {finite}, "
+            f"kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain_ms * 1e3:.1f} us"
+        )
+        if not finite or not within:
+            raise AssertionError(f"K5 {label}: finite {finite}, max_abs_err {err} out of bounds")
+        if record is None:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return record
+
+
 def _narrow_config():
     from dropoutdecoding_tpu_torch.utils.config import ClipVisionConfig, LlamaConfig, LlavaConfig
 
@@ -300,52 +361,110 @@ def _narrow_config():
     )
 
 
-def small_reference(int8: bool) -> None:
-    """A narrow LLaVA in fp32 on the card (kernels) and on the CPU (plain
+def _narrow_next_config():
+    from dropoutdecoding_tpu_torch.utils.config import (
+        ClipVisionConfig,
+        LlamaConfig,
+        LlavaNextConfig,
+    )
+
+    return LlavaNextConfig(  # N_max = 256 + 32 * 33 = 1312 visual slots
+        text=LlamaConfig(
+            vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+        ),
+        vision=ClipVisionConfig(
+            hidden_size=32, intermediate_size=64, num_hidden_layers=3,
+            num_attention_heads=4, image_size=112, patch_size=7,
+        ),
+        image_token_index=120,
+        image_grid_pinpoints=((112, 224), (224, 112), (224, 224)),
+    )
+
+
+def small_reference(tier: str) -> None:
+    """A narrow model in fp32 on the card (kernels) and on the CPU (plain
     twins) with one table of injected mask draws: equal tokens, close epis.
     Weights are scaled up from the synthetic recipe so the logits are
-    sharp enough for argmax to be stable against summation order.  With
-    ``int8``: the LM's weights quantized and fused, as the JAX CLI's
-    ``--quantize int8``, and an int8 KV cache.  A CPU prefill in fp64
-    anchors the epis of both sides, so a miss shows which side moved."""
+    sharp enough for argmax to be stable against summation order.  Tiers:
+    "fp32" and "int8" are LLaVA (int8: the LM's weights quantized and
+    fused, as the JAX CLI's ``--quantize int8``, and an int8 KV cache);
+    "next" is LLaVA-NeXT with the reference's NeXT settings (no mask
+    accumulation, top-10 table, seed 506) and one 150 x 220 image (5 tiles,
+    982 of 1312 visual slots real), whose 1320-token prefill runs K5.  A
+    CPU prefill in fp64 anchors the epis of both sides, so a miss shows
+    which side moved."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
+    from dropoutdecoding_tpu_torch.models import llavanext
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
-    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
-    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+    from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_llava_params,
+        synthetic_llavanext_params,
+    )
     from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params
 
-    cfg = _narrow_config()
-    params = synthetic_llava_params(cfg, "cpu", torch.float32, seed=3)
-
-    def sharpen(tree):
-        return {k: sharpen(v) if isinstance(v, dict) else (v * 10 if v.dim() >= 2 else v)
-                for k, v in tree.items()}
-
-    params = LlavaParams(*(sharpen(p) for p in params))
-    if int8:
-        params = params._replace(lm=fuse_projections(quantize_llama_params(params.lm)))
-    tier = "int8" if int8 else "fp32"
     rng = np.random.default_rng(5)
-    draws = torch.from_numpy(rng.random((16, 1, 3, cfg.vision.num_patches), dtype=np.float32))
-    ids = np.array([[1, 17, 29, 500, 41, 53, 67, 71, 83]])
-    pixels = rng.normal(size=(1, 3, 112, 112)).astype(np.float32)
+    if tier == "next":
+        cfg = _narrow_next_config()
+        params = synthetic_llavanext_params(cfg, "cpu", torch.float32, seed=3)
+        Params, Engine, max_len, image = llavanext.LlavaNextParams, LlavaNextEngine, 1344, 120
+        size = (150, 220)
+        n_tiles = llavanext.image_geometry(size, cfg)["n_tiles"]
+        tiles = rng.normal(size=(n_tiles, 3, 112, 112)).astype(np.float32)
+        images, images64 = (tiles, size), (tiles.astype(np.float64), size)
+        kw = dict(ens=EnsembleConfig(mask_accumulate=False, topk=10), seed=506)
+    else:
+        cfg = _narrow_config()
+        params = synthetic_llava_params(cfg, "cpu", torch.float32, seed=3)
+        Params, Engine, max_len, image = LlavaParams, LlavaEngine, 128, 500
+        pixels = rng.normal(size=(1, 3, 112, 112)).astype(np.float32)
+        images, images64 = (pixels,), (pixels.astype(np.float64),)
+        kw = dict(int8_kv=tier == "int8")
+
+    # x10: std 0.2.  The narrow NeXT takes x5: at x10 one visual token's fp32
+    # epis lands 3.6e-3 from the fp64 one on the CPU (1.1e-3 of the scale),
+    # at x5 1.6e-5 (3.1e-5 of the scale).
+    factor = 5 if tier == "next" else 10
+
+    def sharpen(part):
+        if isinstance(part, dict):
+            return {k: sharpen(v) for k, v in part.items()}
+        return part * factor if part.dim() >= 2 else part
+
+    params = Params(*(sharpen(p) for p in params))
+    if tier == "int8":
+        params = params._replace(lm=fuse_projections(quantize_llama_params(params.lm)))
+    ids = np.array([[1, 17, 29, image, 41, 53, 67, 71, 83]])
+    N = Engine(cfg=cfg, params=params, max_len=max_len, **kw).n_visual
+    draws = torch.from_numpy(rng.random((16, 1, 3, N), dtype=np.float32))
     gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1, pad_token_id=0)
     out = {}
+    flash_prefill_attention.launches = 0
     for device in ("cuda", "cpu"):
-        p = LlavaParams(*(_to(part, device) for part in params))
+        p = Params(*(_to(part, device) for part in params))
         for ensemble in (False, True):
-            eng = LlavaEngine(
-                cfg=cfg, params=p, gen=gen, max_len=128, ensemble=ensemble, int8_kv=int8,
-                uniform=lambda step, row, m, n: draws[step, row, m, :n],
+            eng = Engine(
+                cfg=cfg, params=p, gen=gen, max_len=max_len, ensemble=ensemble,
+                uniform=lambda step, row, m, n: draws[step, row, m, :n], **kw,
             )
-            state = eng.prefill(ids, pixels)
-            out[device, ensemble] = (eng.generate(ids, pixels).tokens, state.epis.cpu())
-    wide = LlavaParams(*(_to(part, "cpu", torch.float64) for part in params))
-    epis64 = LlavaEngine(cfg=cfg, params=wide, gen=gen, max_len=128, int8_kv=int8).prefill(
-        ids, pixels.astype(np.float64)
-    ).epis
+            state = eng.prefill(ids, *images)
+            valid = state.visual_mask.cpu()
+            out[device, ensemble] = (eng.generate(ids, *images).tokens, state.epis.cpu()[valid])
+    if tier == "next":  # two prefills per engine on the card, K5 in both layers of each
+        want = 2 * 2 * cfg.text.num_hidden_layers
+        print(f"narrow {tier}: K5 launched {flash_prefill_attention.launches} times on the card "
+              f"(want {want})")
+        if flash_prefill_attention.launches != want:
+            raise AssertionError(f"narrow {tier}: K5 launches {flash_prefill_attention.launches}")
+    wide = Params(*(_to(part, "cpu", torch.float64) for part in params))
+    epis64 = Engine(cfg=cfg, params=wide, gen=gen, max_len=max_len, **kw).prefill(
+        ids, *images64
+    ).epis[valid]
     for ensemble in (False, True):
         (tok_g, epis_g), (tok_c, epis_c) = out["cuda", ensemble], out["cpu", ensemble]
         d = (epis_g - epis_c).abs()
@@ -369,12 +488,13 @@ def small_reference(int8: bool) -> None:
 
 
 def _to(tree, device, float_dtype=None):
-    """``tree`` on ``device``; with ``float_dtype``, its float leaves in it."""
-    def leaf(v):
-        return v.to(device, float_dtype) if float_dtype and v.is_floating_point() else v.to(device)
-
-    return {k: _to(v, device, float_dtype) if isinstance(v, dict) else leaf(v)
-            for k, v in tree.items()}
+    """``tree`` (a dict of tensors, nested, or one tensor) on ``device``;
+    with ``float_dtype``, its float leaves in it."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device, float_dtype) for k, v in tree.items()}
+    if float_dtype and tree.is_floating_point():
+        return tree.to(device, float_dtype)
+    return tree.to(device)
 
 
 def _sync_time(fn):
@@ -392,6 +512,7 @@ def _wrappers() -> dict:
         ensemble_decode_attention_fused,
         ensemble_decode_attention_int8kv_fused,
     )
+    from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
     from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import vision_uncertainty_fused
 
     return {
@@ -399,65 +520,63 @@ def _wrappers() -> dict:
         "K2": vision_uncertainty_fused,
         "K3": ensemble_decode_attention_int8kv_fused,
         "K4": cache_append_int8,
+        "K5": flash_prefill_attention,
     }
 
 
-def drive(cfg, params, tier: str, int8_kv: bool, ids, pixels) -> dict:
-    """Greedy, then exact K=3: 32 new tokens each through
-    ``LlavaEngine.generate`` (the main path), with every kernel's launch
-    count set to 0 just before and checked just after.  Returns the exact
-    K=3 run's counts."""
-    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+def drive(make, args, tier: str, int8_kv: bool = False) -> dict:
+    """Greedy, then exact K=3: 32 new tokens each through the engine's
+    ``generate(*args)`` (the main path), ``make(ensemble, gen)`` building
+    the engine, with every kernel's launch count set to 0 just before and
+    checked just after.  Returns the exact K=3 run's counts."""
+    from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
 
     wrappers = _wrappers()
-    T, max_len, L = 32, 1152, cfg.text.num_hidden_layers  # 1152 = 576 + 64 + 512
+    T = 32
     gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
-    S = ids.shape[1] + cfg.vision.num_patches - 1
-
-    LlavaEngine(  # warm-up: cuBLAS handles, allocator pools
-        cfg=cfg, params=params, gen=GenerationConfig(max_new_tokens=3, eos_token_id=-1),
-        max_len=max_len, int8_kv=int8_kv,
-    ).generate(ids, pixels)
+    make(True, GenerationConfig(max_new_tokens=3, eos_token_id=-1)).generate(*args)  # warm-up
 
     counts = None
-    for label, ensemble, per_step in (("greedy", False, L), ("exact K=3", True, 2 * L)):
-        eng = LlavaEngine(
-            cfg=cfg, params=params, gen=gen, max_len=max_len, ensemble=ensemble, int8_kv=int8_kv
-        )
-        prefill_s = statistics.median(_sync_time(lambda: eng.prefill(ids, pixels))[1] for _ in range(3))
-        state = eng.prefill(ids, pixels)
+    for label, ensemble in (("greedy", False), ("exact K=3", True)):
+        eng = make(ensemble, gen)
+        L, V = eng.cfg.text.num_hidden_layers, eng.cfg.text.vocab_size
+        S = args[0].shape[1] + eng.n_visual - 1  # the merged (padded) prompt
+        prefill_s = statistics.median(_sync_time(lambda: eng.prefill(*args))[1] for _ in range(3))
+        state = eng.prefill(*args)
+        real = int(state.cur_len[0])
         _, decode_s = _sync_time(lambda: eng.decode(state))
         del state
 
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
-        result, total_s = _sync_time(lambda: eng.generate(ids, pixels))  # the main path
+        result, total_s = _sync_time(lambda: eng.generate(*args))  # the main path
         counts = {k: fn.launches for k, fn in wrappers.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
 
         tok = result.tokens
-        if tok.shape != (1, T) or not ((tok >= 0) & (tok < cfg.text.vocab_size)).all():
+        if tok.shape != (1, T) or not ((tok >= 0) & (tok < V)).all():
             raise AssertionError(f"{tier} {label}: bad tokens {tok}")
-        unc = eng.prefill(ids, pixels).uncertainty
+        unc = eng.prefill(*args).uncertainty
         for key, v in unc.items():
             if not torch.isfinite(v).all():
                 raise AssertionError(f"{tier} {label}: non-finite uncertainty field {key}")
-        if unc["epis_uncert_per_token"].shape != (1, cfg.vision.num_patches):
+        if unc["epis_uncert_per_token"].shape != (1, eng.n_visual):
             raise AssertionError(
                 f"{tier} {label}: epis shape {tuple(unc['epis_uncert_per_token'].shape)}"
             )
-        attention = (T - 1) * per_step  # every layer of every decode forward
+        attention = (T - 1) * (2 if ensemble else 1) * L  # every layer of every decode forward
         want = {
             "K1": 0 if int8_kv else attention,
             "K2": 1,
             "K3": attention if int8_kv else 0,
             "K4": T - 1 if int8_kv else 0,  # one append per decode step
+            "K5": L if S >= LONG_PREFILL else 0,  # every layer of the one prefill
         }
         print(
-            f"{tier} {label}: prompt {S} tokens, prefill {prefill_s * 1e3:.1f} ms, decode "
-            f"{(T - 1) / decode_s:.2f} tokens/s ({decode_s / (T - 1) * 1e3:.2f} ms/step), "
+            f"{tier} {label}: prompt {S} tokens ({real} real), prefill {prefill_s * 1e3:.1f} ms, "
+            f"decode {(T - 1) / decode_s:.2f} tokens/s ({decode_s / (T - 1) * 1e3:.2f} ms/step), "
             f"generate {T / total_s:.2f} tokens/s end to end, peak {peak:.2f} GiB, "
             f"launches {counts} (want {want}); tokens {tok[0, :8].tolist()}..."
         )
@@ -467,17 +586,29 @@ def drive(cfg, params, tier: str, int8_kv: bool, ids, pixels) -> dict:
 
 
 def end_to_end() -> dict:
-    """LlavaEngine.generate at full LLaVA-1.5-7B width and depth, first with
-    synthetic bf16 weights and a bf16 cache, then with synthetic int8 fused
-    weights and an int8 cache.  Returns each kernel's launch count from the
-    exact K=3 run of the tier that runs it."""
+    """The main paths at full width and depth: LlavaEngine.generate at
+    LLaVA-1.5-7B with synthetic bf16 weights and a bf16 cache, then with
+    synthetic int8 fused weights and an int8 cache; LlavaNextEngine.generate
+    at LLaVA-v1.6-Mistral-7B with synthetic bf16 weights.  Returns each
+    kernel's launch count from the exact K=3 run of the path that runs it."""
     import gc
 
     import numpy as np
 
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
+    from dropoutdecoding_tpu_torch.models import llavanext
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
-    from dropoutdecoding_tpu_torch.utils.config import LlavaConfig
-    from dropoutdecoding_tpu_torch.utils.convert import synthetic_int8_lm, synthetic_llava_params
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, LlavaConfig, LlavaNextConfig
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_int8_lm,
+        synthetic_llava_params,
+        synthetic_llavanext_params,
+    )
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
 
     cfg = LlavaConfig()  # LLaVA-1.5-7B: Vicuna-7B + CLIP ViT-L/336
     rng = np.random.default_rng(11)
@@ -485,20 +616,48 @@ def end_to_end() -> dict:
     ids[0, 0], ids[0, 5] = 1, cfg.image_token_index  # BOS; "USER: <image> ..."
     pixels = rng.normal(size=(1, 3, 336, 336)).astype(np.float32)
 
+    def llava(params, int8_kv):
+        return lambda ensemble, gen: LlavaEngine(
+            cfg=cfg, params=params, gen=gen, max_len=1152, ensemble=ensemble, int8_kv=int8_kv
+        )  # 1152 = 576 + 64 + 512
+
     params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
     print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
-    dense = drive(cfg, params, "bf16", False, ids, pixels)
+    drive(llava(params, False), (ids, pixels), "bf16")
 
     # free the bf16 tower before the int8 one exists; keep vision + projector
     vision, projector = params.vision, params.projector
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
     lm, secs = _sync_time(lambda: synthetic_int8_lm(cfg.text, "cuda", seed=0))
     params = LlavaParams(vision, projector, lm)
     print(f"synthetic int8 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
-    int8 = drive(cfg, params, "int8", True, ids, pixels)
-    return {"K1": dense["K1"], "K2": dense["K2"], "K3": int8["K3"], "K4": int8["K4"]}
+    int8 = drive(llava(params, True), (ids, pixels), "int8", int8_kv=True)
+    del params, vision, projector, lm
+    free()
+
+    # LLaVA-NeXT: one COCO-sized 640 x 480 photo, 5 tiles of 336 px
+    ncfg = LlavaNextConfig()  # LLaVA-v1.6-Mistral-7B: Mistral-7B + CLIP ViT-L/336
+    size = (480, 640)
+    n_tiles = llavanext.image_geometry(size, ncfg)["n_tiles"]
+    tiles = rng.normal(size=(n_tiles, 3, 336, 336)).astype(np.float32)
+    params, secs = _sync_time(
+        lambda: synthetic_llavanext_params(ncfg, "cuda", torch.bfloat16, seed=0)
+    )
+    print(f"synthetic NeXT 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in "
+          f"{secs:.1f} s; {n_tiles} tiles")
+    ens = EnsembleConfig(mask_accumulate=False, topk=10)  # the reference's NeXT settings
+    nxt = drive(
+        lambda ensemble, gen: LlavaNextEngine(
+            cfg=ncfg, params=params, ens=ens, gen=gen, seed=506, ensemble=ensemble,
+            max_len=llavanext.max_image_tokens(ncfg) + 64 + 512,
+        ),
+        (ids, tiles, size),
+        "next",
+    )
+    del params
+    free()
+    return {"K1": nxt["K1"], "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"]}
 
 
 KERNELS = {
@@ -526,6 +685,12 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/cache_append.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:605",
     },
+    "K5": {
+        "name": "flash_prefill_attention",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/flash_prefill.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_attention.py:66",
+    },
 }
 
 
@@ -539,8 +704,9 @@ def main() -> int:
     card = identity()
     build()
     records = check_kernels()
-    small_reference(int8=False)
-    small_reference(int8=True)
+    small_reference("fp32")
+    small_reference("int8")
+    small_reference("next")
     launches = end_to_end()
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -9,9 +9,11 @@ twin that the wrappers use for CPU tensors.
 
 Layout:
   ops/       norms, RoPE, attention, uncertainty; kernel wrappers and build
-  models/    CLIP ViT, projector, Llama decoder, LLaVA composition
+  models/    CLIP ViT, projector, Llama decoder, LLaVA and LLaVA-NeXT
+             compositions
   decoding/  dropout-mask policies, vote / average aggregation
-  engine/    LlavaEngine: prefill, exact ensemble / greedy decode loop
+  engine/    LlavaEngine: prefill, exact ensemble / greedy decode loop;
+             LlavaNextEngine: its anyres prefill
   utils/     config dataclasses, PRNG key tree, weight conversion
   csrc/      CUDA sources (sm_90a)
 """

@@ -7,18 +7,19 @@ batch shape.  Each takes its uniform draws as an argument, so tests can
 feed in the JAX package's own draws and production can draw from torch
 Philox (``utils/prng.py``).
 
-Ported policies: "epis" (LLaVA-1.5's stochastic uncertainty-scaled mask
-with overlap restore, accumulating across members), "random_image" and
-"none".  The rest raise ``NotImplementedError``.
+Ported policies: "epis" (the stochastic uncertainty-scaled mask with
+overlap restore; LLaVA-1.5 accumulates it across members, LLaVA-NeXT does
+not), "epis_no_overlap" (the same without the overlap restore, LLaVA-NeXT's
+``use_random``), "random_image" and "none".  The rest raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import torch
 
-PORTED_POLICIES = ("epis", "random_image", "none")
+PORTED_POLICIES = ("epis", "epis_no_overlap", "random_image", "none")
 _LATER_POLICIES = (
-    "epis_no_overlap", "epis_quantile", "epis_kl", "keep_overlap", "vqa",
-    "aggressive", "all_image",
+    "epis_quantile", "epis_kl", "keep_overlap", "vqa", "aggressive", "all_image",
 )
 
 
@@ -91,15 +92,17 @@ def build_member_drop_mask(
       prev_drop: [..., N] the previous member's drop mask (all False for
         the first member).
       accumulate: drops accumulate across members (LLaVA-1.5).
+      valid: optional [..., N] real visual tokens; epis's min / max run
+        over them only (LLaVA-NeXT's padded span).
     Returns:
       [..., N] bool drop mask.
     """
     check_policy(policy)
-    if policy == "epis":
+    if policy in ("epis", "epis_no_overlap"):
         drop = uniform < epis_mask_probs(epis, prob_cap, floor, valid)
         if accumulate:
             drop = drop | prev_drop
-        return drop & ~overlap_keep
+        return drop & ~overlap_keep if policy == "epis" else drop
     if policy == "random_image":
         drop = uniform < prob_cap
         return drop | prev_drop if accumulate else drop

@@ -1,6 +1,7 @@
 """The inference engine: prefill, then the exact-mode ensemble (or greedy)
 decode loop.  Port of ``LlavaEngine`` in
-``dropoutdecoding_tpu/engine/generate.py``.
+``dropoutdecoding_tpu/engine/generate.py``; ``engine/llavanext_engine.py``
+reuses its decode loop and its state assembly.
 
 Per generated token, exact mode runs:
 
@@ -22,8 +23,8 @@ The loop makes no host sync per token: it reads ``done`` back only every
 Not ported yet (each raises ``NotImplementedError``): fused mode
 (``EnsembleConfig.fused_step``), sampling (``GenerationConfig.do_sample``),
 the text-mask policies, the mask policies other than "epis",
-"random_image" and "none" (among them ``epis_kl``), and int4 weights
-(``models/llama.py``).  The JAX engine's w8a8 and int8-prefix-cache
+"epis_no_overlap", "random_image" and "none" (among them ``epis_kl``), and
+int4 weights (``models/llama.py``).  The JAX engine's w8a8 and int8-prefix-cache
 options have no counterpart yet (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
@@ -54,6 +55,7 @@ class PrefillState(NamedTuple):
     epis: torch.Tensor  # [B, N] epistemic uncertainty per visual token
     topk_ids: torch.Tensor  # [B, N, k] text-projection table
     image_pos: torch.Tensor  # [B] start of the visual span
+    visual_mask: torch.Tensor  # [B, N] real visual tokens (all True on LLaVA-1.5)
     uncertainty: dict  # the full uncertainty dict
 
 
@@ -115,7 +117,6 @@ class LlavaEngine:
         ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
         pix = torch.as_tensor(pixel_values, device=self.device)
         B = ids.shape[0]
-        N = self.n_visual
         image_pos = llava_mod.find_image_pos(ids, cfg.image_token_index).long()
         feats = llava_mod.image_features(cfg, self.params, pix)
         text_embeds = llama_mod.embed(
@@ -125,29 +126,54 @@ class LlavaEngine:
         S = merged.shape[1]
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         hidden, kv = llama_mod.prefill(lm, cfg.text, merged, positions)
+        cur_len = torch.full((B,), S, dtype=torch.long, device=self.device)
+        return self._assemble_state(hidden, kv, image_pos, cur_len)
 
-        last_logits = llama_mod.lm_head(lm, hidden[:, -1])  # [B, V]
+    def _assemble_state(
+        self, hidden, kv, image_pos, cur_len, visual_mask=None
+    ) -> PrefillState:
+        """PrefillState from the LM prefill's outputs; LLaVA-NeXT shares it.
+
+        Args:
+          hidden: [B, S, D] final-norm hidden states; kv: the prefill K/V.
+          image_pos: [B] start of each row's visual span of ``n_visual``
+            slots.
+          cur_len: [B] each row's real merged length: the first token comes
+            from the hidden row at ``cur_len - 1``, and decoding appends
+            there.
+          visual_mask: optional [B, N] real visual tokens of a padded span
+            (the uncertainty's mean and the mask policies use only them);
+            None means all N are real.
+        """
+        lm = self.params.lm
+        B, S, E = hidden.shape
+        N = self.n_visual
+        rows = torch.arange(B, device=self.device)
+        last_logits = llama_mod.lm_head(lm, hidden[rows, cur_len - 1])  # [B, V]
         first_token = last_logits.argmax(dim=-1)
         # visual-span logits -> uncertainty + top-k projection table
         start = image_pos.clamp(0, S - N)
         idx = start[:, None] + torch.arange(N, device=self.device)[None]
-        hidden_img = hidden.gather(1, idx[..., None].expand(B, N, hidden.shape[-1]))
+        hidden_img = hidden.gather(1, idx[..., None].expand(B, N, E))
         img_logits = llama_mod.lm_head(lm, hidden_img)  # [B, N, V] fp32
-        uncert = vision_uncertainty_auto(img_logits)
+        uncert = vision_uncertainty_auto(img_logits, visual_mask)
         topk_ids = exact_top_k_ids(img_logits, self.ens.topk)
 
         cache = llama_mod.empty_cache(
-            cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv
+            self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv
         )
         llama_mod.cache_seed(cache, kv)
+        if visual_mask is None:
+            visual_mask = torch.ones((B, N), dtype=torch.bool, device=self.device)
         return PrefillState(
             cache=cache,
-            cur_len=torch.full((B,), S, dtype=torch.long, device=self.device),
+            cur_len=cur_len,
             last_logits=last_logits,
             first_token=first_token,
             epis=uncert["epis_uncert_per_token"],
             topk_ids=topk_ids,
             image_pos=image_pos,
+            visual_mask=visual_mask,
             uncertainty=uncert,
         )
 
@@ -155,9 +181,11 @@ class LlavaEngine:
     # decode
     # ------------------------------------------------------------------
     def _member_drop_slots(self, state: PrefillState, argmax0: torch.Tensor, step: int):
-        """The K members' cache-slot drop masks [B, K, Smax] at ``step``."""
+        """The K members' cache-slot drop masks [B, K, Smax] at ``step``;
+        only real visual tokens (``state.visual_mask``) are ever dropped."""
         ens = self.ens
         B, N = state.epis.shape
+        valid = state.visual_mask
         overlap = overlap_keep_mask(argmax0, state.topk_ids)  # [B, N]
         drops = []
         prev = torch.zeros((B, N), dtype=torch.bool, device=self.device)
@@ -165,14 +193,15 @@ class LlavaEngine:
             u = torch.stack([self.uniform(step, row, m, N) for row in range(B)])
             prev = build_member_drop_mask(
                 u.to(self.device), ens.mask_policy, state.epis, cap, overlap, prev,
-                ens.mask_accumulate, floor=ens.prob_floor,
+                ens.mask_accumulate, floor=ens.prob_floor, valid=valid,
             )
             drops.append(prev)
-        drops = torch.stack(drops, dim=1)  # [B, K, N]
-        # slot s holds visual token s - image_pos inside the span
+        drops = torch.stack(drops, dim=1) & valid[:, None, :]  # [B, K, N]
+        # slot s holds visual token s - image_pos inside the real span
         slots = torch.arange(self.max_len, device=self.device)[None, :]
         p = state.image_pos[:, None]
-        in_span = (slots >= p) & (slots < p + N)
+        n_img = valid.sum(dim=-1)[:, None]
+        in_span = (slots >= p) & (slots < p + n_img)
         tok_idx = (slots - p).clamp(0, N - 1)
         K = drops.shape[1]
         drop_slots = drops.gather(2, tok_idx[:, None, :].expand(B, K, self.max_len))
@@ -245,17 +274,21 @@ class LlavaEngine:
     # public API
     # ------------------------------------------------------------------
     def generate(self, input_ids, pixel_values) -> GenerationResult:
+        return self._generate(input_ids, pixel_values)
+
+    def _generate(self, input_ids, *images) -> GenerationResult:
+        """``prefill(input_ids, *images)``, then the decode loop."""
         # KV-capacity guard: each of the T-1 decode steps appends one row
         # at cur_len.  The merged prompt length follows from the shapes, so
         # the check needs no device sync and runs before any work.
-        longest = input_ids.shape[1] + self.n_visual - 1
+        longest = np.shape(input_ids)[1] + self.n_visual - 1
         if longest + self.gen.max_new_tokens - 1 > self.max_len:
             raise ValueError(
                 f"prompt ({longest} tokens) + max_new_tokens "
                 f"({self.gen.max_new_tokens}) - 1 exceeds the KV capacity "
                 f"max_len={self.max_len}; raise max_len or lower the budget"
             )
-        state = self.prefill(input_ids, pixel_values)
+        state = self.prefill(input_ids, *images)
         tokens = self.decode(state).cpu().numpy().astype(np.int32)
         eos = self.gen.eos_token_id
         num = np.array(

@@ -1,8 +1,9 @@
-"""Llama-family decoder (Llama-7B / Vicuna-7B) as functions over a parameter
+"""Llama-family decoder (Vicuna-7B, Mistral-7B) as functions over a parameter
 dict; port of ``dropoutdecoding_tpu/models/llama.py``.
 
 - ``prefill``: full-sequence causal forward; returns the final-norm hidden
-  states and every layer's K/V to seed the cache.
+  states and every layer's K/V to seed the cache.  From 1024 tokens on its
+  attention is K5 (``ops/cuda_flash_prefill.py``).
 - ``decode_step``: one token for M ensemble members sharing the cache.  Each
   layer's attention reads the layer's view of the cache in place: K1 over a
   dense cache, K3 over an int8 one (``ops/cuda_decode_attention.py``).
@@ -36,11 +37,13 @@ from ..ops.cuda_decode_attention import (
     ensemble_decode_attention_fused,
     ensemble_decode_attention_int8kv_fused,
 )
+from ..ops.cuda_flash_prefill import flash_prefill_attention
 from ..utils.config import LlamaConfig
 from ..utils.quantize import quantize_kv
 
 _INT4 = "int4 weights are not ported yet (ROADMAP Queue 1 item 12)"
 _W8A8 = "w8a8 projections are not ported yet (ROADMAP Queue 1 item 12)"
+LONG_PREFILL = 1024  # prefill length from which attention runs K5
 
 
 class KVCache(NamedTuple):
@@ -213,8 +216,11 @@ def prefill(
 ):
     """Full-sequence causal forward.
 
-    Dense attention at every length: the JAX package switches to a flash
-    kernel (K5) at S >= 1024, i.e. LLaVA-NeXT, which is not ported yet.
+    Attention is dense below ``LONG_PREFILL`` tokens (LLaVA-1.5's ~600) and
+    runs K5, the flash prefill kernel (``ops/cuda_flash_prefill.py``), from
+    there on (LLaVA-NeXT's ~2.9k), as the JAX package does
+    (``models/llama.py:677-689``); on the CPU K5's wrapper computes its
+    query-chunked twin.
 
     Args:
       inputs_embeds: [B, S, D] merged (visual + text) embeddings.
@@ -238,7 +244,12 @@ def prefill(
         q, k, v = _qkv(lp, h, H, KH, Dh)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        attn = prefill_attention(q, k, v, causal=True, key_mask=key_mask)
+        if S >= LONG_PREFILL:
+            attn = flash_prefill_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), key_mask, causal=True
+            )
+        else:
+            attn = prefill_attention(q, k, v, causal=True, key_mask=key_mask)
         x = x + _mm(attn.reshape(B, S, H * Dh), lp["o_proj"])
         x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps))
         ks.append(k)

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "dd_cache_append_int8": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # x, w, m, z, a, b, scratch, c, B, L, V, stream
     "dd_vision_uncertainty": [_P] * 8 + [_I] * 3 + [_P],
+    # dtype, q, k, v, key_mask, out, B, S, H, KH, D, scale, stream
+    "dd_flash_prefill_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
 }
 
 _lib: ctypes.CDLL | None = None

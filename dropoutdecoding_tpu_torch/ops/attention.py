@@ -4,6 +4,8 @@
 - ``prefill_attention``: dense causal attention over the merged (visual +
   text) sequence.  At LLaVA-1.5's S of about 600 the [H, S, S] score tensor
   is small, so this stays plain torch, as it stayed XLA in the JAX package.
+- ``chunked_prefill_attention``: the same, query-chunked, for S >= 1024
+  (LLaVA-NeXT); the plain twin of K5 (``ops/cuda_flash_prefill.py``).
 - ``ensemble_decode_attention``: M members read one shared cache, each with
   its own key mask, plus each member's own new token.  It is the plain twin
   of the CUDA kernel in ``ops/cuda_decode_attention.py``: that wrapper calls
@@ -61,6 +63,52 @@ def prefill_attention(
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), vf.float())
     return out.to(q.dtype)
+
+
+def chunked_prefill_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    chunk: int = 256,
+) -> torch.Tensor:
+    """Query-chunked ``prefill_attention``: the scores exist only as a
+    [B, H, chunk, S] transient, not [B, H, S, S].  The plain twin of K5
+    (``ops/cuda_flash_prefill.py``), and what the JAX package runs for
+    S >= 1024 off the TPU.
+
+    A row with no attendable key (every key masked) scores -1e30
+    everywhere, so its softmax is uniform over all S keys.
+
+    Args:
+      q: [B, S, H, D]; k, v: [B, S, KH, D] (KH divides H).
+      key_mask: optional [B, S] (1 = attend).
+    Returns:
+      [B, S, H, D] in q's dtype.
+    """
+    B, S, H, D = q.shape
+    n_rep = H // k.shape[2]
+    kf = repeat_kv(k, n_rep).float()
+    vf = repeat_kv(v, n_rep).float()
+    scale = 1.0 / math.sqrt(D)
+    ki = torch.arange(S, device=q.device)
+    km = None if key_mask is None else key_mask.bool()[:, None, None, :]
+    out = torch.empty_like(q)
+    for c0 in range(0, S, chunk):
+        qc = q[:, c0 : c0 + chunk].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qc, kf) * scale
+        ok = km
+        if causal:
+            qi = c0 + torch.arange(qc.shape[1], device=q.device)
+            below = ki[None, :] <= qi[:, None]
+            ok = below if ok is None else ok & below
+        if ok is not None:
+            s = s.masked_fill(~ok, _NEG_INF)
+        p = torch.softmax(s, dim=-1).to(v.dtype).float()
+        out[:, c0 : c0 + chunk] = torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
+    return out
 
 
 def ensemble_decode_attention(

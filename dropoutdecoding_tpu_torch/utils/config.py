@@ -1,7 +1,9 @@
-"""Frozen configuration dataclasses of the LLaVA-1.5 Dropout Decoding path.
+"""Frozen configuration dataclasses of the LLaVA-1.5 and LLaVA-NeXT Dropout
+Decoding paths.
 
 A copy of the matching dataclasses in ``dropoutdecoding_tpu/utils/config.py``
-with the same fields and defaults (LLaVA-1.5-7B / CLIP ViT-L/336 widths).
+with the same fields and defaults (LLaVA-1.5-7B, LLaVA-v1.6-Mistral-7B and
+CLIP ViT-L/336 widths).
 The port cannot import that module: ``dropoutdecoding_tpu.utils`` imports
 JAX from its package ``__init__`` (through ``utils/prng.py``).
 ``tests/test_torch_imports.py`` holds the two copies equal field by field.
@@ -114,12 +116,54 @@ class LlavaConfig:
 
 
 @dataclass(frozen=True)
+class LlavaNextConfig:
+    """LLaVA-NeXT (v1.6) composition: Mistral-7B (GQA, 8 KV heads) with
+    multi-tile anyres visual tokens (HF ``llava-hf/llava-v1.6-mistral-7b-hf``
+    defaults)."""
+
+    text: LlamaConfig = LlamaConfig(
+        num_key_value_heads=8, intermediate_size=14336, rope_theta=1000000.0
+    )
+    vision: ClipVisionConfig = ClipVisionConfig()
+    image_token_index: int = 32000
+    pad_token_id: int = 32001
+    vision_feature_layer: int = -2
+    vision_feature_select_strategy: str = "default"
+    projector_hidden_act: str = "gelu"
+    image_grid_pinpoints: Tuple[Tuple[int, int], ...] = (
+        (336, 672),
+        (672, 336),
+        (672, 672),
+        (1008, 336),
+        (336, 1008),
+    )
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "LlavaNextConfig":
+        return cls(
+            text=LlamaConfig.from_hf_dict(d["text_config"]),
+            vision=ClipVisionConfig.from_hf_dict(d["vision_config"]),
+            image_token_index=d.get("image_token_index", 32000),
+            pad_token_id=d.get("pad_token_id", 32001) or 32001,
+            vision_feature_layer=d.get("vision_feature_layer", -2),
+            vision_feature_select_strategy=d.get(
+                "vision_feature_select_strategy", "default"
+            ),
+            image_grid_pinpoints=tuple(
+                tuple(p) for p in d.get("image_grid_pinpoints", [])
+            )
+            or cls.image_grid_pinpoints,
+        )
+
+
+@dataclass(frozen=True)
 class EnsembleConfig:
     """Dropout-decoding ensemble parameters (see the JAX package's
     ``EnsembleConfig`` docstring for what each field reproduces).
 
     The port runs the exact mode (``fused_step=False``) with the "epis",
-    "random_image" and "none" mask policies; the engine rejects the rest.
+    "epis_no_overlap", "random_image" and "none" mask policies; the engine
+    rejects the rest.
     """
 
     voting_probs: Tuple[float, ...] = (0.3, 0.5, 0.7)

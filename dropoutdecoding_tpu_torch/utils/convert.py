@@ -10,7 +10,8 @@ import numpy as np
 import torch
 
 from ..models.llava import LlavaParams
-from .config import LlamaConfig, LlavaConfig
+from ..models.llavanext import LlavaNextParams
+from .config import LlamaConfig, LlavaConfig, LlavaNextConfig
 
 
 def _to_torch(tree, device, dtype):
@@ -41,7 +42,7 @@ def llava_params_from_numpy(
 
 
 def synthetic_llava_params(
-    cfg: LlavaConfig,
+    cfg: LlavaConfig | LlavaNextConfig,
     device: torch.device | str,
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
@@ -107,6 +108,33 @@ def synthetic_llava_params(
         "lm_head": nrm(E, V),
     }
     return LlavaParams(vision=vision, projector=projector, lm=lm)
+
+
+def llavanext_params_from_numpy(
+    tree, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+) -> LlavaNextParams:
+    """The JAX ``LlavaNextParams`` pytree (``models/llavanext.py:30``) as
+    numpy arrays -> the port's params, ``image_newline`` included."""
+    parts = tree._asdict() if hasattr(tree, "_asdict") else dict(tree)
+    return LlavaNextParams(
+        **{name: _to_torch(parts[name], device, dtype) for name in LlavaNextParams._fields}
+    )
+
+
+def synthetic_llavanext_params(
+    cfg: LlavaNextConfig,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.bfloat16,
+    seed: int = 0,
+) -> LlavaNextParams:
+    """``synthetic_llava_params``' recipe at a LLaVA-NeXT config, plus an
+    ``image_newline`` drawn normal(0, 0.02) from the same generator.  At the
+    LLaVA-v1.6-Mistral-7B defaults this is about 15 GB in bf16."""
+    vision, projector, lm = synthetic_llava_params(cfg, device, dtype, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    newline = torch.empty(cfg.text.hidden_size, dtype=dtype, device=device)
+    newline.normal_(0.0, 0.02, generator=gen)
+    return LlavaNextParams(vision=vision, projector=projector, image_newline=newline, lm=lm)
 
 
 def synthetic_int8_lm(cfg: LlamaConfig, device: torch.device | str, seed: int = 0) -> dict:

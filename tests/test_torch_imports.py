@@ -42,7 +42,10 @@ def test_port_modules_import_no_jax():
 
 @pytest.mark.parametrize(
     "name",
-    ["LlamaConfig", "ClipVisionConfig", "LlavaConfig", "EnsembleConfig", "GenerationConfig"],
+    [
+        "LlamaConfig", "ClipVisionConfig", "LlavaConfig", "LlavaNextConfig", "EnsembleConfig",
+        "GenerationConfig",
+    ],
 )
 def test_config_copies_agree(name):
     ours, ref = getattr(torch_config, name)(), getattr(jax_config, name)()
@@ -68,6 +71,11 @@ def test_config_constructors_agree():
     ours = torch_config.LlavaConfig.from_hf_dict(hf)
     ref = jax_config.LlavaConfig.from_hf_dict(hf)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    for pinpoints in ([], [[28, 56], [56, 28], [56, 56]]):
+        d = {**hf, "image_grid_pinpoints": pinpoints}
+        ours = torch_config.LlavaNextConfig.from_hf_dict(d)
+        ref = jax_config.LlavaNextConfig.from_hf_dict(d)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert ours.vision.num_patches == ref.vision.num_patches == 16
     for n in range(7):
         assert torch_config.EnsembleConfig.voting_probs_for(
