@@ -17,19 +17,28 @@ Phases, each fatal on failure:
    [32, 1, 1152, 4096] and a B = 2 case, bit-equal), K2 (visual-token
    uncertainty at [1, 576, 32064] fp32, with and without ``valid``) and K5
    (flash prefill at B=1, S=2950, H=32, KH=8, D=128, bf16, with a padded
-   key-mask tail; G=1, fp32, and rows with no attendable key).  Times are
-   the median of 30 CUDA-graph replays, L2 flushed before each.
+   key-mask tail; G=1, fp32, and rows with no attendable key) and K6 (the
+   packed-int4 matmul at the four 7B projection shapes for R = 1, 3 and 595
+   rows in bf16, fp32 input and output, a ragged shape with g = 32, and
+   K6', one layer of a stacked weight read in place).  Times are the median
+   of 30 CUDA-graph replays, L2 flushed before each.  Beside each kernel
+   stand its bound (the larger of its bytes over the card's memory rate and
+   its operations over the card's peak rate) and, for K5 and K6, the time
+   of the one PyTorch call that computes the same function; the port calls
+   neither.
 4. Small-model reference: a narrow LLaVA in fp32 through
    ``LlavaEngine.generate`` on the card (kernels) and on the CPU (plain
    twins), with the same injected mask draws, with dense weights and a
-   dense cache, then int8 fused weights and ``int8_kv=True``; then a
-   narrow LLaVA-NeXT in fp32 whose merged prompt (1320 tokens) runs K5:
-   tokens must be equal.
+   dense cache, then int8 fused weights and ``int8_kv=True``, then packed
+   int4 fused weights (K6) and ``int8_kv=True``; then a narrow LLaVA-NeXT in
+   fp32 whose merged prompt (1320 tokens) runs K5: tokens must be equal.
 5. End to end, greedy then exact K=3, 32 new tokens each, with every
    kernel's launch count checked: ``LlavaEngine.generate`` at full
    LLaVA-1.5-7B width and depth, first with synthetic bf16 weights and a
    bf16 cache (K1, K2), then synthetic int8 fused weights and an int8 cache
-   (K2, K3, K4); then ``LlavaNextEngine.generate`` at full
+   (K2, K3, K4), then synthetic packed int4 fused weights, an int8 head and
+   an int8 cache (K2, K3, K4 and K6 in every projection of every forward);
+   then ``LlavaNextEngine.generate`` at full
    LLaVA-v1.6-Mistral-7B width and depth with synthetic bf16 weights and
    one 640 x 480 image (5 tiles, 2340 of 2928 visual slots real), whose
    2947-token prefill runs K5 in every layer (K1 at G=4, K2 with ``valid``).
@@ -48,6 +57,7 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # atol; see CHANGES.md
 K3_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # bf16: of max|ref|, fp32: atol
@@ -56,11 +66,21 @@ K2_RTOL = 1e-4
 # PV, the twin the normalised probabilities, and sums run in another order,
 # so an output may round to the neighbouring bf16 value: 2^-7 of itself.
 K5_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (2e-5, 0.0)}
+# K6 (atol, rtol), both of max|ref|: bf16 products of x and a nibble are exact
+# and the sums are fp32 in another order than the twin's, so a bf16 output
+# may round to the neighbouring value (2^-7 of itself); an fp32 output differs
+# by summation order only (fp32 x, the FMA kernel).  bf16 x runs on the tensor
+# cores, whose fp32 adder truncates: 1e-4 for an fp32 output there.
+K6_TOL = {torch.bfloat16: (1e-3, 1e-2), torch.float32: (2e-5, 0.0), "mma fp32": (1e-4, 0.0)}
+# The card's published peaks (H100 SXM data sheet, dense): the rates behind
+# every bound_ms.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 # narrow model, card vs CPU: epis within this share of its largest value.
 # int8 gets a few times its measured gap: the int8 head rounds its input to
 # bf16, so a hidden value near a rounding boundary can round apart on the
 # two devices.  See CHANGES.md.
-NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "next": 1e-4}
+NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "int4": 1e-3, "next": 1e-4}
 
 
 def _card_line() -> str:
@@ -137,6 +157,22 @@ def time_ms(fn, reps: int = 30) -> float:
         return statistics.median(times)
 
     return median_replay(both) - median_replay(flush_only)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def least_time(nbytes: int, ops: float, kind: str) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (each input read once, each output written once) over the memory rate,
+    or its operations over the peak rate of their type, whichever is
+    larger."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return {
+        "bound_ms": max(by_bytes, by_ops) * 1e3,
+        "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+    }
 
 
 def _decode_inputs(B, M, H, KH, D, S, cur, dtype, seed, dead_member=False, int8=False):
@@ -218,10 +254,18 @@ def check_kernels() -> dict:
             if not err <= bound:
                 raise AssertionError(f"{name} {label}: max_abs_err {err} > {bound}")
             if i == 0:
-                records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                # the cache is read up to the filled slot, every other operand
+                # whole; QK^T and PV over the filled slots and the own token
+                filled = [t[:, :cur] if t.shape[1] == S else t[:, :, :cur] for t in args[1:-3]]
+                nbytes = _nbytes(args[0], *filled, *args[-3:], got)
+                records[name] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    **least_time(nbytes, 4 * B * M * H * D * (cur + 1), "bf16"), "library_ms": None,
+                }
 
     records["K4"] = check_cache_append()
     records["K5"] = check_flash_prefill()
+    records["K6"] = check_int4_matmul()
 
     g = torch.Generator(device="cuda").manual_seed(7)
     logits = 3.0 * torch.randn(1, 576, 32064, generator=g, device="cuda")
@@ -245,7 +289,12 @@ def check_kernels() -> dict:
             f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
         )
         if v is None:
-            records["K2"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # the logits once; about 8 fp32 operations a logit over the passes
+            records["K2"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **least_time(_nbytes(logits, *got.values()), 8 * logits.numel(), "fp32"),
+                "library_ms": None,
+            }
     return records
 
 
@@ -292,7 +341,13 @@ def check_cache_append() -> dict:
         if sum(diff) or not changed:
             raise AssertionError(f"K4 {label}: {diff} elements differ, {changed} written")
         if record is None:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # the new rows read; the int8 rows and their scales written
+            written = 2 * L * B * KH * (D + 4)
+            record = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **least_time(_nbytes(k_new, v_new, cur_len) + written, 8 * k_new.numel(), "fp32"),
+                "library_ms": None,
+            }
     return record
 
 
@@ -341,7 +396,132 @@ def check_flash_prefill() -> dict:
         if not finite or not within:
             raise AssertionError(f"K5 {label}: finite {finite}, max_abs_err {err} out of bounds")
         if record is None:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # the one PyTorch call of the same function: causal and key mask
+            # as one boolean mask (built outside the timed call), GQA inside
+            allowed = mask[:, None, None, :] & torch.ones(
+                S, S, dtype=torch.bool, device="cuda").tril()
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=allowed, enable_gqa=True))
+            print(f"K5 {label}: scaled_dot_product_attention {library_ms * 1e3:.1f} us "
+                  "(reference only)")
+            del allowed
+            record = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **least_time(_nbytes(q, k, v, mask, got), flops, "bf16"), "library_ms": library_ms,
+            }
+    return record
+
+
+def check_int4_matmul() -> dict:
+    """K6 against its twin, with uniform bytes (every nibble value, -8
+    included) and varied scales: the four projection shapes of a 7B layer
+    at the row counts of the main path (1 and 3 in the decode forwards, 595
+    in the prefill) in bf16, a bf16 input with an fp32 output (also at an
+    int4 head's shape, whose 32064 channels end inside a tile), fp32 inputs
+    at the narrow model's shapes, a ragged shape (43 groups of 32 a half, E
+    = 130) on every tile shape, and K6': layer 17 of a stacked [32, D/2, E]
+    weight passed as a view, which must be read in place.  Beside each 7B case the time of
+    ``torch.matmul`` of x with a bf16 matrix dequantized ahead of time
+    (reference only; the port never makes that matrix).  Returns the record
+    of the fused gate/up projection at 3 rows, the exact-mode decode's."""
+    from dropoutdecoding_tpu_torch.ops.cuda_int4_matmul import int4_matmul, int4_matmul_twin
+    from dropoutdecoding_tpu_torch.utils.quantize import dequantize_matrix_int4
+
+    g = torch.Generator(device="cuda").manual_seed(600)
+
+    def packed(*lead, D, E, group):
+        q4 = torch.randint(-128, 128, (*lead, D // 2, E), dtype=torch.int8, device="cuda",
+                           generator=g)
+        s4 = torch.empty(*lead, D // group, E, device="cuda").uniform_(0.002, 0.006, generator=g)
+        return q4, s4
+
+    def compare(label, x, q4, s4, out_dtype, tol, timed=True):
+        got = int4_matmul(x, q4, s4, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        ref = int4_matmul_twin(x, q4, s4, out_dtype=out_dtype)
+        if got.dtype != ref.dtype or got.shape != ref.shape:
+            raise AssertionError(f"K6 {label}: {got.dtype} {tuple(got.shape)}")
+        diff = (got.float() - ref.float()).abs()
+        err, scale = diff.max().item(), ref.float().abs().max().item()
+        atol, rtol = tol
+        within = bool((diff <= atol * scale + rtol * ref.float().abs()).all())
+        line = f"K6 {label}: max_abs_err {err:.3e} (bound {atol:g} max|ref| + {rtol:g} |ref|)"
+        times = {}
+        if timed:
+            times["ms"] = time_ms(lambda: int4_matmul(x, q4, s4, out_dtype=out_dtype))
+            times["plain_ms"] = time_ms(lambda: int4_matmul_twin(x, q4, s4, out_dtype=out_dtype))
+            line += f", kernel {times['ms'] * 1e3:.1f} us, plain {times['plain_ms'] * 1e3:.1f} us"
+        print(line)
+        if not torch.isfinite(got).all() or not within:
+            raise AssertionError(f"K6 {label}: max_abs_err {err} out of bounds")
+        return {"max_abs_err": err, **times}, got
+
+    record = None
+    shapes = [  # the fused leaves of a Vicuna-7B layer: (name, D, E)
+        ("qkv", 4096, 12288), ("o", 4096, 4096), ("gate_up", 4096, 22016), ("down", 11008, 4096),
+    ]
+    for name, D, E in shapes:
+        q4, s4 = packed(D=D, E=E, group=128)
+        dense = dequantize_matrix_int4({"q4": q4, "s4": s4}, torch.bfloat16)
+        for R in (1, 3, 595):
+            x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
+            rec, got = compare(f"{name} [{R}, {D}] x [{D}, {E}] bf16", x, q4, s4, None,
+                               K6_TOL[torch.bfloat16])
+            rec["library_ms"] = time_ms(lambda: torch.matmul(x, dense))
+            rec.update(least_time(_nbytes(x, q4, s4, got), 2 * R * D * E, "bf16"))
+            print(
+                f"K6 {name} R={R}: bound {rec['bound_ms'] * 1e3:.1f} us by {rec['bound_by']} "
+                f"({_nbytes(x, q4, s4, got) / rec['ms'] / 1e6:.0f} GB/s, "
+                f"{2 * R * D * E / rec['ms'] / 1e9:.1f} TFLOP/s), bf16 matmul on the "
+                f"dequantized matrix {rec['library_ms'] * 1e3:.1f} us (reference only)"
+            )
+            if (name, R) == ("gate_up", 3):
+                record = rec
+        if name == "o":  # K6': layer 17 of a stack, in place; and an fp32 output
+            stack_q, stack_s = packed(32, D=D, E=E, group=128)
+            view_q, view_s = stack_q[17], stack_s[17]
+            if view_q.data_ptr() != stack_q.data_ptr() + 17 * (D // 2) * E:
+                raise AssertionError("K6' layer view is a copy")
+            x = torch.randn(3, D, generator=g, device="cuda").to(torch.bfloat16)
+            _, got = compare("K6' layer 17 of [32, 2048, 4096], R=3 bf16", x, view_q, view_s,
+                             None, K6_TOL[torch.bfloat16], timed=False)
+            alone = int4_matmul(x, view_q.clone(), view_s.clone())
+            if not torch.equal(got, alone):
+                raise AssertionError("K6' layer view differs from the layer's own copy")
+            del stack_q, stack_s
+            for R, tol in ((3, K6_TOL["mma fp32"]), (595, K6_TOL["mma fp32"])):
+                x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
+                compare(f"o R={R} bf16 in, fp32 out", x, q4, s4, torch.float32, tol, timed=False)
+        del q4, s4, dense
+
+    q4, s4 = packed(D=4096, E=32064, group=128)  # an int4 head: 250.5 channel tiles, fp32 logits
+    for R in (3, 576):
+        x = torch.randn(R, 4096, generator=g, device="cuda").to(torch.bfloat16)
+        compare(f"head [{R}, 4096] x [4096, 32064] bf16 in, fp32 out", x, q4, s4, torch.float32,
+                K6_TOL["mma fp32"], timed=False)
+    # the narrow model's prefill and decode shapes: fp32 (the FMA kernel), and
+    # bf16, where one chunk holds the whole contraction and nothing is split
+    for R, D, E in ((73, 256, 768), (3, 256, 768), (3, 512, 256)):
+        q4, s4 = packed(D=D, E=E, group=128)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(R, D, generator=g, device="cuda").to(dtype)
+            compare(f"{str(dtype).split('.')[-1]} [{R}, {D}] x [{D}, {E}]", x, q4, s4, None,
+                    K6_TOL[dtype], timed=dtype == torch.float32)
+    q4, s4 = packed(D=2 * 43 * 32, E=130, group=32)  # 43 groups a half; rows unaligned
+    for R, dtype in ((3, torch.bfloat16), (30, torch.bfloat16), (70, torch.bfloat16),
+                     (7, torch.float32)):
+        x = torch.randn(2, R // 2 + 1, 2 * 43 * 32, generator=g, device="cuda").to(dtype)
+        compare(f"ragged [{x.shape[0]}, {x.shape[1]}, 2752] x [2752, 130] g=32 "
+                f"{str(dtype).split('.')[-1]}", x, q4, s4, None, K6_TOL[dtype], timed=False)
+    bad = torch.randn(3, 96, device="cuda")
+    try:  # a group the kernel's k-step does not divide must raise, never fall back
+        int4_matmul(bad, torch.zeros(48, 8, dtype=torch.int8, device="cuda"),
+                    torch.ones(4, 8, device="cuda"))
+    except ValueError as e:
+        print(f"K6 g=24: raises ({e})")
+    else:
+        raise AssertionError("K6 accepted a group size of 24")
     return record
 
 
@@ -387,8 +567,10 @@ def small_reference(tier: str) -> None:
     twins) with one table of injected mask draws: equal tokens, close epis.
     Weights are scaled up from the synthetic recipe so the logits are
     sharp enough for argmax to be stable against summation order.  Tiers:
-    "fp32" and "int8" are LLaVA (int8: the LM's weights quantized and
-    fused, as the JAX CLI's ``--quantize int8``, and an int8 KV cache);
+    "fp32", "int8" and "int4" are LLaVA (int8 / int4: the LM's weights
+    quantized and fused, as the JAX CLI's ``--quantize int8`` / ``int4``
+    with its int8 head, and an int8 KV cache; every int4 projection runs K6
+    in its fp32 instantiation, g = 128);
     "next" is LLaVA-NeXT with the reference's NeXT settings (no mask
     accumulation, top-10 table, seed 506) and one 150 x 220 image (5 tiles,
     982 of 1312 visual slots real), whose 1320-token prefill runs K5.  A
@@ -406,7 +588,11 @@ def small_reference(tier: str) -> None:
         synthetic_llava_params,
         synthetic_llavanext_params,
     )
-    from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params
+    from dropoutdecoding_tpu_torch.utils.quantize import (
+        fuse_projections,
+        quantize_llama_params,
+        quantize_llama_params_int4,
+    )
 
     rng = np.random.default_rng(5)
     if tier == "next":
@@ -424,7 +610,7 @@ def small_reference(tier: str) -> None:
         Params, Engine, max_len, image = LlavaParams, LlavaEngine, 128, 500
         pixels = rng.normal(size=(1, 3, 112, 112)).astype(np.float32)
         images, images64 = (pixels,), (pixels.astype(np.float64),)
-        kw = dict(int8_kv=tier == "int8")
+        kw = dict(int8_kv=tier in ("int8", "int4"))
 
     # x10: std 0.2.  The narrow NeXT takes x5: at x10 one visual token's fp32
     # epis lands 3.6e-3 from the fp64 one on the CPU (1.1e-3 of the scale),
@@ -437,8 +623,9 @@ def small_reference(tier: str) -> None:
         return part * factor if part.dim() >= 2 else part
 
     params = Params(*(sharpen(p) for p in params))
-    if tier == "int8":
-        params = params._replace(lm=fuse_projections(quantize_llama_params(params.lm)))
+    if tier in ("int8", "int4"):
+        quantize = quantize_llama_params if tier == "int8" else quantize_llama_params_int4
+        params = params._replace(lm=fuse_projections(quantize(params.lm)))
     ids = np.array([[1, 17, 29, image, 41, 53, 67, 71, 83]])
     N = Engine(cfg=cfg, params=params, max_len=max_len, **kw).n_visual
     draws = torch.from_numpy(rng.random((16, 1, 3, N), dtype=np.float32))
@@ -513,6 +700,7 @@ def _wrappers() -> dict:
         ensemble_decode_attention_int8kv_fused,
     )
     from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
+    from dropoutdecoding_tpu_torch.ops.cuda_int4_matmul import int4_matmul
     from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import vision_uncertainty_fused
 
     return {
@@ -521,10 +709,11 @@ def _wrappers() -> dict:
         "K3": ensemble_decode_attention_int8kv_fused,
         "K4": cache_append_int8,
         "K5": flash_prefill_attention,
+        "K6": int4_matmul,
     }
 
 
-def drive(make, args, tier: str, int8_kv: bool = False) -> dict:
+def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> dict:
     """Greedy, then exact K=3: 32 new tokens each through the engine's
     ``generate(*args)`` (the main path), ``make(ensemble, gen)`` building
     the engine, with every kernel's launch count set to 0 just before and
@@ -573,6 +762,8 @@ def drive(make, args, tier: str, int8_kv: bool = False) -> dict:
             "K3": attention if int8_kv else 0,
             "K4": T - 1 if int8_kv else 0,  # one append per decode step
             "K5": L if S >= LONG_PREFILL else 0,  # every layer of the one prefill
+            # the four fused projections of every layer of every forward
+            "K6": 4 * L * (1 + (T - 1) * (2 if ensemble else 1)) if int4 else 0,
         }
         print(
             f"{tier} {label}: prompt {S} tokens ({real} real), prefill {prefill_s * 1e3:.1f} ms, "
@@ -588,8 +779,10 @@ def drive(make, args, tier: str, int8_kv: bool = False) -> dict:
 def end_to_end() -> dict:
     """The main paths at full width and depth: LlavaEngine.generate at
     LLaVA-1.5-7B with synthetic bf16 weights and a bf16 cache, then with
-    synthetic int8 fused weights and an int8 cache; LlavaNextEngine.generate
-    at LLaVA-v1.6-Mistral-7B with synthetic bf16 weights.  Returns each
+    synthetic int8 fused weights and an int8 cache, then with synthetic
+    packed int4 fused weights, an int8 head and an int8 cache;
+    LlavaNextEngine.generate at LLaVA-v1.6-Mistral-7B with synthetic bf16
+    weights.  Returns each
     kernel's launch count from the exact K=3 run of the path that runs it."""
     import gc
 
@@ -601,6 +794,7 @@ def end_to_end() -> dict:
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
     from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, LlavaConfig, LlavaNextConfig
     from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_int4_lm,
         synthetic_int8_lm,
         synthetic_llava_params,
         synthetic_llavanext_params,
@@ -633,6 +827,12 @@ def end_to_end() -> dict:
     params = LlavaParams(vision, projector, lm)
     print(f"synthetic int8 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     int8 = drive(llava(params, True), (ids, pixels), "int8", int8_kv=True)
+    del params, lm
+    free()
+    lm, secs = _sync_time(lambda: synthetic_int4_lm(cfg.text, "cuda", seed=0))
+    params = LlavaParams(vision, projector, lm)
+    print(f"synthetic int4 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
+    int4 = drive(llava(params, True), (ids, pixels), "int4", int8_kv=True, int4=True)
     del params, vision, projector, lm
     free()
 
@@ -657,7 +857,10 @@ def end_to_end() -> dict:
     )
     del params
     free()
-    return {"K1": nxt["K1"], "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"]}
+    return {
+        "K1": nxt["K1"], "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"],
+        "K6": int4["K6"],
+    }
 
 
 KERNELS = {
@@ -691,6 +894,12 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/flash_prefill.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_attention.py:66",
     },
+    "K6": {  # and K6', int4_matmul_layered (:177): the same kernel on a layer's view
+        "name": "int4_matmul",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
+    },
 }
 
 
@@ -706,6 +915,7 @@ def main() -> int:
     records = check_kernels()
     small_reference("fp32")
     small_reference("int8")
+    small_reference("int4")
     small_reference("next")
     launches = end_to_end()
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]

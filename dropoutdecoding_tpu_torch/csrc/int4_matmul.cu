@@ -1,0 +1,548 @@
+// K6 / K6': packed group-wise int4 matmul for Hopper (sm_90a).
+//
+// Replaces the TPU kernels int4_matmul
+// (dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236, body _kernel :112) and
+// int4_matmul_layered (:177), which unpack one group at a time in VMEM and
+// pick among four unpack forms to trade vector against matrix-unit time.
+// With x [R, D], q4 [D/2, E] int8 and s4 [N, E] fp32 (N = D / g groups; byte
+// d of q4 holds contraction row d in its low nibble and row d + D/2 in its
+// high nibble, two's complement; groups [0, N/2) scale the low half,
+// [N/2, N) the high half) it computes
+//
+//   y[r, e] = sum_gi  s4[gi, e]       * (x[r, gi*g : (gi+1)*g] . lo[gi*g : (gi+1)*g, e])
+//                   + s4[N/2 + gi, e] * (x[r, D/2 + gi*g : D/2 + (gi+1)*g] . hi[same rows, e])
+//
+// with fp32 dots, the fp32 scale applied to a group's fp32 partial, and the
+// groups added in fp32.  All 16 nibble values decode, -8 included.  The
+// layered form is the same kernel: a layer of a stacked [L, D/2, E] weight
+// is contiguous, so the caller passes that layer's pointer and no copy is
+// made.
+//
+// What bounds it on this card: at the decode forwards (R = 1 or 3) the
+// packed bytes, read once: 26.8, 8.9, 47.9 and 23.9 MB for the fused qkv, o,
+// fused gate/up and down projections of a 7B layer (8.0, 2.7, 14.3, 7.1 us at
+// 3.35 TB/s).  At the prefill (R = 595) the tensor-core FLOPs: 2 R D E is
+// 59.9, 20.0, 107.3 and 53.7 GFLOP (60.6, 20.2, 108.5, 54.3 us at 989
+// TFLOP/s bf16).  Prediction, before the first chip run, for the first
+// version: its FMA kernel reaches 40-70% of the memory rate on the three
+// large matrices (its decode of a byte costs about as many instruction slots as
+// the card has per byte at full rate) and less on o_proj, whose 8.4 MB end
+// before the card is full; its tensor-core kernel, with synchronous tile
+// loads and byte-wise fragment reads, reaches 80-200 TFLOP/s.
+//
+// Measured, and what became of the first version: see PERF.md.  That version
+// ran bf16 x of up to 4 rows through the FMA kernel below and more rows
+// through a 64 x 64 tile with synchronous loads and byte-wise fragment reads;
+// both were bound by the instructions that unpack a byte, not by memory.
+//
+// Design: two kernels behind one entry.
+//
+// int4_mma_kernel (bf16 x): the tensor cores, at every row count.  A block
+// walks its packed rows in chunks of up to 128 inside one group.  A chunk's
+// bytes and the two matching x panels travel to shared memory with cp.async
+// while the chunk before is used (two stages).  ldmatrix with .trans reads
+// the byte tile as 16-bit elements, so one register holds rows 2t and 2t+1
+// of two adjacent channels: the k-pairs of an mma B fragment for the even
+// channel, and 8 bits higher for the odd one.  A pair is masked to its
+// nibbles, xor-ed into two bf16 values of 136 + n, and 136 is subtracted in
+// bf16, which is exact: three instructions for two weights.  The low plane
+// runs against x's first half, then the high plane against its second half
+// (mma.sync m16n8k16 bf16, fp32 sums), each into one accumulator set that is
+// scaled into the totals by the group's fp32 scales at the end of the chunk:
+// the scale lands on an fp32 partial of the group.  Two tile shapes: 64 rows
+// by 128 channels on eight warps for the prefill, and 16 rows by 128
+// channels on four warps for up to 16 rows (the decode forwards' 1 and 3),
+// where the contraction is split over blocks to fill the card; the blocks
+// write fp32 partials and int4_combine_kernel adds them in split order: no
+// float atomics, so the result is the same every run.  wgmma, TMA and a
+// deeper pipeline are later work.
+//
+// int4_fma_kernel (fp32 x): fp32 FMAs, so that the card agrees with the CPU
+// to summation order; the narrow card-against-CPU model check comes this way.
+// A block owns 128 output channels, up to 4 rows of x and a range of packed
+// rows; a lane owns 4 channels, one 32-bit word of a packed row, so a warp
+// reads 128 contiguous bytes a row, 16 rows in flight.  Both nibbles of a byte
+// become floats without a conversion instruction (the nibble, xor 8, is
+// or-ed into the mantissa of 2^23 and 2^23 + 8 is subtracted) and are
+// multiplied into fp32 sums, one set for each plane; when a warp's rows leave
+// a group, the sums are scaled into the warp's totals.  Warps add their
+// totals through shared memory in warp order, blocks through the partials.
+// More than 4 rows re-read the weights for every 4 rows.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kStep = 16;           // contraction rows per step; g must be a multiple
+constexpr int kFmaThreads = 256;
+constexpr int kFmaWarps = kFmaThreads / 32;
+constexpr int kTileE = 128;         // channels per FMA block: 32 lanes x 4
+constexpr int kRows = 4;            // x rows per FMA block
+constexpr int kMaxBlockK = 1024;    // packed rows per FMA block
+
+// out[i] = v, in float32 or rounded to bfloat16.
+__device__ __forceinline__ void store(void* out, size_t i, float v, int out_f32) {
+  if (out_f32) {
+    static_cast<float*>(out)[i] = v;
+  } else {
+    static_cast<bf16*>(out)[i] = __float2bfloat16(v);
+  }
+}
+
+// The two's-complement nibble at bit `shift` of w, as a float: n ^ 8 is
+// n + 8 as an unsigned value, which becomes the low mantissa bits of 2^23.
+__device__ __forceinline__ float nibble_f(uint32_t w, int shift) {
+  return __uint_as_float(((w >> shift) & 0xFu) ^ 0x4B000008u) - 8388616.f;
+}
+
+// Four channels of one packed row, starting at channel e.  With `aligned`
+// (E a multiple of 4 and the matrix 4-byte aligned) a word is inside the row
+// or outside it as a whole.
+__device__ __forceinline__ uint32_t load_word(const int8_t* row, int e, int E, bool aligned) {
+  if (aligned) return e < E ? __ldg(reinterpret_cast<const uint32_t*>(row + e)) : 0u;
+  uint32_t w = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (e + c < E) w |= (uint32_t)(uint8_t)row[e + c] << (8 * c);
+  return w;
+}
+
+template <int RC>
+__global__ void __launch_bounds__(kFmaThreads) int4_fma_kernel(
+    const float* __restrict__ x,     // [R, 2 * D2]
+    const int8_t* __restrict__ q4,   // [D2, E]
+    const float* __restrict__ s4,    // [2 * n2, E]
+    float* __restrict__ out,         // [R, E]; written when partial is null
+    float* __restrict__ partial,     // [splits, R, E], or null
+    int R, int D2, int E, int n2, int g, int block_k, int aligned) {
+  // x panels [2][RC][kMaxBlockK] during the sums, then warp totals
+  // [kFmaWarps][RC][kTileE] (half the size)
+  __shared__ __align__(16) float smem[2 * RC * kMaxBlockK];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int e0 = blockIdx.x * kTileE;
+  const int kb0 = blockIdx.y * block_k;
+  const int nk = min(block_k, D2 - kb0);
+  const int r0 = blockIdx.z * kRows;
+  const size_t D = 2 * (size_t)D2;
+
+  for (int i = tid; i < RC * nk; i += kFmaThreads) {
+    const int r = i / nk, k = i - r * nk;
+    const bool in = r0 + r < R;
+    const float* xr = x + (size_t)(r0 + r) * D + kb0 + k;
+    smem[r * kMaxBlockK + k] = in ? xr[0] : 0.f;
+    smem[(RC + r) * kMaxBlockK + k] = in ? xr[D2] : 0.f;
+  }
+  __syncthreads();
+
+  float y[RC][4], alo[RC][4], ahi[RC][4];
+#pragma unroll
+  for (int r = 0; r < RC; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[r][c] = alo[r][c] = ahi[r][c] = 0.f;
+
+  const int e = e0 + lane * 4;
+  const int chunks = nk / kStep;
+  const int per = (chunks + kFmaWarps - 1) / kFmaWarps;
+  const int c_end = min(chunks, (warp + 1) * per);
+  for (int c = warp * per; c < c_end; ++c) {
+    const int k = c * kStep;
+    uint32_t w[kStep];
+#pragma unroll
+    for (int j = 0; j < kStep; ++j)
+      w[j] = load_word(q4 + (size_t)(kb0 + k + j) * E, e, E, aligned);
+#pragma unroll
+    for (int j = 0; j < kStep; ++j) {
+      float lo[4], hi[4];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        lo[ch] = nibble_f(w[j], 8 * ch);
+        hi[ch] = nibble_f(w[j], 8 * ch + 4);
+      }
+#pragma unroll
+      for (int r = 0; r < RC; ++r) {
+        const float xl = smem[r * kMaxBlockK + k + j];
+        const float xh = smem[(RC + r) * kMaxBlockK + k + j];
+#pragma unroll
+        for (int ch = 0; ch < 4; ++ch) {
+          alo[r][ch] = fmaf(xl, lo[ch], alo[r][ch]);
+          ahi[r][ch] = fmaf(xh, hi[ch], ahi[r][ch]);
+        }
+      }
+    }
+    // the warp's rows leave the group, or end: scale the sums into the totals
+    if (c + 1 == c_end || (kb0 + k + kStep) % g == 0) {
+      const int gi = (kb0 + k) / g;
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        const bool in = e + ch < E;
+        const float sl = in ? s4[(size_t)gi * E + e + ch] : 0.f;
+        const float sh = in ? s4[(size_t)(n2 + gi) * E + e + ch] : 0.f;
+#pragma unroll
+        for (int r = 0; r < RC; ++r) {
+          y[r][ch] = fmaf(ahi[r][ch], sh, fmaf(alo[r][ch], sl, y[r][ch]));
+          alo[r][ch] = ahi[r][ch] = 0.f;
+        }
+      }
+    }
+  }
+
+  __syncthreads();  // every warp is done with the x panels
+#pragma unroll
+  for (int r = 0; r < RC; ++r)
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) smem[(warp * RC + r) * kTileE + lane * 4 + ch] = y[r][ch];
+  __syncthreads();
+  for (int i = tid; i < RC * kTileE; i += kFmaThreads) {
+    const int r = i / kTileE, c = i - r * kTileE;
+    if (r0 + r >= R || e0 + c >= E) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kFmaWarps; ++wi) v += smem[(wi * RC + r) * kTileE + c];
+    const size_t idx = (size_t)(r0 + r) * E + e0 + c;
+    if (partial != nullptr) {
+      partial[(size_t)blockIdx.y * R * E + idx] = v;
+    } else {
+      out[idx] = v;
+    }
+  }
+}
+
+__global__ void int4_combine_kernel(const float* __restrict__ partial, void* __restrict__ out,
+                                    int splits, size_t n, int out_f32) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += partial[(size_t)s * n + i];
+  store(out, i, v, out_f32);
+}
+
+// ---- tensor cores -----------------------------------------------------------
+
+constexpr int kKC = 128;       // packed rows per staged chunk, at most
+constexpr int kLDX = kKC + 8;  // x panel row stride in elements: fragment reads hit 32 banks
+constexpr int kStages = 2;
+constexpr int kSmallRows = 16;  // rows up to which the one-m-tile shape runs
+
+// The shape of a block: WM x WN warps, each MT m-tiles of 16 rows by 32 channels.
+template <int MT, int WM, int WN>
+struct Tile {
+  static constexpr int kThreads = 32 * WM * WN;
+  static constexpr int kBM = 16 * MT * WM;             // x rows per block
+  static constexpr int kBN = 32 * WN;                  // channels per block
+  static constexpr int kLDW = kBN + 16;                // byte tile row stride
+  static constexpr int kPanel = kBM * kLDX;            // elements of one x panel
+  // a stage: the two x panels, then the byte tile
+  static constexpr int kStageBytes = 2 * kPanel * (int)sizeof(bf16) + kKC * kLDW;
+};
+// Tile<2, 2, 4> serves the prefill: 64 rows x 128 channels, eight warps.
+// Tile<1, 1, 4> serves up to 16 rows: 16 x 128, four warps, the contraction
+// split over blocks.
+
+// d += a . b on one m16n8k16 tile (bf16 in, fp32 sums).  With group = lane / 4
+// and t = lane % 4: a[0] is row group, columns 2t, 2t+1; a[1] row group+8;
+// a[2], a[3] the same rows at columns 2t+8, 2t+9.  b0 is rows 2t, 2t+1 of
+// column group, b1 rows 2t+8, 2t+9.  d[0], d[1] are row group, columns 2t,
+// 2t+1; d[2], d[3] row group+8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The nibbles at bits 0-3 and 16-19 of v as two bf16 values: n ^ 8 in the
+// mantissa of 128 is 136 + n, and the bf16 subtraction of 136 is exact.
+__device__ __forceinline__ uint32_t nibbles_bf16x2(uint32_t v) {
+  uint32_t u = (v & 0x000F000Fu) ^ 0x43084308u;
+  const uint32_t c = 0x43084308u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&u),
+                             *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// Four 8x8 b16 matrices from shared memory as one A fragment: lanes 0-15 give
+// the addresses of rows 0-15 at columns 0-7, lanes 16-31 at columns 8-15.
+__device__ __forceinline__ void ldmatrix_a(uint32_t (&a)[4], const bf16* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// Sixteen packed rows by sixteen channels of the byte tile, transposed: lanes
+// 0-15 give the addresses of rows 0-15 (16 bytes each).  Taking two adjacent
+// bytes as one b16 element, lane (group, t) receives in r0 the bytes of rows
+// 2t, 2t+1 at channels 2 group, 2 group + 1 (bits 0-7: row 2t, even channel;
+// 8-15: row 2t, odd; 16-23: row 2t+1, even; 24-31: row 2t+1, odd) and in r1
+// the same of rows 2t+8, 2t+9: the k-pairs of an mma B fragment for the even
+// channels and, shifted by 8, for the odd ones.
+__device__ __forceinline__ void ldmatrix_w(uint32_t& r0, uint32_t& r1, const uint8_t* p) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// with `in` false nothing is read and the 16 bytes are zero.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  const int n = in ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// KC: the staged chunk's packed rows when known at compile time (the k-step
+// loops then unroll, and fragment loads run ahead of the mmas), or 0 to take
+// them from kc.  Block z of the grid takes the chunks of packed rows
+// [z * block_k, (z + 1) * block_k) and, when `partial` is given, writes its
+// fp32 sums there instead of the output.
+template <int KC, int MT, int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, MT == 1 ? 4 : 2) int4_mma_kernel(
+    const bf16* __restrict__ x,      // [R, 2 * D2]
+    const int8_t* __restrict__ q4,   // [D2, E]
+    const float* __restrict__ s4,    // [2 * n2, E]
+    void* __restrict__ out,          // [R, E], bf16 or float
+    float* __restrict__ partial,     // [splits, R, E], or null
+    int R, int D2, int E, int n2, int g, int kc_arg, int block_k, int out_f32, int aligned16) {
+  extern __shared__ __align__(16) unsigned char stages[];  // [kStages][kStageBytes]
+  using TL = Tile<MT, WM, WN>;
+  constexpr int kThreads = TL::kThreads, kBM = TL::kBM, kBN = TL::kBN, kLDW = TL::kLDW;
+  constexpr int kPanel = TL::kPanel, kStageBytes = TL::kStageBytes;
+  const int kc = KC ? KC : kc_arg;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tg = lane & 3;
+  const int wm = warp / WN, wn = warp % WN;
+  const int r0 = blockIdx.x * kBM, e0 = blockIdx.y * kBN;
+  const int kb0 = blockIdx.z * block_k;
+  const size_t D = 2 * (size_t)D2;
+  const int vec = kc / 8;  // 16-byte words per x panel row
+
+  // Starts the copies of chunk k0 into a stage: the two x panels (rows past R
+  // zero) and the packed bytes (channels past E zero).
+  auto load_chunk = [&](unsigned char* stage, int k0) {
+    bf16* panels = reinterpret_cast<bf16*>(stage);
+    uint8_t* w_s = stage + 2 * kPanel * sizeof(bf16);
+    for (int i = tid; i < 2 * kBM * vec; i += kThreads) {
+      const int half = i / (kBM * vec), rem = i - half * kBM * vec;
+      const int row = rem / vec, c = rem - row * vec;
+      const bool in = r0 + row < R;
+      const bf16* src = in ? x + (size_t)(r0 + row) * D + (size_t)half * D2 + k0 + c * 8 : x;
+      cp_async16(panels + half * kPanel + row * kLDX + c * 8, src, in);
+    }
+    if (aligned16) {
+      for (int i = tid; i < kc * (kBN / 16); i += kThreads) {
+        const int row = i / (kBN / 16), c = i - row * (kBN / 16);
+        const bool in = e0 + c * 16 < E;
+        const int8_t* src = in ? q4 + (size_t)(k0 + row) * E + e0 + c * 16 : q4;
+        cp_async16(w_s + row * kLDW + c * 16, src, in);
+      }
+    } else {
+      for (int i = tid; i < kc * kBN; i += kThreads) {
+        const int row = i / kBN, c = i - row * kBN;
+        w_s[row * kLDW + c] = e0 + c < E ? (uint8_t)q4[(size_t)(k0 + row) * E + e0 + c] : 0;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float y[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[mt][nt][i] = 0.f;
+
+  // n-tile nt = 2p + q of this warp holds channels wn * 32 + p * 16 + 2j + q,
+  // j = 0..7, so accumulator i of a thread is channel
+  // wn * 32 + p * 16 + 4 tg + 2 (i & 1) + q
+  const int col0 = e0 + wn * 32 + tg * 4;
+
+  const int n_chunks = (min(block_k, D2 - kb0)) / kc;
+  load_chunk(stages, kb0);
+  for (int it = 0; it < n_chunks; ++it) {
+    unsigned char* stage = stages + (it & 1) * kStageBytes;
+    if (it + 1 < n_chunks) {  // the next chunk travels while this one is used
+      load_chunk(stages + ((it + 1) & 1) * kStageBytes, kb0 + (it + 1) * kc);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint8_t* w_s = stage + 2 * kPanel * sizeof(bf16);
+    const int gi = (kb0 + it * kc) / g;  // a chunk lies inside one group
+
+    // the low plane against x's first half, then the high plane against its
+    // second: one accumulator set, scaled into the totals after each plane
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+      const bf16* x_s = reinterpret_cast<const bf16*>(stage) + plane * kPanel;
+      const float* srow = s4 + (size_t)(plane * n2 + gi) * E;
+      float sc[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = col0 + (nt >> 1) * 16 + 2 * j + (nt & 1);
+          sc[nt][j] = col < E ? srow[col] : 0.f;
+        }
+      float acc[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll
+      for (int ks = 0; ks < kc / kStep; ++ks) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_a(a[mt], x_s + ((wm * MT + mt) * 16 + (lane & 15)) * kLDX + ks * kStep +
+                                (lane >> 4) * 8);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          uint32_t r0w, r1w;
+          ldmatrix_w(r0w, r1w, w_s + (ks * kStep + (lane & 15)) * kLDW + wn * 32 + p * 16);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const uint32_t b0 = nibbles_bf16x2(r0w >> (8 * q + 4 * plane));
+            const uint32_t b1 = nibbles_bf16x2(r1w >> (8 * q + 4 * plane));
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][2 * p + q], a[mt], b0, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            y[mt][nt][i] = fmaf(acc[mt][nt][i], sc[nt][i & 1], y[mt][nt][i]);
+    }
+    __syncthreads();  // the stage is consumed before the chunk after next lands in it
+  }
+
+  const int gr = lane >> 2;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = r0 + (wm * MT + mt) * 16 + gr + (i >> 1) * 8;
+        const int col = col0 + (nt >> 1) * 16 + 2 * (i & 1) + (nt & 1);
+        if (row >= R || col >= E) continue;
+        const size_t idx = (size_t)row * E + col;
+        if (partial != nullptr) {
+          partial[(size_t)blockIdx.z * R * E + idx] = y[mt][nt][i];
+        } else {
+          store(out, idx, y[mt][nt][i], out_f32);
+        }
+      }
+}
+
+struct Call {
+  const void* x;
+  const int8_t* q4;
+  const float* s4;
+  void* out;
+  float* partial;  // null unless splits > 1
+  int R, D2, E, n2, g, block_k, splits, out_f32;
+};
+
+// Adds the splits' partial sums into the output, in split order.
+cudaError_t combine(const Call& a, cudaStream_t stream) {
+  if (a.partial == nullptr) return cudaSuccess;
+  const size_t n = (size_t)a.R * a.E;
+  int4_combine_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      a.partial, a.out, a.splits, n, a.out_f32);
+  return cudaGetLastError();
+}
+
+template <int MT, int WM, int WN>
+cudaError_t launch_mma(const Call& a, cudaStream_t stream) {
+  using TL = Tile<MT, WM, WN>;
+  int kc = kKC;  // the largest chunk that divides the group
+  while (a.g % kc != 0) kc /= 2;
+  if (a.block_k % kc != 0) return cudaErrorInvalidValue;
+  const int aligned16 = a.E % 16 == 0 && reinterpret_cast<uintptr_t>(a.q4) % 16 == 0;
+  const dim3 grid((a.R + TL::kBM - 1) / TL::kBM, (a.E + TL::kBN - 1) / TL::kBN, a.splits);
+  constexpr int smem = kStages * TL::kStageBytes;  // above the 48 KB a kernel gets unasked
+  auto kernel = kc == kKC ? int4_mma_kernel<kKC, MT, WM, WN> : int4_mma_kernel<0, MT, WM, WN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, TL::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.x), a.q4, a.s4, a.out, a.partial, a.R, a.D2, a.E, a.n2, a.g, kc,
+      a.block_k, a.out_f32, aligned16);
+  err = cudaGetLastError();
+  return err != cudaSuccess ? err : combine(a, stream);
+}
+
+template <int RC>
+cudaError_t launch_fma(const Call& a, cudaStream_t stream) {
+  const int aligned = a.E % 4 == 0 && reinterpret_cast<uintptr_t>(a.q4) % 4 == 0;
+  const dim3 grid((a.E + kTileE - 1) / kTileE, a.splits, (a.R + kRows - 1) / kRows);
+  int4_fma_kernel<RC><<<grid, kFmaThreads, 0, stream>>>(
+      static_cast<const float*>(a.x), a.q4, a.s4, static_cast<float*>(a.out), a.partial, a.R, a.D2,
+      a.E, a.n2, a.g, a.block_k, aligned);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? err : combine(a, stream);
+}
+
+cudaError_t launch_fma_rows(const Call& a, cudaStream_t stream) {
+  switch (a.R < kRows ? a.R : kRows) {
+    case 1: return launch_fma<1>(a, stream);
+    case 2: return launch_fma<2>(a, stream);
+    case 3: return launch_fma<3>(a, stream);
+    default: return launch_fma<4>(a, stream);
+  }
+}
+
+}  // namespace
+
+// x_dtype: 0 = float32, 1 = bfloat16; out_f32: the output is float32 (else
+// x's dtype).  x [R, 2 * D2], q4 [D2, E] int8, s4 [N, E] float32, out [R, E].
+// A block takes block_k packed rows, so splits = ceil(D2 / block_k), and with
+// splits > 1 the blocks' fp32 sums go through partial [splits, R, E] float32.
+// float32 x runs the FMA kernel (block_k a multiple of 16, at most 1024);
+// bfloat16 x the tensor cores (block_k a multiple of the staged chunk, the
+// largest of 128, 64, 32, 16 that divides the group; more than 16 rows take
+// the whole contraction in one block).  The group size D2 / (N / 2) must be a
+// multiple of 16.  Returns a cudaError_t.
+extern "C" int dd_int4_matmul(int x_dtype, int out_f32, const void* x, const void* q4,
+                              const void* s4, void* out, void* partial, int R, int D2, int E,
+                              int N, int block_k, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R < 1 || E < 1 || D2 < 1 || N < 2 || N % 2 != 0 || D2 % (N / 2) != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n2 = N / 2, g = D2 / n2;
+  if (g % kStep != 0 || block_k < kStep || block_k % kStep != 0 ||
+      splits != (D2 + block_k - 1) / block_k || (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Call call{x, static_cast<const int8_t*>(q4), static_cast<const float*>(s4), out,
+                  splits > 1 ? static_cast<float*>(partial) : nullptr,
+                  R, D2, E, n2, g, block_k, splits, x_dtype == 0 ? 1 : out_f32};
+  if (x_dtype == 1) {
+    if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorInvalidValue;
+    if (R <= kSmallRows) return (int)launch_mma<1, 1, 4>(call, st);
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    return (int)launch_mma<2, 2, 4>(call, st);
+  }
+  if (x_dtype != 0 || block_k > kMaxBlockK) return (int)cudaErrorInvalidValue;
+  return (int)launch_fma_rows(call, st);
+}

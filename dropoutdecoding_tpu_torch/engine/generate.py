@@ -15,7 +15,10 @@ Per generated token, exact mode runs:
      ``ops/cuda_cache_append.py``, quantizes it into an int8 cache).
 
 ``int8_kv=True`` with int8 weights (``utils/quantize.py``) is the JAX
-package's deployment tier (``--quantize int8 --int8-kv``).
+package's deployment tier (``--quantize int8 --int8-kv``); with packed int4
+weights (``quantize_llama_params_int4``, every projection through K6,
+``ops/cuda_int4_matmul.py``) its int4 tier (``--quantize int4``).  The tier
+is a property of the params: the engine has no field for it.
 
 The loop makes no host sync per token: it reads ``done`` back only every
 ``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.
@@ -23,9 +26,9 @@ The loop makes no host sync per token: it reads ``done`` back only every
 Not ported yet (each raises ``NotImplementedError``): fused mode
 (``EnsembleConfig.fused_step``), sampling (``GenerationConfig.do_sample``),
 the text-mask policies, the mask policies other than "epis",
-"epis_no_overlap", "random_image" and "none" (among them ``epis_kl``), and
-int4 weights (``models/llama.py``).  The JAX engine's w8a8 and int8-prefix-cache
-options have no counterpart yet (ROADMAP Queue 1 item 12).
+"epis_no_overlap", "random_image" and "none" (among them ``epis_kl``).
+The JAX engine's w8a8 and int8-prefix-cache options have no counterpart yet
+(ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 

@@ -11,17 +11,18 @@ dict; port of ``dropoutdecoding_tpu/models/llama.py``.
   only the vote winner's.
 
 Weights are in the JAX layout: ``x @ W`` with W [in, out], layers stacked
-on a leading [L] axis; a projection may be dense, int8 {"q", "s"}
-(``utils/quantize.py``), and q/k/v and gate/up may be fused into one leaf
-each (``fuse_projections``).  Logits are fp32.
+on a leading [L] axis; a projection may be dense, int8 {"q", "s"} or
+packed int4 {"q4", "s4"} (``utils/quantize.py``), and q/k/v and gate/up may
+be fused into one leaf each (``fuse_projections``).  An int4 projection
+runs K6 (``ops/cuda_int4_matmul.py``) on the layer's view of the stacked
+weight; no dequantized matrix is made.  Logits are fp32.
 
 Unlike the JAX package, the cache is updated in place: ``cache_seed`` and
 ``cache_set_rows`` write into the KVCache's tensors and return it.  On an
 int8 cache ``cache_set_rows`` is K4 (``ops/cuda_cache_append.py``).
 
-Not ported yet (each raises ``NotImplementedError``): int4 weights, w8a8
-projections (ROADMAP Queue 1 item 12, kernels K6 / K6'), and tensor
-parallelism (Queue 1 item 16).
+Not ported yet (each raises ``NotImplementedError``): w8a8 projections
+(ROADMAP Queue 1 item 12) and tensor parallelism (Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -38,10 +39,10 @@ from ..ops.cuda_decode_attention import (
     ensemble_decode_attention_int8kv_fused,
 )
 from ..ops.cuda_flash_prefill import flash_prefill_attention
+from ..ops.cuda_int4_matmul import int4_matmul
 from ..utils.config import LlamaConfig
 from ..utils.quantize import quantize_kv
 
-_INT4 = "int4 weights are not ported yet (ROADMAP Queue 1 item 12)"
 _W8A8 = "w8a8 projections are not ported yet (ROADMAP Queue 1 item 12)"
 LONG_PREFILL = 1024  # prefill length from which attention runs K5
 
@@ -155,25 +156,28 @@ def _mm_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits from operands in the weights' dtype.  An int8 head runs
-    in bf16 whatever the activations' dtype, with the scale applied to the
-    fp32 product, as the JAX package does (``models/llama.py:523-529``)."""
+    """fp32 logits from operands in the weights' dtype.  A quantized head
+    runs in bf16 whatever the activations' dtype, as the JAX package does
+    (``models/llama.py:518-529``): int8 with the scale applied to the fp32
+    product, int4 through K6 with an fp32 output."""
     w = params["lm_head"]
     if isinstance(w, dict):
-        if "q" not in w:
-            raise NotImplementedError(_INT4)
+        if "q4" in w:
+            x = hidden.to(torch.bfloat16).contiguous()
+            return int4_matmul(x, w["q4"], w["s4"], out_dtype=torch.float32)
         y = _mm_f32(hidden.to(torch.bfloat16), w["q"].to(torch.bfloat16))
         return y * w["s"].float()[0]
     return _mm_f32(hidden.to(w.dtype), w)
 
 
 def _mm(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for dense or int8 {"q", "s"} weights.  int8 multiplies in
-    the activation dtype, rounds to it, then applies the per-channel scale
-    in it, as the JAX package does (``models/llama.py:375-379``)."""
+    """``x @ w`` for dense, int8 {"q", "s"} or packed int4 {"q4", "s4"}
+    weights.  int8 multiplies in the activation dtype, rounds to it, then
+    applies the per-channel scale in it, as the JAX package does
+    (``models/llama.py:375-379``); int4 is K6."""
     if isinstance(w, dict):
-        if "q" not in w:
-            raise NotImplementedError(_INT4)
+        if "q4" in w:
+            return int4_matmul(x.contiguous(), w["q4"], w["s4"])
         return (x @ w["q"].to(x.dtype)) * w["s"][0].to(x.dtype)
     return x @ w
 

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "dd_vision_uncertainty": [_P] * 8 + [_I] * 3 + [_P],
     # dtype, q, k, v, key_mask, out, B, S, H, KH, D, scale, stream
     "dd_flash_prefill_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
+    # x_dtype, out_f32, x, q4, s4, out, partial, R, D2, E, N, block_k, splits, stream
+    "dd_int4_matmul": [_I] * 2 + [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

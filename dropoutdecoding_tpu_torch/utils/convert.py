@@ -12,11 +12,13 @@ import torch
 from ..models.llava import LlavaParams
 from ..models.llavanext import LlavaNextParams
 from .config import LlamaConfig, LlavaConfig, LlavaNextConfig
+from .quantize import INT4_GROUP
 
 
 def _to_torch(tree, device, dtype):
     """Float leaves go to ``dtype``; integer leaves keep their type, and a
-    quantized leaf's scale stays fp32 (``utils/quantize.quantize_matrix``)."""
+    quantized leaf's scale ("s" of int8, "s4" of packed int4) stays fp32
+    (``utils/quantize``)."""
     if isinstance(tree, dict):
         scale_dtype = torch.float32 if "q" in tree or "q4" in tree else dtype
         return {
@@ -158,17 +160,64 @@ def synthetic_int8_lm(cfg: LlamaConfig, device: torch.device | str, seed: int = 
     D, I, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_hidden_layers
     H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     layers = {
-        "input_ln": torch.ones(L, D, dtype=torch.bfloat16, device=device),
-        "post_attn_ln": torch.ones(L, D, dtype=torch.bfloat16, device=device),
         "o_proj": qmat(L, H * Dh, D),
         "down_proj": qmat(L, I, D),
         "qkv_proj": qmat(L, D, (H + 2 * KH) * Dh),
         "gate_up_proj": qmat(L, D, 2 * I),
     }
-    embed = torch.empty(V, D, device=device).normal_(0.0, 0.02, generator=gen)
+    return _synthetic_lm(cfg, device, gen, layers, lambda: qmat(D, V))
+
+
+def _synthetic_lm(cfg: LlamaConfig, device, gen, projections: dict, make_head) -> dict:
+    """A synthetic quantized tower around its projections: norms 1 and
+    embeddings normal(0, 0.02), in bf16; ``make_head()`` draws the
+    ``lm_head`` leaf after the embeddings."""
+    D, L = cfg.hidden_size, cfg.num_hidden_layers
+    embed = torch.empty(cfg.vocab_size, D, device=device).normal_(0.0, 0.02, generator=gen)
     return {
         "embed_tokens": embed.to(torch.bfloat16),
-        "layers": layers,
+        "layers": {
+            "input_ln": torch.ones(L, D, dtype=torch.bfloat16, device=device),
+            "post_attn_ln": torch.ones(L, D, dtype=torch.bfloat16, device=device),
+            **projections,
+        },
         "norm": torch.ones(D, dtype=torch.bfloat16, device=device),
-        "lm_head": qmat(D, V),
+        "lm_head": make_head(),
     }
+
+
+def synthetic_int4_lm(cfg: LlamaConfig, device: torch.device | str, seed: int = 0) -> dict:
+    """Llama params with the projections made directly in the packed int4
+    layout on ``device`` ({"q4", "s4"}, ``utils/quantize.quantize_matrix_int4``)
+    and an int8 ``lm_head``, the int4 deployment configuration; counterpart
+    of ``dropoutdecoding_tpu/utils/synthetic.py:75``.  Uniform bytes, so the
+    nibbles cover [-8, 7] (std about 4.6; the quantizer itself never emits
+    -8), with scale 0.02 / 4.6 per (group of ``INT4_GROUP`` rows, channel).
+    The projections come fused, as ``synthetic_int8_lm``'s.  At the
+    Vicuna-7B defaults the tower is about 3.6 GB."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def qmat4(*shape):
+        *lead, d, e = shape
+        if d % (2 * INT4_GROUP):
+            raise ValueError(f"in-dim {d} not divisible by 2*group ({2 * INT4_GROUP})")
+        q4 = torch.randint(-128, 128, (*lead, d // 2, e), dtype=torch.int8, device=device,
+                           generator=gen)
+        s4 = torch.full((*lead, d // INT4_GROUP, e), 0.02 / 4.6, device=device)
+        return {"q4": q4, "s4": s4}
+
+    D, I, V, L = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_hidden_layers
+    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    projections = {
+        "o_proj": qmat4(L, H * Dh, D),
+        "down_proj": qmat4(L, I, D),
+        "qkv_proj": qmat4(L, D, (H + 2 * KH) * Dh),
+        "gate_up_proj": qmat4(L, D, 2 * I),
+    }
+
+    def head8():
+        q = torch.randint(-128, 128, (D, V), dtype=torch.int8, device=device, generator=gen)
+        return {"q": q, "s": torch.full((1, V), 0.02 / 73.9, device=device)}
+
+    return _synthetic_lm(cfg, device, gen, projections, head8)

@@ -1,16 +1,18 @@
-"""Weight-only int8 quantization for the Llama tower and the int8 KV-cache
-quantizer; port of ``dropoutdecoding_tpu/utils/quantize.py``.
+"""Weight-only int8 and packed int4 quantization for the Llama tower and
+the int8 KV-cache quantizer; port of ``dropoutdecoding_tpu/utils/quantize.py``.
 
-A quantized matrix is the dict {"q": int8 [.., D, E], "s": f32 [.., 1, E]}
-(symmetric, one scale per output channel); ``models/llama._mm`` dispatches
-on it, so quantized and dense params flow through the same tower code.
+An int8 matrix is the dict {"q": int8 [.., D, E], "s": f32 [.., 1, E]}
+(symmetric, one scale per output channel).  An int4 matrix is
+{"q4": int8 [.., D/2, E], "s4": f32 [.., D/g, E]}: symmetric, one scale per
+(group of g contraction rows, output channel), two nibbles a byte.
+``models/llama._mm`` dispatches on the leaf, so quantized and dense params
+flow through the same tower code.
 
 Outputs are bit-equal to the JAX package's: fp32 true division by the
 scale, round half to even (``torch.round``, as ``jnp.round``), a clip to
-+-127, and ``s = 1`` where a channel's amax is 0.
++-127 (int4: +-7), and ``s = 1`` where the amax is 0.
 
-Not ported yet: the packed int4 tier and the w8a8 activation quantizer
-(ROADMAP Queue 1 item 12).
+Not ported yet: the w8a8 activation quantizer (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -79,3 +81,112 @@ def quantize_llama_params(params: dict) -> dict:
         layers[name] = quantize_matrix(layers[name])
     return {**params, "layers": layers, "lm_head": quantize_matrix(params["lm_head"])}
 
+
+
+INT4_GROUP = 128  # contraction rows per scale; every 7B in-dim (4096, 11008)
+#   is a multiple of 2 * 128, so the two packed halves never straddle a group
+INT4_CLIP_GRID = (1.0, 0.95, 0.9, 0.85, 0.8, 0.75, 0.7)
+
+
+def quantize_matrix_int4(
+    w: torch.Tensor, group_size: int = INT4_GROUP, clip_grid: tuple = INT4_CLIP_GRID
+) -> dict:
+    """Symmetric group-wise int4, two values packed per int8 byte.
+
+    Round to nearest with one scale per (group, output channel), picked
+    from ``clip_grid`` x amax / 7 by least squared error over the group
+    (``clip_grid=(1.0,)`` is plain amax scaling).  Values lie in [-7, 7].
+
+    Packing: byte ``d`` of ``q4`` [.., D/2, E] holds contraction row ``d``
+    in its low nibble and row ``d + D/2`` in its high nibble, two's
+    complement.  ``s4`` [.., D/group, E] fp32: groups [0, N/2) scale the
+    low half, [N/2, N) the high half.
+    """
+    w32 = w.float()
+    D, E = w32.shape[-2:]
+    if D % (2 * group_size):
+        raise ValueError(f"in-dim {D} not divisible by 2*group ({2 * group_size})")
+    lead = w32.shape[:-2]
+    n = D // group_size
+    wg = w32.reshape(*lead, n, group_size, E)
+    amax = wg.abs().amax(dim=-2, keepdim=True)  # [.., n, 1, E]
+    one, seven = torch.ones_like(amax), amax.new_full((), 7.0)
+
+    def scale(c):
+        # tensor operands: a Python-scalar divisor becomes a reciprocal
+        # multiply on CUDA, which is not the IEEE quotient
+        return torch.where(amax > 0, amax.new_full((), c) * amax / seven, one)
+
+    best_s = scale(1.0)
+    if len(clip_grid) > 1 or clip_grid[0] != 1.0:
+        best_err = None
+        for c in clip_grid:
+            sc = scale(c)
+            qc = torch.clamp(torch.round(wg / sc), -7, 7)
+            err = ((qc * sc - wg) ** 2).sum(dim=-2, keepdim=True)
+            if best_err is None:
+                best_s, best_err = sc, err
+            else:
+                best_s = torch.where(err < best_err, sc, best_s)
+                best_err = torch.minimum(err, best_err)
+    # pack in int32 and narrow at the end: the shift must not wrap early
+    q = torch.clamp(torch.round(wg / best_s), -7, 7).to(torch.int32).reshape(*lead, D, E)
+    lo, hi = q[..., : D // 2, :], q[..., D // 2:, :]
+    packed = ((hi << 4) | (lo & 0x0F)).to(torch.int8)
+    return {"q4": packed, "s4": best_s.reshape(*lead, n, E)}
+
+
+def unpack_int4(packed: torch.Tensor):
+    """Sign-extended (low, high) nibble planes of an int4-packed matrix,
+    int8 each; all 16 nibble values decode, -8 included."""
+    p = packed.to(torch.int32)
+    lo = ((p & 0x0F) ^ 8) - 8
+    hi = p >> 4  # arithmetic
+    return lo.to(torch.int8), hi.to(torch.int8)
+
+
+def dequantize_matrix_int4(wq: dict, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    q, s = wq["q4"], wq["s4"]
+    D2, E = q.shape[-2:]
+    lead = q.shape[:-2]
+    n = s.shape[-2]
+    lo, hi = unpack_int4(q)
+    full = torch.cat([lo, hi], dim=-2).float()
+    fg = full.reshape(*lead, n, (2 * D2) // n, E) * s.float()[..., :, None, :]
+    return fg.reshape(*lead, 2 * D2, E).to(dtype)
+
+
+def _fit_group(D: int, group_size: int) -> int:
+    """Largest group <= ``group_size``, halving, with D % (2 * group) == 0
+    (the packed halves must not straddle a group).  The 7B in-dims take
+    g = 128 unchanged; small test towers get finer groups."""
+    g = group_size
+    while g > 1 and D % (2 * g):
+        g //= 2
+    if D % (2 * g):
+        raise ValueError(f"in-dim {D} has no valid int4 group <= {group_size}")
+    return g
+
+
+def quantize_llama_params_int4(
+    params: dict, lm_head: str | None = "int8", group_size: int = INT4_GROUP
+) -> dict:
+    """The int4 variant of ``quantize_llama_params``, as the JAX CLI's
+    ``--quantize int4``: per-layer projections to packed group-wise int4,
+    the group fitted to each in-dim (``_fit_group``); norms and embeddings
+    keep their dtype.  ``lm_head``: "int8" (the default), "int4", or None
+    (kept dense)."""
+    if lm_head not in ("int8", "int4", None):
+        raise ValueError(f"lm_head must be 'int8', 'int4' or None, got {lm_head!r}")
+    layers = dict(params["layers"])
+    for name in _QUANT_NAMES:
+        w = layers[name]
+        layers[name] = quantize_matrix_int4(w, _fit_group(w.shape[-2], group_size))
+    out = {**params, "layers": layers}
+    if lm_head is not None:
+        w = params["lm_head"]
+        out["lm_head"] = (
+            quantize_matrix(w) if lm_head == "int8"
+            else quantize_matrix_int4(w, _fit_group(w.shape[-2], group_size))
+        )
+    return out

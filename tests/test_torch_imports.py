@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "dropoutdecoding_tpu.")))
-print(len(names), leaked)
+print(len(names), "dropoutdecoding_tpu_torch.ops.cuda_int4_matmul" in names, leaked)
 """
 
 
@@ -35,8 +35,9 @@ def _run(args, cwd=ROOT, timeout=120):
 def test_port_modules_import_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    n, leaked = proc.stdout.strip().split(" ", 1)
-    assert int(n) >= 18  # every module of the slice was imported
+    n, int4, leaked = proc.stdout.strip().split(" ", 2)
+    assert int(n) >= 27  # every module of the port was imported,
+    assert int4 == "True"  # the int4 matmul's among them
     assert leaked == "[]", f"port modules pulled in {leaked}"
 
 

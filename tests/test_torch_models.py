@@ -207,16 +207,14 @@ def test_decode_step_members_share_cache(tiny, rng):
 
 
 def test_unported_branches_raise(tiny):
-    """int8 weights and the int8 cache are ported (``test_torch_quantize.py``);
-    int4 leaves and w8a8 still raise."""
+    """int8 weights and the int8 cache (``test_torch_quantize.py``) and packed
+    int4 weights (``test_torch_int4.py``) are ported; w8a8 still raises."""
     cfg = tiny["tcfg"].text
-    int4 = {"q4": torch.zeros(24, 64, dtype=torch.int8), "s4": torch.ones(1, 64)}
-    with pytest.raises(NotImplementedError, match="int4"):
-        tllama.lm_head(dict(tiny["tp"].lm, lm_head=int4), torch.zeros(1, 48))
-    layers = dict(tiny["tp"].lm["layers"], o_proj={k: v[None] for k, v in int4.items()})
     x = torch.zeros(1, 3, 48)
     pos = torch.zeros(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tllama.prefill(dict(tiny["tp"].lm, layers=layers), cfg, x, pos)
     with pytest.raises(NotImplementedError, match="w8a8"):
         tllama.prefill(tiny["tp"].lm, cfg, x, pos, w8a8=True)
+    cache = tllama.empty_cache(cfg, 1, 8, torch.float32, "cpu")
+    mask = torch.ones(1, 1, 8, dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="w8a8"):
+        tllama.decode_step(tiny["tp"].lm, cfg, x[:, :1], pos[:, 0], cache, mask, w8a8=True)

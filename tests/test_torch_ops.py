@@ -129,7 +129,8 @@ def test_build_names_library_by_source_hash():
     assert path == _build.library_path()
     assert path.parent == _build.BUILD_DIR
     assert {p.name for p in _build.sources()} == {
-        "cache_append.cu", "decode_attention.cu", "flash_prefill.cu", "uncertainty.cu"
+        "cache_append.cu", "decode_attention.cu", "flash_prefill.cu", "int4_matmul.cu",
+        "uncertainty.cu",
     }
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
