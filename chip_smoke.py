@@ -17,10 +17,16 @@ Phases, each fatal on failure:
    [32, 1, 1152, 4096] and a B = 2 case, bit-equal), K2 (visual-token
    uncertainty at [1, 576, 32064] fp32, with and without ``valid``) and K5
    (flash prefill at B=1, S=2950, H=32, KH=8, D=128, bf16, with a padded
-   key-mask tail; G=1, fp32, and rows with no attendable key) and K6 (the
-   packed-int4 matmul at the four 7B projection shapes for R = 1, 3 and 595
-   rows in bf16, fp32 input and output, a ragged shape with g = 32, and
-   K6', one layer of a stacked weight read in place).  Times are the median
+   key-mask tail, on the wgmma kernel; G=1, S = 1024 and 1025, B = 2 with
+   two mask tails, rows with no attendable key at D = 128, 64 and 16, fp32,
+   and inputs on which one key tile skipped, stale or wrongly attended
+   moves the output by many times the bound: a peaked softmax, and v
+   stepped by key tile)
+   and K6 (the packed-int4 matmul at the four 7B projection shapes for R =
+   1, 3 and 595 rows in bf16, the prefill's on the wgmma kernel, also at R =
+   17, 64, 128, 600, batched, twice for bit-equal results and on a layer's
+   view; fp32 input and output, a ragged shape with g = 32, and K6', one
+   layer of a stacked weight read in place).  Times are the median
    of 30 CUDA-graph replays, L2 flushed before each.  Beside each kernel
    stand its bound (the larger of its bytes over the card's memory rate and
    its operations over the card's peak rate) and, for K5 and K6, the time
@@ -33,7 +39,8 @@ Phases, each fatal on failure:
    int4 fused weights (K6) and ``int8_kv=True``; then a narrow LLaVA-NeXT in
    fp32 whose merged prompt (1320 tokens) runs K5: tokens must be equal.
 5. End to end, greedy then exact K=3, 32 new tokens each, with every
-   kernel's launch count checked: ``LlavaEngine.generate`` at full
+   kernel's launch count checked, and that the prefill's K5 and K6 launches
+   took the wgmma kernels: ``LlavaEngine.generate`` at full
    LLaVA-1.5-7B width and depth, first with synthetic bf16 weights and a
    bf16 cache (K1, K2), then synthetic int8 fused weights and an int8 cache
    (K2, K3, K4), then synthetic packed int4 fused weights, an int8 head and
@@ -62,10 +69,18 @@ import torch.nn.functional as F
 K1_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # atol; see CHANGES.md
 K3_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}  # bf16: of max|ref|, fp32: atol
 K2_RTOL = 1e-4
-# K5 (atol, rtol): the kernel rounds the unnormalised exp terms to bf16 for
-# PV, the twin the normalised probabilities, and sums run in another order,
-# so an output may round to the neighbouring bf16 value: 2^-7 of itself.
-K5_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (2e-5, 0.0)}
+# K5 (atol, rtol).  bf16: the kernel rounds the unnormalised exp terms to
+# bf16 for PV, the twin the normalised probabilities, and both round the
+# output, so an output may land on the neighbouring bf16 value (2^-8 of
+# itself, under rtol); what the rounded probabilities leave besides grows
+# with the row's values, so atol is a share of the row's max|ref| over the
+# head dim, not a constant: a row over 2000 diffuse keys has outputs near
+# 0.04, where a constant would hide a skipped or phantom key tile.  The
+# share is capped at K5_ATOL_CAP, which holds the first rows (one or two
+# keys, outputs of v's own size) tighter than their share would.
+# fp32: atol absolute, summation order only.
+K5_TOL = {torch.bfloat16: (8e-3, 1e-2), torch.float32: (2e-5, 0.0)}
+K5_ATOL_CAP = 2e-2
 # K6 (atol, rtol), both of max|ref|: bf16 products of x and a nibble are exact
 # and the sums are fp32 in another order than the twin's, so a bf16 output
 # may round to the neighbouring value (2^-7 of itself); an fp32 output differs
@@ -353,46 +368,86 @@ def check_cache_append() -> dict:
 
 def check_flash_prefill() -> dict:
     """K5 against its twin: the LLaVA-NeXT prefill shape with a padded key
-    tail, at G = 4 and G = 1 in bf16 and in fp32, and two smaller cases
-    whose first rows have no attendable key (the twin's softmax is uniform
-    over all S keys there).  No output may be NaN or Inf.  Returns the
+    tail, at G = 4 and G = 1 in bf16 and in fp32; on the wgmma kernel (bf16,
+    D = 128) also S = 1024 and 1025, B = 2 with two different key-mask
+    tails, and rows with no attendable key (masked leading keys: the twin's
+    softmax is uniform over all S keys there); the same on the mma.sync
+    kernel (D = 64) and the scalar one (fp32, D = 16).  Two more wgmma cases
+    make single key tiles matter: "peaked" scales q by 8, so that a row's
+    weight sits on a few keys and a skipped or stale tile moves the rows
+    that peak there by about their own size; "stepped" adds (tile mod 4) -
+    1.5 to v by key tile of 128, so that the tiles' shares cancel in a whole
+    walk and one tile missing, or one phantom or masked tile counted, shows
+    in every later row.  Each case must take the kernel named beside it.  No
+    output may be NaN or Inf.  Operations are counted from the mask: a (query,
+    key) pair for each attendable key at or before the query.  Returns the
     record of the first case."""
     from dropoutdecoding_tpu_torch.ops.attention import chunked_prefill_attention
     from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
 
     record = None
-    cases = [  # (label, B, S, H, KH, D, dtype, real keys, masked leading keys)
-        ("S=2950 G=4 bf16", 1, 2950, 32, 8, 128, torch.bfloat16, 2362, 0),
-        ("S=2950 G=1 bf16", 1, 2950, 32, 32, 128, torch.bfloat16, 2362, 0),
-        ("S=2950 G=4 fp32", 1, 2950, 32, 8, 128, torch.float32, 2362, 0),
-        ("B=2 S=700 G=2 D=64 bf16, rows without keys", 2, 700, 8, 4, 64, torch.bfloat16, 650, 5),
-        ("S=1100 G=2 D=16 fp32, rows without keys", 1, 1100, 4, 2, 16, torch.float32, 1000, 5),
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [  # (label, B, S, H, KH, D, dtype, real keys per row of B, masked leading keys, kernel)
+        ("S=2950 G=4 bf16", 1, 2950, 32, 8, 128, bf16, [2362], 0, "wgmma"),
+        ("S=2950 G=1 bf16", 1, 2950, 32, 32, 128, bf16, [2362], 0, "wgmma"),
+        ("S=1024 G=4 bf16", 1, 1024, 32, 8, 128, bf16, [1024], 0, "wgmma"),
+        ("S=1025 G=1 bf16", 1, 1025, 8, 8, 128, bf16, [1000], 0, "wgmma"),
+        ("B=2 S=1300 G=4 bf16, key tails 1100 / 1300", 2, 1300, 16, 4, 128, bf16, [1100, 1300], 0,
+         "wgmma"),
+        # 130 masked leading keys: the first query tile has no key tile to walk
+        ("B=2 S=700 G=2 D=128 bf16, rows without keys", 2, 700, 8, 4, 128, bf16, [650, 520], 130,
+         "wgmma"),
+        ("S=2950 G=4 bf16 peaked", 1, 2950, 8, 2, 128, bf16, [2362], 0, "wgmma"),
+        ("B=2 S=1025 G=1 bf16 peaked", 2, 1025, 4, 4, 128, bf16, [1025, 700], 0, "wgmma"),
+        ("S=2950 G=4 bf16 stepped", 1, 2950, 8, 2, 128, bf16, [2362], 0, "wgmma"),
+        ("B=2 S=1025 G=1 bf16 stepped", 2, 1025, 4, 4, 128, bf16, [1025, 700], 0, "wgmma"),
+        ("S=2950 G=4 fp32", 1, 2950, 32, 8, 128, fp32, [2362], 0, "scalar"),
+        ("B=2 S=700 G=2 D=64 bf16, rows without keys", 2, 700, 8, 4, 64, bf16, [650, 650], 5,
+         "mma"),
+        ("S=1100 G=2 D=16 fp32, rows without keys", 1, 1100, 4, 2, 16, fp32, [1000], 5, "scalar"),
     ]
-    for i, (label, B, S, H, KH, D, dtype, real, lead) in enumerate(cases):
+    for i, (label, B, S, H, KH, D, dtype, real, lead, kernel) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(400 + i)
 
         def rnd(*shape):
-            return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+            return torch.randn(*shape, generator=g, device="cuda")
 
         q, k, v = rnd(B, S, H, D), rnd(B, S, KH, D), rnd(B, S, KH, D)
-        mask = (torch.arange(S, device="cuda") < real).expand(B, S).clone()
+        if label.endswith("peaked"):
+            q *= 8.0
+        if label.endswith("stepped"):
+            v += (torch.arange(S, device="cuda") // 128 % 4 - 1.5)[None, :, None, None]
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        mask = torch.arange(S, device="cuda") < torch.tensor(real, device="cuda")[:, None]
         mask[:, :lead] = False
+        before = dict(flash_prefill_attention.route_launches)
         got = flash_prefill_attention(q, k, v, mask)
         torch.cuda.synchronize()
-        ref = chunked_prefill_attention(q, k, v, mask)
+        took = [r for r, n in flash_prefill_attention.route_launches.items() if n != before[r]]
+        ref = chunked_prefill_attention(q, k, v, mask).float()
         finite = bool(torch.isfinite(got).all())
-        diff = (got.float() - ref.float()).abs()
+        diff = (got.float() - ref).abs()
         err = diff.max().item()
         atol, rtol = K5_TOL[dtype]
-        within = bool((diff <= atol + rtol * ref.float().abs()).all())
-        ms = time_ms(lambda: flash_prefill_attention(q, k, v, mask))
-        plain_ms = time_ms(lambda: chunked_prefill_attention(q, k, v, mask))
-        flops = 4 * B * H * D * S * (S + 1) / 2  # causal QK^T and PV
-        print(
-            f"K5 {label}: max_abs_err {err:.3e} (bound {atol:g} + {rtol:g} |ref|), finite {finite}, "
-            f"kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain_ms * 1e3:.1f} us"
-        )
+        row_max = ref.abs().amax(-1, keepdim=True)
+        scaled = (atol * row_max).clamp(max=K5_ATOL_CAP) if dtype == bf16 else atol
+        bound = scaled + rtol * ref.abs()
+        within = bool((diff <= bound).all())
+        needs = ((diff - rtol * ref.abs()) / (row_max if dtype == bf16 else 1.0)).max().item()
+        line = (f"K5 {label} ({'/'.join(took)}): max_abs_err {err:.3e} (bound {atol:g} "
+                f"{f'row max|ref| (at most {K5_ATOL_CAP:g}) ' if dtype == bf16 else ''}+ {rtol:g} |ref|; the least atol "
+                f"that passes: {max(needs, 0.0):.2e}), finite {finite}")
+        timed = S == 2950 and H == 32
+        if timed:
+            # causal QK^T and PV over the pairs the mask leaves
+            flops = 4 * H * D * mask.cumsum(1).sum().item()
+            ms = time_ms(lambda: flash_prefill_attention(q, k, v, mask))
+            plain_ms = time_ms(lambda: chunked_prefill_attention(q, k, v, mask))
+            line += (f", kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s over "
+                     f"{flops / 4 / H / D:.0f} pairs a head), plain {plain_ms * 1e3:.1f} us")
+        print(line)
+        if took != [kernel]:
+            raise AssertionError(f"K5 {label}: took {took}, not the {kernel} kernel")
         if not finite or not within:
             raise AssertionError(f"K5 {label}: finite {finite}, max_abs_err {err} out of bounds")
         if record is None:
@@ -407,7 +462,7 @@ def check_flash_prefill() -> dict:
                   "(reference only)")
             del allowed
             record = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "kernel_route": kernel, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **least_time(_nbytes(q, k, v, mask, got), flops, "bf16"), "library_ms": library_ms,
             }
     return record
@@ -420,11 +475,16 @@ def check_int4_matmul() -> dict:
     in the prefill) in bf16, a bf16 input with an fp32 output (also at an
     int4 head's shape, whose 32064 channels end inside a tile), fp32 inputs
     at the narrow model's shapes, a ragged shape (43 groups of 32 a half, E
-    = 130) on every tile shape, and K6': layer 17 of a stacked [32, D/2, E]
-    weight passed as a view, which must be read in place.  Beside each 7B case the time of
-    ``torch.matmul`` of x with a bf16 matrix dequantized ahead of time
-    (reference only; the port never makes that matrix).  Returns the record
-    of the fused gate/up projection at 3 rows, the exact-mode decode's."""
+    = 130) on every mma.sync tile shape, and K6': layer 17 of a stacked
+    [32, D/2, E] weight passed as a view, which must be read in place.  The
+    prefill's cases must take the wgmma kernel: the four shapes at R = 595,
+    the o projection also at R = 17, 64, 128 and 600, a batched [2, 595,
+    4096] x, a layer's view, the head at R = 576, and one call made twice
+    with equal bits.  Beside each 7B case the time of ``torch.matmul`` of x
+    with a bf16 matrix dequantized ahead of time (reference only; the port
+    never makes that matrix).  Returns the record of the fused gate/up
+    projection at 3 rows, the exact-mode decode's, with the same projection
+    at 595 rows under "prefill"."""
     from dropoutdecoding_tpu_torch.ops.cuda_int4_matmul import int4_matmul, int4_matmul_twin
     from dropoutdecoding_tpu_torch.utils.quantize import dequantize_matrix_int4
 
@@ -436,9 +496,13 @@ def check_int4_matmul() -> dict:
         s4 = torch.empty(*lead, D // group, E, device="cuda").uniform_(0.002, 0.006, generator=g)
         return q4, s4
 
-    def compare(label, x, q4, s4, out_dtype, tol, timed=True):
+    def compare(label, x, q4, s4, out_dtype, tol, timed=True, route=None):
+        before = dict(int4_matmul.route_launches)
         got = int4_matmul(x, q4, s4, out_dtype=out_dtype)
         torch.cuda.synchronize()
+        took = [r for r, n in int4_matmul.route_launches.items() if n != before[r]]
+        if route is not None and took != [route]:
+            raise AssertionError(f"K6 {label}: took {took}, not the {route} kernel")
         ref = int4_matmul_twin(x, q4, s4, out_dtype=out_dtype)
         if got.dtype != ref.dtype or got.shape != ref.shape:
             raise AssertionError(f"K6 {label}: {got.dtype} {tuple(got.shape)}")
@@ -457,7 +521,7 @@ def check_int4_matmul() -> dict:
             raise AssertionError(f"K6 {label}: max_abs_err {err} out of bounds")
         return {"max_abs_err": err, **times}, got
 
-    record = None
+    record, prefill = None, None
     shapes = [  # the fused leaves of a Vicuna-7B layer: (name, D, E)
         ("qkv", 4096, 12288), ("o", 4096, 4096), ("gate_up", 4096, 22016), ("down", 11008, 4096),
     ]
@@ -466,8 +530,9 @@ def check_int4_matmul() -> dict:
         dense = dequantize_matrix_int4({"q4": q4, "s4": s4}, torch.bfloat16)
         for R in (1, 3, 595):
             x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
-            rec, got = compare(f"{name} [{R}, {D}] x [{D}, {E}] bf16", x, q4, s4, None,
-                               K6_TOL[torch.bfloat16])
+            route = "wgmma" if R == 595 else "mma"
+            rec, got = compare(f"{name} [{R}, {D}] x [{D}, {E}] bf16 ({route})", x, q4, s4, None,
+                               K6_TOL[torch.bfloat16], route=route)
             rec["library_ms"] = time_ms(lambda: torch.matmul(x, dense))
             rec.update(least_time(_nbytes(x, q4, s4, got), 2 * R * D * E, "bf16"))
             print(
@@ -478,6 +543,10 @@ def check_int4_matmul() -> dict:
             )
             if (name, R) == ("gate_up", 3):
                 record = rec
+            if (name, R) == ("gate_up", 595):
+                prefill = {"route": route, **rec}
+            if R == 595 and not torch.equal(got, int4_matmul(x, q4, s4)):
+                raise AssertionError(f"K6 {name} R=595: two calls differ in their bits")
         if name == "o":  # K6': layer 17 of a stack, in place; and an fp32 output
             stack_q, stack_s = packed(32, D=D, E=E, group=128)
             view_q, view_s = stack_q[17], stack_s[17]
@@ -489,31 +558,45 @@ def check_int4_matmul() -> dict:
             alone = int4_matmul(x, view_q.clone(), view_s.clone())
             if not torch.equal(got, alone):
                 raise AssertionError("K6' layer view differs from the layer's own copy")
+            x = torch.randn(595, D, generator=g, device="cuda").to(torch.bfloat16)
+            _, got = compare("K6' layer 17 of [32, 2048, 4096], R=595 bf16 (wgmma)", x, view_q,
+                             view_s, None, K6_TOL[torch.bfloat16], timed=False, route="wgmma")
+            if not torch.equal(got, int4_matmul(x, view_q.clone(), view_s.clone())):
+                raise AssertionError("K6' layer view at R=595 differs from the layer's own copy")
             del stack_q, stack_s
-            for R, tol in ((3, K6_TOL["mma fp32"]), (595, K6_TOL["mma fp32"])):
+            for R, route in ((3, "mma"), (595, "wgmma")):
                 x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
-                compare(f"o R={R} bf16 in, fp32 out", x, q4, s4, torch.float32, tol, timed=False)
+                compare(f"o R={R} bf16 in, fp32 out ({route})", x, q4, s4, torch.float32,
+                        K6_TOL["mma fp32"], timed=False, route=route)
+            # row counts around the wgmma kernel's tiles: one short tile, a
+            # tile's edge, a ragged last tile, whole tiles, and a batched x
+            for lead in ((17,), (64,), (128,), (600,), (2, 595)):
+                x = torch.randn(*lead, D, generator=g, device="cuda").to(torch.bfloat16)
+                compare(f"o {list(lead)} rows bf16 (wgmma)", x, q4, s4, None,
+                        K6_TOL[torch.bfloat16], timed=False, route="wgmma")
         del q4, s4, dense
 
     q4, s4 = packed(D=4096, E=32064, group=128)  # an int4 head: 250.5 channel tiles, fp32 logits
-    for R in (3, 576):
+    for R, route in ((3, "mma"), (576, "wgmma")):
         x = torch.randn(R, 4096, generator=g, device="cuda").to(torch.bfloat16)
-        compare(f"head [{R}, 4096] x [4096, 32064] bf16 in, fp32 out", x, q4, s4, torch.float32,
-                K6_TOL["mma fp32"], timed=False)
+        compare(f"head [{R}, 4096] x [4096, 32064] bf16 in, fp32 out ({route})", x, q4, s4,
+                torch.float32, K6_TOL["mma fp32"], timed=False, route=route)
     # the narrow model's prefill and decode shapes: fp32 (the FMA kernel), and
     # bf16, where one chunk holds the whole contraction and nothing is split
     for R, D, E in ((73, 256, 768), (3, 256, 768), (3, 512, 256)):
         q4, s4 = packed(D=D, E=E, group=128)
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(R, D, generator=g, device="cuda").to(dtype)
-            compare(f"{str(dtype).split('.')[-1]} [{R}, {D}] x [{D}, {E}]", x, q4, s4, None,
-                    K6_TOL[dtype], timed=dtype == torch.float32)
+            route = "fma" if dtype == torch.float32 else "wgmma" if R > 16 else "mma"
+            compare(f"{str(dtype).split('.')[-1]} [{R}, {D}] x [{D}, {E}] ({route})", x, q4, s4,
+                    None, K6_TOL[dtype], timed=dtype == torch.float32, route=route)
     q4, s4 = packed(D=2 * 43 * 32, E=130, group=32)  # 43 groups a half; rows unaligned
     for R, dtype in ((3, torch.bfloat16), (30, torch.bfloat16), (70, torch.bfloat16),
                      (7, torch.float32)):
         x = torch.randn(2, R // 2 + 1, 2 * 43 * 32, generator=g, device="cuda").to(dtype)
         compare(f"ragged [{x.shape[0]}, {x.shape[1]}, 2752] x [2752, 130] g=32 "
-                f"{str(dtype).split('.')[-1]}", x, q4, s4, None, K6_TOL[dtype], timed=False)
+                f"{str(dtype).split('.')[-1]}", x, q4, s4, None, K6_TOL[dtype], timed=False,
+                route="mma" if dtype == torch.bfloat16 else "fma")
     bad = torch.randn(3, 96, device="cuda")
     try:  # a group the kernel's k-step does not divide must raise, never fall back
         int4_matmul(bad, torch.zeros(48, 8, dtype=torch.int8, device="cuda"),
@@ -522,7 +605,7 @@ def check_int4_matmul() -> dict:
         print(f"K6 g=24: raises ({e})")
     else:
         raise AssertionError("K6 accepted a group size of 24")
-    return record
+    return {**record, "prefill": prefill}
 
 
 def _narrow_config():
@@ -740,8 +823,12 @@ def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> d
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
+        for k in ("K5", "K6"):
+            wrappers[k].route_launches = dict.fromkeys(wrappers[k].route_launches, 0)
         result, total_s = _sync_time(lambda: eng.generate(*args))  # the main path
         counts = {k: fn.launches for k, fn in wrappers.items()}
+        # the prefill's launches of K5 and K6 that took the wgmma kernels
+        wgmma = {k: wrappers[k].route_launches["wgmma"] for k in ("K5", "K6")}
         peak = torch.cuda.max_memory_allocated() / 2**30
 
         tok = result.tokens
@@ -765,14 +852,19 @@ def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> d
             # the four fused projections of every layer of every forward
             "K6": 4 * L * (1 + (T - 1) * (2 if ensemble else 1)) if int4 else 0,
         }
+        # every K5 launch, and K6's four projections of every layer of the prefill
+        want_wgmma = {"K5": want["K5"], "K6": 4 * L if int4 else 0}
         print(
             f"{tier} {label}: prompt {S} tokens ({real} real), prefill {prefill_s * 1e3:.1f} ms, "
             f"decode {(T - 1) / decode_s:.2f} tokens/s ({decode_s / (T - 1) * 1e3:.2f} ms/step), "
             f"generate {T / total_s:.2f} tokens/s end to end, peak {peak:.2f} GiB, "
-            f"launches {counts} (want {want}); tokens {tok[0, :8].tolist()}..."
+            f"launches {counts} (want {want}), of them on wgmma {wgmma} (want {want_wgmma}); "
+            f"tokens {tok[0, :8].tolist()}..."
         )
         if counts != want:
             raise AssertionError(f"{tier} {label}: launch counts {counts} != {want}")
+        if wgmma != want_wgmma:
+            raise AssertionError(f"{tier} {label}: wgmma launches {wgmma} != {want_wgmma}")
     return counts
 
 

@@ -23,39 +23,81 @@
 // fused gate/up and down projections of a 7B layer (8.0, 2.7, 14.3, 7.1 us at
 // 3.35 TB/s).  At the prefill (R = 595) the tensor-core FLOPs: 2 R D E is
 // 59.9, 20.0, 107.3 and 53.7 GFLOP (60.6, 20.2, 108.5, 54.3 us at 989
-// TFLOP/s bf16).  Prediction, before the first chip run, for the first
-// version: its FMA kernel reaches 40-70% of the memory rate on the three
-// large matrices (its decode of a byte costs about as many instruction slots as
-// the card has per byte at full rate) and less on o_proj, whose 8.4 MB end
-// before the card is full; its tensor-core kernel, with synchronous tile
-// loads and byte-wise fragment reads, reaches 80-200 TFLOP/s.
+// TFLOP/s bf16).  Measured times and the predictions made before them are in
+// PERF.md.
 //
-// Measured, and what became of the first version: see PERF.md.  That version
-// ran bf16 x of up to 4 rows through the FMA kernel below and more rows
-// through a 64 x 64 tile with synchronous loads and byte-wise fragment reads;
-// both were bound by the instructions that unpack a byte, not by memory.
+// Three kernels behind one entry; the caller names the route and the entry
+// refuses one the shape cannot take.
 //
-// Design: two kernels behind one entry.
+// int4_wgmma_kernel (bf16 x, more than 16 rows: the prefill; E a multiple of
+// 16, groups a multiple of 128, q4 16-byte aligned, which TMA needs).  What
+// held the mma.sync tile below at 141-178 TFLOP/s there: mma.sync cannot
+// reach the card's tensor rate; its unpack shared issue slots with its mmas
+// (about four ALU instructions an mma) and was repeated by both warp rows and
+// all ten row blocks; x was re-read from L2 for every 128 channels of a
+// 64-row block; loads were issued by the warps that compute.  The design:
+//  - The operands are swapped: y^T [E, R] = W^T . x^T, so the wgmma's 64 rows
+//    are output channels and its N is x rows.  The weights are the A operand
+//    from registers; an x tile [rows][k], k contiguous, is the K-major B
+//    operand as TMA lays it in shared memory (128-byte swizzle).
+//  - ldmatrix.trans on the byte tile, read as 16-bit elements, gives a thread
+//    contraction rows 2t, 2t + 1 of an even and an odd channel in one
+//    register; masked, xor-ed into bf16 values of 136 + n and less 136 (exact
+//    in bf16) that is one register of a 16 x 16 A fragment whose rows are
+//    channels 0, 2, .. 14, 1, 3, .. 15 of the warp's sixteen.  The epilogue
+//    undoes the order: a thread's two accumulator rows are adjacent channels,
+//    stored as one pair.  A warpgroup decodes 8 weights a thread for each
+//    wgmma of 64 x 120 or 64 x 152 x 16: nothing is decoded twice in a block.
+//  - The scale is per accumulator row: a step is one 128-row stretch of the
+//    packed matrix inside one group; its low plane runs against x's first
+//    half and its high plane against x's second half, eight wgmmas each into
+//    one accumulator set (scale_d = 0 on the first), which the thread's two
+//    (group, channel) scales add into the totals: the fp32 scale lands on an
+//    fp32 partial, as in the twin.  Totals and one running set are 2 x ROWS / 2
+//    registers a thread, so a block is 128 channels (two consumer warpgroups
+//    of 64) by 120 or 152 rows; setmaxnreg gives consumers 240 registers, the
+//    producer 24; no spills.
+//  - A producer warp keeps two TMA rings full with mbarriers: four x tiles
+//    (one step's 128 contraction rows of one half of x) and two byte tiles
+//    (128 packed rows by 128 channels, swizzled so that ldmatrix meets no
+//    bank conflict).  Rows of x past R and channels past E arrive as zeros
+//    from the tensor maps, which the C entry encodes on the host for every
+//    call and passes as __grid_constant__ parameters.  The bytes of a step go
+//    to registers at once and free their tile.
+//  - With 120 rows the registers allow two sets of A fragments: one plane's
+//    are decoded while the other's wgmmas run.  With 152 rows one set.
+//  - L2: a block reads 128 + 4 ROWS bytes a packed row for 512 ROWS FLOP (101
+//    FLOP/B at 120 rows, 107 at 152); gate_up's 860 blocks move 1.07 GB
+//    through L2 against 1.3 GB before.  Row tiles vary fastest in the grid, so
+//    the five blocks of a channel tile run together and share its bytes, and
+//    all resident blocks share x (4.9 MB).  256 channels a block halved the x
+//    traffic and changed no time: L2 does not bound this kernel.
+//  - An SM holds one block, so blocks run in waves of 132.  595 rows by 4096
+//    channels are 160 blocks of 120 rows (two waves) or 128 of 152 rows (one):
+//    the caller picks the row tile whose waves times rows is least.
+//  - What still bounds it, at 500-540 TFLOP/s: each batch of eight wgmmas is
+//    drained (wgmma.wait_group 0) before its sums can be scaled, and both
+//    warpgroups tend to drain together.  Letting them take turns on a named
+//    barrier pair changed nothing; a second accumulator set with per-wgmma
+//    groups made ptxas serialize the wgmmas (C7514) and was slower.
+//  No float atomics and one block per output tile: results are bit-equal run
+//  to run.
 //
-// int4_mma_kernel (bf16 x): the tensor cores, at every row count.  A block
-// walks its packed rows in chunks of up to 128 inside one group.  A chunk's
-// bytes and the two matching x panels travel to shared memory with cp.async
-// while the chunk before is used (two stages).  ldmatrix with .trans reads
-// the byte tile as 16-bit elements, so one register holds rows 2t and 2t+1
-// of two adjacent channels: the k-pairs of an mma B fragment for the even
-// channel, and 8 bits higher for the odd one.  A pair is masked to its
-// nibbles, xor-ed into two bf16 values of 136 + n, and 136 is subtracted in
-// bf16, which is exact: three instructions for two weights.  The low plane
-// runs against x's first half, then the high plane against its second half
-// (mma.sync m16n8k16 bf16, fp32 sums), each into one accumulator set that is
-// scaled into the totals by the group's fp32 scales at the end of the chunk:
-// the scale lands on an fp32 partial of the group.  Two tile shapes: 64 rows
-// by 128 channels on eight warps for the prefill, and 16 rows by 128
-// channels on four warps for up to 16 rows (the decode forwards' 1 and 3),
-// where the contraction is split over blocks to fill the card; the blocks
-// write fp32 partials and int4_combine_kernel adds them in split order: no
-// float atomics, so the result is the same every run.  wgmma, TMA and a
-// deeper pipeline are later work.
+// int4_mma_kernel (bf16 x on mma.sync m16n8k16): up to 16 rows (the decode
+// forwards' 1 and 3) on a 16-row by 128-channel tile of four warps, and the
+// prefill shapes the wgmma kernel does not take (E not a multiple of 16, a
+// group that is no multiple of 128, an unaligned view) on a 64-row tile of
+// eight warps.  A block walks its packed rows in chunks of up to 128 inside
+// one group.  A chunk's bytes and the two matching x panels travel to shared
+// memory with cp.async while the chunk before is used (two stages).  The
+// same ldmatrix.trans read yields the k-pairs of an mma B fragment for the
+// even channel, and 8 bits higher for the odd one.  The low plane runs
+// against x's first half, then the high plane against its second half, each
+// into one accumulator set that is scaled into the totals by the group's fp32
+// scales at the end of the chunk.  At up to 16 rows the contraction is split
+// over blocks to fill the card; the blocks write fp32 partials and
+// int4_combine_kernel adds them in split order: no float atomics, so the
+// result is the same every run.
 //
 // int4_fma_kernel (fp32 x): fp32 FMAs, so that the card agrees with the CPU
 // to summation order; the narrow card-against-CPU model check comes this way.
@@ -72,6 +114,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -456,6 +500,215 @@ __global__ void __launch_bounds__(32 * WM * WN, MT == 1 ? 4 : 2) int4_mma_kernel
       }
 }
 
+// ---- warpgroup tensor cores (the prefill) --------------------------------------
+
+constexpr int kWgGroup = 128;    // packed rows per step: the group must be a multiple
+constexpr int kWgChannels = 128; // channels per block: one 64-row wgmma per consumer warpgroup
+constexpr int kWgThreads = 384;  // two consumer warpgroups and the producer's
+constexpr int kWgXStages = 4;    // ring of x tiles, one per (step, plane)
+constexpr int kWgWStages = 2;    // ring of byte tiles, one per step
+constexpr int kWgWTile = kWgGroup * kWgChannels;  // [128 packed rows][128 channels], swizzled
+
+// ROWS: x rows per block, the wgmma's N.  An x tile is two sub-tiles of
+// [ROWS][64 k] bf16 (rows of 128 bytes, swizzled): one step's 128 contraction
+// rows of one half of x.
+template <int ROWS>
+struct WgTile {
+  static constexpr int kSub = ROWS * 64 * (int)sizeof(bf16);
+  static constexpr int kXTile = 2 * kSub;
+  static constexpr int kSmem = kWgXStages * kXTile + kWgWStages * kWgWTile + 1024;  // + alignment
+  // 120 rows leave registers for two sets of A fragments, so that one plane's
+  // are decoded while the other's wgmmas run; 152 rows for one set
+  static constexpr int kSets = ROWS <= 120 ? 2 : 1;
+};
+
+template <int ROWS>
+__device__ __forceinline__ void wgmma_rs(float (&d)[ROWS / 2], const uint32_t (&a)[4],
+                                         uint64_t b_desc, int scale_d) {
+  static_assert(ROWS == 120 || ROWS == 152, "instantiate the wgmma shape first");
+  if constexpr (ROWS == 120) hopper::wgmma_m64n120k16_rs(d, a, b_desc, scale_d);
+  if constexpr (ROWS == 152) hopper::wgmma_m64n152k16_rs(d, a, b_desc, scale_d);
+}
+
+// One register of ldmatrix_x4_trans over the byte tile holds, for channels 2
+// group and 2 group + 1 of the warp's sixteen, packed rows 2t and 2t + 1 (bits
+// 0-7: row 2t, even channel; 8-15: row 2t, odd; 16-23: row 2t + 1, even; 24-31:
+// row 2t + 1, odd).  w0 is that of packed rows 0-7 of a k-step and w1 of rows
+// 8-15, so the four values below are the A fragment of a 16 x 16 tile whose row
+// `group` is channel 2 group and whose row group + 8 is channel 2 group + 1.
+__device__ __forceinline__ void decode_fragment(uint32_t (&a)[4], uint32_t w0, uint32_t w1,
+                                                int plane) {
+  a[0] = nibbles_bf16x2(w0 >> (4 * plane));
+  a[1] = nibbles_bf16x2(w0 >> (8 + 4 * plane));
+  a[2] = nibbles_bf16x2(w1 >> (4 * plane));
+  a[3] = nibbles_bf16x2(w1 >> (8 + 4 * plane));
+}
+
+// The eight A fragments of one plane of a step, from the step's bytes.
+__device__ __forceinline__ void decode_plane(uint32_t (&a)[8][4], const uint32_t (&w)[4][4],
+                                             int plane) {
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks)
+    decode_fragment(a[ks], w[ks >> 1][2 * (ks & 1)], w[ks >> 1][2 * (ks & 1) + 1], plane);
+}
+
+// y^T [channels, rows] = W^T . x^T: the wgmma's 64 rows are output channels,
+// its A operand the weights, decoded in registers, and its B operand an x tile
+// in shared memory.  Block (i, j) owns x rows [ROWS i, ROWS (i + 1)) and
+// channels [128 j, 128 (j + 1)) over the whole contraction, in steps of one
+// 128-row stretch of the packed matrix: its low plane against x's first half,
+// then its high plane against x's second half, eight wgmmas each into one
+// accumulator set that the stretch's group scales add into the totals.
+template <int ROWS>
+__global__ void __launch_bounds__(kWgThreads, 1) int4_wgmma_kernel(
+    const __grid_constant__ CUtensorMap x_map,  // bf16 [R, 2 * D2], box [ROWS][64]
+    const __grid_constant__ CUtensorMap w_map,  // uint8 [D2, E], box [128][128]
+    const float* __restrict__ s4,               // [2 * n2, E]
+    void* __restrict__ out,                     // [R, E], bf16 or float
+    int R, int D2, int E, int n2, int g, int out_f32) {
+  using TL = WgTile<ROWS>;
+  constexpr int kAcc = ROWS / 2, kSets = TL::kSets;
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ uint64_t x_full[kWgXStages], x_empty[kWgXStages];
+  __shared__ uint64_t w_full[kWgWStages], w_empty[kWgWStages];
+  unsigned char* x_tiles = hopper::align_1024(wg_smem);
+  unsigned char* w_tiles = x_tiles + kWgXStages * TL::kXTile;
+  const int r0 = blockIdx.x * ROWS, e0 = blockIdx.y * kWgChannels;
+  const int n_steps = D2 / kWgGroup;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgXStages; ++s) {
+      hopper::mbar_init(&x_full[s], 1);   // the producer's expect_tx arrival
+      hopper::mbar_init(&x_empty[s], 8);  // one lane of each consumer warp
+    }
+    for (int s = 0; s < kWgWStages; ++s) {
+      hopper::mbar_init(&w_full[s], 1);
+      hopper::mbar_init(&w_empty[s], 8);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    // The producer: one thread keeps both rings full.  Rows of x past R and
+    // channels past E arrive as zeros.
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 2 * 128) {
+      for (int step = 0; step < n_steps; ++step) {
+        const int k0 = step * kWgGroup;
+        const int ws = step % kWgWStages;
+        hopper::mbar_wait(&w_empty[ws], ((step / kWgWStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&w_full[ws], kWgWTile);
+        hopper::tma_load_2d(w_tiles + ws * kWgWTile, &w_map, &w_full[ws], e0, k0);
+#pragma unroll
+        for (int plane = 0; plane < 2; ++plane) {
+          const int n = 2 * step + plane, xs = n % kWgXStages;
+          hopper::mbar_wait(&x_empty[xs], ((n / kWgXStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&x_full[xs], TL::kXTile);
+          unsigned char* x_s = x_tiles + xs * TL::kXTile;
+          hopper::tma_load_2d(x_s, &x_map, &x_full[xs], plane * D2 + k0, r0);
+          hopper::tma_load_2d(x_s + TL::kSub, &x_map, &x_full[xs], plane * D2 + k0 + 64, r0);
+        }
+      }
+    }
+  } else {
+    hopper::reg_alloc<240>();
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+    const int gr = lane >> 2, tg = lane & 3;
+    // this warp's 16 channels are 16-byte chunk `chunk` of a byte tile's rows;
+    // this thread's accumulator rows are channels ch and ch + 1
+    const int chunk = wg * 4 + warp;
+    const int ch = e0 + chunk * 16 + 2 * gr;
+
+    float y[kAcc], acc[kAcc];
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) y[i] = 0.f;
+    uint32_t w[4][4];        // a step's 128 packed rows of the warp's channels
+    uint32_t a[kSets][8][4];  // A fragments: of one plane, or of both
+
+    // Takes step `step`'s bytes into registers and frees their tile at once.
+    auto load_bytes = [&](int step) {
+      const int ws = step % kWgWStages;
+      hopper::mbar_wait(&w_full[ws], (step / kWgWStages) & 1);
+      const uint32_t w_s = hopper::smem_u32(w_tiles + ws * kWgWTile);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int row = h * 32 + lane;
+        hopper::ldmatrix_x4_trans(w[h], w_s + row * 128 + ((chunk ^ (row & 7)) << 4));
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&w_empty[ws]);
+    };
+
+    load_bytes(0);
+    decode_plane(a[0], w, 0);
+    for (int step = 0; step < n_steps; ++step) {
+      const int gi = step * kWgGroup / g;  // a step lies inside one group
+#pragma unroll
+      for (int plane = 0; plane < 2; ++plane) {
+        const int n = 2 * step + plane, xs = n % kWgXStages;
+        hopper::mbar_wait(&x_full[xs], (n / kWgXStages) & 1);
+        const uint32_t x_s = hopper::smem_u32(x_tiles + xs * TL::kXTile);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 8; ++ks)
+          wgmma_rs<ROWS>(acc, a[plane % kSets][ks],
+                         hopper::smem_desc(x_s + (ks >> 2) * TL::kSub + (ks & 3) * 32, 16, 1024),
+                         ks > 0);
+        hopper::wgmma_commit();
+        // while the tensor cores run: the scales, and with two fragment sets
+        // the next batch's fragments
+        const float* srow = s4 + (size_t)(plane * n2 + gi) * E;
+        const float s0 = ch < E ? __ldg(srow + ch) : 0.f;
+        const float s1 = ch < E ? __ldg(srow + ch + 1) : 0.f;
+        if constexpr (kSets == 2) {
+          if (plane == 0) {
+            decode_plane(a[1], w, 1);
+          } else if (step + 1 < n_steps) {
+            load_bytes(step + 1);
+            decode_plane(a[0], w, 0);
+          }
+        }
+        hopper::wgmma_wait<0>();
+        hopper::keep(acc);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&x_empty[xs]);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) y[i] = fmaf(acc[i], (i & 2) ? s1 : s0, y[i]);
+        if constexpr (kSets == 1) {
+          if (plane == 0) {
+            decode_plane(a[0], w, 1);
+          } else if (step + 1 < n_steps) {
+            load_bytes(step + 1);
+            decode_plane(a[0], w, 0);
+          }
+        }
+      }
+    }
+
+    // accumulators 4j .. 4j + 3 of a thread: (channel ch, x rows 8j + 2 tg and
+    // the next), then (channel ch + 1, the same rows)
+    if (ch < E) {
+#pragma unroll
+      for (int j = 0; j < ROWS / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = r0 + 8 * j + 2 * tg + i;
+          if (row >= R) continue;
+          const size_t idx = (size_t)row * E + ch;
+          const float v0 = y[4 * j + i], v1 = y[4 * j + 2 + i];
+          if (out_f32) {
+            *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(v0, v1);
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(out) + idx) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+        }
+    }
+  }
+}
+
 struct Call {
   const void* x;
   const int8_t* q4;
@@ -493,6 +746,42 @@ cudaError_t launch_mma(const Call& a, cudaStream_t stream) {
   return err != cudaSuccess ? err : combine(a, stream);
 }
 
+// The warpgroup kernel reads x and q4 through tensor maps, which want a
+// 16-byte aligned base and row strides that are multiples of 16 bytes.
+template <int ROWS>
+cudaError_t launch_wgmma(const Call& a, cudaStream_t stream) {
+  using TL = WgTile<ROWS>;
+  if (a.E % 16 != 0 || a.g % kWgGroup != 0 || a.splits != 1 ||
+      reinterpret_cast<uintptr_t>(a.q4) % 16 != 0 || reinterpret_cast<uintptr_t>(a.out) % 8 != 0)
+    return cudaErrorInvalidValue;
+  CUtensorMap x_map, w_map;
+  {
+    const uint64_t dims[2] = {2 * (uint64_t)a.D2, (uint64_t)a.R};
+    const uint64_t strides[1] = {2 * (uint64_t)a.D2 * sizeof(bf16)};
+    const uint32_t box[2] = {64, ROWS};
+    const cudaError_t err = hopper::encode_tiled(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.x,
+                                                 dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  {
+    const uint64_t dims[2] = {(uint64_t)a.E, (uint64_t)a.D2};
+    const uint64_t strides[1] = {(uint64_t)a.E};
+    const uint32_t box[2] = {kWgChannels, kWgGroup};
+    const cudaError_t err = hopper::encode_tiled(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, a.q4,
+                                                 dims, strides, box);
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(int4_wgmma_kernel<ROWS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, TL::kSmem);
+  if (err != cudaSuccess) return err;
+  // row tiles vary fastest: the blocks of one channel tile run together and
+  // share its bytes in L2, and all of them share x
+  const dim3 grid((a.R + ROWS - 1) / ROWS, (a.E + kWgChannels - 1) / kWgChannels);
+  int4_wgmma_kernel<ROWS><<<grid, kWgThreads, TL::kSmem, stream>>>(
+      x_map, w_map, a.s4, a.out, a.R, a.D2, a.E, a.n2, a.g, a.out_f32);
+  return cudaGetLastError();
+}
+
 template <int RC>
 cudaError_t launch_fma(const Call& a, cudaStream_t stream) {
   const int aligned = a.E % 4 == 0 && reinterpret_cast<uintptr_t>(a.q4) % 4 == 0;
@@ -517,16 +806,22 @@ cudaError_t launch_fma_rows(const Call& a, cudaStream_t stream) {
 
 // x_dtype: 0 = float32, 1 = bfloat16; out_f32: the output is float32 (else
 // x's dtype).  x [R, 2 * D2], q4 [D2, E] int8, s4 [N, E] float32, out [R, E].
-// A block takes block_k packed rows, so splits = ceil(D2 / block_k), and with
-// splits > 1 the blocks' fp32 sums go through partial [splits, R, E] float32.
-// float32 x runs the FMA kernel (block_k a multiple of 16, at most 1024);
-// bfloat16 x the tensor cores (block_k a multiple of the staged chunk, the
-// largest of 128, 64, 32, 16 that divides the group; more than 16 rows take
-// the whole contraction in one block).  The group size D2 / (N / 2) must be a
-// multiple of 16.  Returns a cudaError_t.
+// route: 0 = fp32 FMAs (float32 x), 1 = mma.sync tiles (bfloat16 x), 2 = the
+// warpgroup kernel (bfloat16 x, more than 16 rows, E a multiple of 16, the
+// group a multiple of 128, q4 on a 16-byte boundary), with row_tile = 120 or
+// 152 x rows a block; the caller picks both, and a route the shape cannot
+// take is refused.  On routes 0 and 1 a block takes block_k packed rows, so
+// splits = ceil(D2 / block_k), and with splits > 1 the blocks' fp32 sums go
+// through partial [splits, R, E] float32: the FMA kernel wants block_k a
+// multiple of 16, at most 1024; the mma.sync kernel a multiple of the staged
+// chunk, the largest of 128, 64, 32, 16 that divides the group, and more than
+// 16 rows take the whole contraction in one block, as route 2 always does.
+// The group size D2 / (N / 2) must be a multiple of 16.  Returns a
+// cudaError_t.
 extern "C" int dd_int4_matmul(int x_dtype, int out_f32, const void* x, const void* q4,
                               const void* s4, void* out, void* partial, int R, int D2, int E,
-                              int N, int block_k, int splits, void* stream) {
+                              int N, int block_k, int splits, int route, int row_tile,
+                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R < 1 || E < 1 || D2 < 1 || N < 2 || N % 2 != 0 || D2 % (N / 2) != 0)
     return (int)cudaErrorInvalidValue;
@@ -537,12 +832,18 @@ extern "C" int dd_int4_matmul(int x_dtype, int out_f32, const void* x, const voi
   const Call call{x, static_cast<const int8_t*>(q4), static_cast<const float*>(s4), out,
                   splits > 1 ? static_cast<float*>(partial) : nullptr,
                   R, D2, E, n2, g, block_k, splits, x_dtype == 0 ? 1 : out_f32};
-  if (x_dtype == 1) {
-    if (reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (route == 0) {
+    if (x_dtype != 0 || block_k > kMaxBlockK) return (int)cudaErrorInvalidValue;
+    return (int)launch_fma_rows(call, st);
+  }
+  if (x_dtype != 1 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (route == 1) {
     if (R <= kSmallRows) return (int)launch_mma<1, 1, 4>(call, st);
     if (splits != 1) return (int)cudaErrorInvalidValue;
     return (int)launch_mma<2, 2, 4>(call, st);
   }
-  if (x_dtype != 0 || block_k > kMaxBlockK) return (int)cudaErrorInvalidValue;
-  return (int)launch_fma_rows(call, st);
+  if (route != 2 || R <= kSmallRows) return (int)cudaErrorInvalidValue;
+  if (row_tile == 120) return (int)launch_wgmma<120>(call, st);
+  if (row_tile == 152) return (int)launch_wgmma<152>(call, st);
+  return (int)cudaErrorInvalidValue;
 }

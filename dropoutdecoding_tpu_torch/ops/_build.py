@@ -3,8 +3,10 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
 all of them at once, and the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes``.  No PyTorch
-header is compiled, so a build takes seconds.  The library is named by a
-hash of the sources and flags and cached under
+header is compiled, so a build takes seconds; the TMA kernels find
+``libcuda``'s tensor-map encoder through the runtime, so nothing links
+against it.  The library is named by a hash of the sources, the
+``csrc/*.cuh`` headers they share and the flags, and cached under
 ``dropoutdecoding_tpu_torch/_build/`` (ignored by git); it is built at the
 first kernel call, never at import.
 
@@ -45,10 +47,11 @@ _SIGNATURES = {
     "dd_cache_append_int8": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # x, w, m, z, a, b, scratch, c, B, L, V, stream
     "dd_vision_uncertainty": [_P] * 8 + [_I] * 3 + [_P],
-    # dtype, q, k, v, key_mask, out, B, S, H, KH, D, scale, stream
-    "dd_flash_prefill_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F, _P],
-    # x_dtype, out_f32, x, q4, s4, out, partial, R, D2, E, N, block_k, splits, stream
-    "dd_int4_matmul": [_I] * 2 + [_P] * 5 + [_I] * 6 + [_P],
+    # dtype, q, k, v, key_mask, out, B, S, H, KH, D, scale, route, stream
+    "dd_flash_prefill_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+    # x_dtype, out_f32, x, q4, s4, out, partial, R, D2, E, N, block_k, splits, route,
+    # row_tile, stream
+    "dd_int4_matmul": [_I] * 2 + [_P] * 5 + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -58,9 +61,14 @@ def sources() -> list[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def headers() -> list[Path]:
+    """The ``*.cuh`` files the sources include; they name the library too."""
+    return sorted(SRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libdd_kernels_{h.hexdigest()[:16]}.so"

@@ -3,14 +3,16 @@
 Replaces the TPU kernel ``flash_prefill_attention``
 (``dropoutdecoding_tpu/ops/pallas_attention.py:66``), which the JAX package
 runs for prefills of S >= 1024 (LLaVA-NeXT's ~2.9k-token merged prompt).
-Query heads read their KV group in place (no ``repeat_kv`` copy); bf16 runs
-on the tensor cores, fp32 on a scalar twin kernel; head dims 16, 32, 64
-and 128.
+Query heads read their KV group in place (no ``repeat_kv`` copy); head dims
+16, 32, 64 and 128.  Three kernels, picked here from the call's shape
+(``prefill_route``) and named to the C entry: bf16 at D = 128 runs the
+``wgmma`` kernel (TMA tile ring, 128 x 128 tiles), bf16 at the other head
+dims the ``mma.sync`` kernel, fp32 a scalar kernel of the same walk.
 
 For CPU tensors the wrapper computes its plain twin,
 ``ops.attention.chunked_prefill_attention``.  For CUDA tensors it launches
 the kernel or raises; it never falls back.  ``launches`` counts kernel
-launches.
+launches, ``route_launches`` the same by route.
 """
 from __future__ import annotations
 
@@ -23,6 +25,17 @@ from .attention import chunked_prefill_attention
 
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"scalar": 0, "mma": 0, "wgmma": 1}  # as the C entry numbers them
+WGMMA_HEAD_DIM = 128
+WGMMA_MAX_S = 512 * 128  # the wgmma kernel keeps flags for 512 key tiles of 128
+
+
+def prefill_route(dtype: torch.dtype, S: int, D: int) -> str:
+    """The kernel a call takes: "wgmma" for bf16 at D = 128 (S up to
+    ``WGMMA_MAX_S``), "mma" for bf16 otherwise, "scalar" for fp32."""
+    if dtype != torch.bfloat16:
+        return "scalar"
+    return "wgmma" if D == WGMMA_HEAD_DIM and S <= WGMMA_MAX_S else "mma"
 
 
 def _check(q, k, v, key_mask):
@@ -82,16 +95,19 @@ def flash_prefill_attention(
     _check(q, k, v, key_mask)
     B, S, H, D = q.shape
     out = torch.empty_like(q)
+    route = prefill_route(q.dtype, S, D)
     err = _build.library().dd_flash_prefill_attention(
         _DTYPES[q.dtype],
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
-        B, S, H, k.shape[2], D, 1.0 / math.sqrt(D),
+        B, S, H, k.shape[2], D, 1.0 / math.sqrt(D), _ROUTES[route],
         _build.stream_of(q),
     )
-    _build.check(err, "flash_prefill_attention kernel")
+    _build.check(err, f"flash_prefill_attention kernel ({route})")
     flash_prefill_attention.launches += 1
+    flash_prefill_attention.route_launches[route] += 1
     return out
 
 
 flash_prefill_attention.launches = 0
+flash_prefill_attention.route_launches = dict.fromkeys(_ROUTES, 0)

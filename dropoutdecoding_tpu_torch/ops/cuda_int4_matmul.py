@@ -13,17 +13,21 @@ point.  The layered form needs no kernel of its own here: a layer of a
 stacked [L, D/2, E] weight is a contiguous view (``q4[l]``), and the kernel
 reads it in place through its pointer.
 
-Two kernels behind one entry.  bf16 activations run on the tensor cores:
-up to ``SMALL_ROWS`` rows (the decode forwards: 1 or 3) on a 16-row tile
-with the contraction split over blocks and combined in a fixed order, more
-rows (the prefill) on a 64-row tile.  fp32 activations run a kernel of fp32
-FMAs.  The TPU kernel rounds x to bf16 whatever its dtype; here an fp32 x
-stays fp32, as in the JAX package's portable form
-(``models/llama._mm_int4``), so that the card agrees with the CPU twin.
+Three routes behind one entry, picked here from the call's shape
+(``prefill_route``) and handed to the C entry, which refuses a route the
+shape cannot take.  bf16 activations run on the tensor cores: up to
+``SMALL_ROWS`` rows (the decode forwards: 1 or 3) on a 16-row ``mma.sync``
+tile with the contraction split over blocks and combined in a fixed order;
+more rows (the prefill) on the ``wgmma`` kernel, whose tensor maps need
+16-byte aligned rows, or else on a 64-row ``mma.sync`` tile.  fp32
+activations run a kernel of fp32 FMAs.  The TPU kernel rounds x to bf16
+whatever its dtype; here an fp32 x stays fp32, as in the JAX package's
+portable form (``models/llama._mm_int4``), so that the card agrees with
+the CPU twin.
 
 ``int4_matmul_twin`` is the plain twin.  The wrapper uses it for CPU
 tensors; for CUDA tensors it launches the kernel or raises.  ``launches``
-counts wrapper calls that launched.
+counts wrapper calls that launched, ``route_launches`` the same by route.
 """
 from __future__ import annotations
 
@@ -39,6 +43,11 @@ _TILE_E = 128  # output channels per block, of either kernel at few rows
 _FMA_ROWS = 4  # x rows per block of the FMA kernel
 _MAX_BLOCK_K = 1024  # packed rows per block of the FMA kernel (its x tile is shared memory)
 _MIN_BLOCKS = 528  # four blocks, what an SM holds of the 16-row tile, for each of 132 SMs
+_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}  # as the C entry numbers them
+WGMMA_ROW_TILES = (120, 152)  # x rows per block the wgmma kernel is built for
+WGMMA_CHANNELS = 128  # output channels per block
+WGMMA_STEP = 128  # packed rows per step of its walk; the group size must be a multiple
+_SMS = 132
 
 
 def _geometry(x: torch.Tensor, q4: torch.Tensor, s4: torch.Tensor):
@@ -102,6 +111,28 @@ def mma_split_plan(R: int, D2: int, E: int, g: int) -> tuple[int, int]:
     return block_k, -(-D2 // block_k)
 
 
+def prefill_route(R: int, D2: int, E: int, g: int, aligned: bool) -> str:
+    """The tensor-core kernel a bf16 call takes: "wgmma" for more than
+    ``SMALL_ROWS`` rows when TMA can read the operands (``aligned``: q4
+    starts on a 16-byte boundary; E a multiple of 16, so that every packed
+    row does) and a step of ``WGMMA_STEP`` packed rows lies inside one
+    group; else "mma", the ``mma.sync`` tiles."""
+    if R > SMALL_ROWS and aligned and E % 16 == 0 and g % WGMMA_STEP == 0:
+        return "wgmma"
+    return "mma"
+
+
+def wgmma_row_tile(R: int, E: int) -> int:
+    """x rows per block of the wgmma kernel, which tiles the product in
+    blocks of that many rows by ``WGMMA_CHANNELS`` output channels, each
+    walking the whole contraction.  An SM holds one block, so the blocks run
+    in waves of one per SM; of the row tiles the kernel is built for, the one
+    whose waves times rows is least wins (595 rows by 4096 channels: 160
+    blocks of 120 rows take two waves, 128 of 152 rows one)."""
+    channel_tiles = -(-E // WGMMA_CHANNELS)
+    return min(WGMMA_ROW_TILES, key=lambda rows: -(-(-(-R // rows) * channel_tiles) // _SMS) * rows)
+
+
 def int4_matmul(x, q4, s4, out_dtype=None) -> torch.Tensor:
     """K6.  Same contract as ``int4_matmul_twin``.
 
@@ -136,8 +167,16 @@ def int4_matmul(x, q4, s4, out_dtype=None) -> torch.Tensor:
     if R < 1 or E < 1:
         raise ValueError(f"empty product: R={R}, E={E}")
     out = torch.empty(*x.shape[:-1], E, dtype=out_dtype, device=x.device)
-    tensor_cores = x.dtype == torch.bfloat16
-    block_k, splits = mma_split_plan(R, D2, E, g) if tensor_cores else split_plan(R, D2, E)
+    route, row_tile = "fma", 0
+    if x.dtype == torch.bfloat16:
+        route = prefill_route(R, D2, E, g, aligned=q4.data_ptr() % 16 == 0)
+    if route == "wgmma":
+        block_k, splits = D2, 1
+        row_tile = wgmma_row_tile(R, E)
+    elif route == "mma":
+        block_k, splits = mma_split_plan(R, D2, E, g)
+    else:
+        block_k, splits = split_plan(R, D2, E)
     partial = None
     if splits > 1:
         partial = torch.empty(splits, R, E, dtype=torch.float32, device=x.device)
@@ -145,11 +184,13 @@ def int4_matmul(x, q4, s4, out_dtype=None) -> torch.Tensor:
         _DTYPES[x.dtype], int(out_dtype == torch.float32),
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
         None if partial is None else partial.data_ptr(),
-        R, D2, E, N, block_k, splits, _build.stream_of(x),
+        R, D2, E, N, block_k, splits, _ROUTES[route], row_tile, _build.stream_of(x),
     )
-    _build.check(err, "int4_matmul kernel")
+    _build.check(err, f"int4_matmul kernel ({route})")
     int4_matmul.launches += 1
+    int4_matmul.route_launches[route] += 1
     return out
 
 
 int4_matmul.launches = 0
+int4_matmul.route_launches = dict.fromkeys(_ROUTES, 0)

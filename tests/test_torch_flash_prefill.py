@@ -102,6 +102,24 @@ def test_twin_in_bf16_matches_jax_chunked(rng):
     )
 
 
+def test_twin_at_head_dim_128_matches_jax_chunked(rng):
+    """The shape class of the card's wgmma kernel: D = 128, S = 300 (not a
+    multiple of its 128-row tiles), a masked key tail, and 3 masked leading
+    keys, so rows 0-2 have no attendable key and are uniform over all S
+    keys on both sides.  fp32 on both sides, sums in another order: 2e-5,
+    as the cases above."""
+    q, k, v, mask = _qkv_mask(rng, 2, 300, 4, 2, 128, tail=30, lead=3)
+    t = torch.from_numpy
+    got = k5.flash_prefill_attention(t(q), t(k), t(v), t(mask))  # CPU tensors: the twin
+    ref = jattn.chunked_prefill_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask), causal=True, chunk=256
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    uniform = np.repeat(v, 2, axis=2).mean(axis=1)  # head h reads group h // 2
+    np.testing.assert_allclose(got.numpy()[:, 2], uniform, **TOL)
+    assert k5.prefill_route(torch.bfloat16, 300, 128) == "wgmma"
+
+
 def test_wrapper_takes_the_twin_on_the_cpu_only(rng):
     q, k, v, mask = (torch.from_numpy(a) for a in _qkv_mask(rng, 1, 200, 4, 2, 32, tail=10))
     k5.flash_prefill_attention.launches = 0

@@ -181,6 +181,25 @@ def test_twin_matches_jax_mm_int4(rng, R, D, E, g):
     assert torch.equal(half, wide.bfloat16())
 
 
+@pytest.mark.parametrize("lead", [(130,), (2, 75)], ids=["R=130", "batched-2x75"])
+def test_twin_matches_jax_mm_int4_at_prefill_rows(rng, lead):
+    """A prefill-like row count: more rows than one row tile of the card's
+    prefill kernel (120), with a ragged last tile, three groups a half and
+    E = 272 = 2 * 128 + 16 channels.  1e-5 of max|ref|, as the cases above:
+    rounding and summation order only."""
+    D, E, g = 2 * 3 * 128, 272, 128
+    q4, s4 = _packed(rng, D, E, g)
+    x = rng.normal(size=(*lead, D)).astype(np.float32)
+    ref = np.asarray(jllama._mm_int4(jnp.asarray(x), {"q4": jnp.asarray(q4), "s4": jnp.asarray(s4)}))
+    t = torch.from_numpy
+    got = k6.int4_matmul(t(x), t(q4), t(s4))  # CPU tensors: the twin
+    assert got.shape == (*lead, E) and got.dtype == torch.float32
+    assert np.abs(got.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    R = int(np.prod(lead))
+    assert k6.prefill_route(R, D // 2, E, g, aligned=True) == "wgmma"
+    assert R > k6.wgmma_row_tile(R, E)  # several row tiles
+
+
 @pytest.mark.parametrize("unpack,rtol", [("i32", 1e-5), ("mxu3", 5e-3)])
 @pytest.mark.parametrize("R,D,E,g", MATMUL_CASES)
 def test_twin_matches_the_tpu_kernel(rng, monkeypatch, R, D, E, g, unpack, rtol):

@@ -132,5 +132,7 @@ def test_build_names_library_by_source_hash():
         "cache_append.cu", "decode_attention.cu", "flash_prefill.cu", "int4_matmul.cu",
         "uncertainty.cu",
     }
+    # the header the wgmma kernels share names the library too
+    assert {p.name for p in _build.headers()} == {"hopper.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
