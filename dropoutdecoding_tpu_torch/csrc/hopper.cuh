@@ -92,14 +92,27 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Starts the copy of `bytes` contiguous bytes (a multiple of 16, both
+// addresses on 16-byte boundaries) to shared memory; they complete on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Host: a tensor map of `rank` dimensions (innermost first) over `base`, which
 // must lie on a 16-byte boundary, with byte strides of dimensions 1.. that are
 // multiples of 16, a box of at most 256 elements a side whose innermost side
-// spans at most 128 bytes, the 128-byte swizzle and zero fill.  libcuda's
+// spans at most 128 bytes, the 128-byte swizzle (or, named, none: the box then
+// lies dense, row after row) and zero fill.  libcuda's
 // encoder is found through the runtime, so nothing links against it.
 inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type, uint32_t rank,
                                 const void* base, const uint64_t* dims,
-                                const uint64_t* strides_bytes, const uint32_t* box) {
+                                const uint64_t* strides_bytes, const uint32_t* box,
+                                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -123,7 +136,7 @@ inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type, uint
     if (i + 1 < rank) s[i] = strides_bytes[i];
   }
   const CUresult res = encode(map, type, rank, const_cast<void*>(base), d, s, b, ones,
-                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -37,12 +37,12 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # dtype, q, k_cache, v_cache, k_new, v_new, key_mask, out,
-    # part_m, part_l, part_acc, B, M, H, KH, S, D, chunk, scale, stream
-    "dd_ensemble_decode_attention": [_I] + [_P] * 10 + [_I] * 7 + [_F, _P],
-    # dtype, q, kq, ks, vq, vs, k_new, v_new, key_mask, out,
-    # part_m, part_l, part_acc, B, M, H, KH, S, D, chunk, scale, stream
-    "dd_ensemble_decode_attention_int8kv": [_I] + [_P] * 12 + [_I] * 7 + [_F, _P],
+    # dtype, q, k_cache, v_cache, k_new, v_new, key_mask, out, part_m, part_l,
+    # part_acc, counters, B, M, H, KH, S, D, tiles_per_block, nsplit, scale, stream
+    "dd_ensemble_decode_attention": [_I] + [_P] * 11 + [_I] * 8 + [_F, _P],
+    # dtype, q, kq, ks, vq, vs, k_new, v_new, key_mask, out, part_m, part_l,
+    # part_acc, counters, B, M, H, KH, S, D, tiles_per_block, nsplit, scale, stream
+    "dd_ensemble_decode_attention_int8kv": [_I] + [_P] * 13 + [_I] * 8 + [_F, _P],
     # dtype, k_new, v_new, kq, ks, vq, vs, cur_len, L, B, KH, S, D, stream
     "dd_cache_append_int8": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # x, w, m, z, a, b, scratch, c, B, L, V, stream
@@ -52,6 +52,8 @@ _SIGNATURES = {
     # x_dtype, out_f32, x, q4, s4, out, partial, R, D2, E, N, block_k, splits, route,
     # row_tile, stream
     "dd_int4_matmul": [_I] * 2 + [_P] * 5 + [_I] * 8 + [_P],
+    # x, q4, words, R, D2, E, width, stages, mode, blocks, stream
+    "dd_int4_stream_probe": [_P] * 3 + [_I] * 7 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -10,10 +10,19 @@ gated to GQA (``H // KH > 1``), bf16 activations and, for the layered int8
 kernel, ``S % 32 == 0``; here one kernel serves every group size G >= 1,
 bf16 and fp32, and any S, so the MHA LLaVA-1.5 decode runs them too.
 
+A call is one launch.  A block walks a run of 64-slot tiles of one (batch
+row, kv group) and leaves its partial softmax in scratch; the block of the
+group that arrives last merges the pieces in split order with the member's
+own token and writes the output (``decode_plan`` cuts the slots; scratch and
+the arrival counters are kept between calls by ``decode_scratch``).  bf16
+activations at D = 128 run both products on the tensor cores, the
+probabilities rounded to bf16 for PV as the TPU kernel rounds them; fp32
+activations, and other head dims, run fp32 FMAs, so that the card agrees
+with the CPU to summation order.
+
 For CPU tensors each wrapper computes its plain twin in
 ``ops.attention``.  For CUDA tensors it launches the kernel or raises; it
-never falls back.  ``launches`` counts kernel launches (one per call: the
-partial pass and its combine).
+never falls back.  ``launches`` counts kernel launches (one per call).
 """
 from __future__ import annotations
 
@@ -24,26 +33,48 @@ import torch
 from . import _build
 from .attention import ensemble_decode_attention, ensemble_decode_attention_int8kv
 
-CHUNK = 64  # cache slots per block; S / CHUNK blocks per (row, kv group)
+TILE = 64  # cache slots per tile; a block walks whole tiles
+MMA_ROWS = 16  # query rows per block of the tensor-core kernel
 MAX_HEAD_DIM = 256
-MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+MAX_SPLITS = 64  # blocks per (batch row, kv group): the merge keeps their weights two a lane
+_SMS = 132
+_BLOCKS_PER_SM = 3  # what the plan aims at over the cache's whole capacity
+_FMA_BLOCKS_PER_SM = 8  # the same for the fp32 FMA kernel, whose blocks are slower by the tile
+MMA_HEAD_DIM = 128  # head dim of the tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _smem_bytes(R: int, D: int, elem: int) -> int:
-    """Shared memory of the partial pass (``Smem`` in the CUDA source):
-    q [R, D] and scores [R, CHUNK] in fp32, the tile's key and value scales
-    [CHUNK] in fp32, the K and V tiles [CHUNK, D] of ``elem``-byte values."""
+def decode_plan(B: int, KH: int, S: int, tensor_cores: bool = True) -> tuple[int, int]:
+    """(tiles a block walks, blocks per (batch row, kv group)).  The grid
+    covers the cache's capacity S, whatever its fill, so that a captured
+    graph stays valid: B * KH * splits blocks, about ``_BLOCKS_PER_SM`` an
+    SM (``_FMA_BLOCKS_PER_SM`` for the fp32 FMA kernel), each a contiguous
+    run of tiles; at most ``MAX_SPLITS`` splits."""
+    tiles = -(-S // TILE)
+    aim = (_BLOCKS_PER_SM if tensor_cores else _FMA_BLOCKS_PER_SM) * _SMS
+    per_block = max(1, -(-B * KH * tiles // aim), -(-tiles // MAX_SPLITS))
+    return per_block, -(-tiles // per_block)
 
-    def a16(x):
-        return -(-x // 16) * 16
 
-    p = a16(R * D * 4)
-    ks = a16(p + R * CHUNK * 4)
-    vs = a16(ks + CHUNK * 4)
-    k = a16(vs + CHUNK * 4)
-    v = a16(k + CHUNK * D * elem)
-    return a16(v + CHUNK * D * elem)
+_scratch: dict[tuple, tuple[torch.Tensor, ...]] = {}
+
+
+def decode_scratch(device, stream: int, B: int, KH: int, R: int, D: int, splits: int):
+    """(part_m, part_l [B * KH, splits, R], part_acc [B * KH, splits, R, D]
+    fp32, counters [B * KH, ceil(R / 16)] int32) for one geometry on one
+    stream of one device: made at the geometry's first call and kept, since
+    the kernel leaves the counters zero.  Two geometries, or two streams,
+    never share a buffer, so calls in flight together cannot meet in one."""
+    key = (str(device), stream, B, KH, R, D, splits)
+    if key not in _scratch:
+        n = B * KH * splits * R
+        _scratch[key] = (
+            torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n * D, dtype=torch.float32, device=device),
+            torch.zeros(B * KH * -(-R // MMA_ROWS), dtype=torch.int32, device=device),
+        )
+    return _scratch[key]
 
 
 def _check(q, k_cache, v_cache, k_new, v_new, key_mask, cache_dtype, scales=()):
@@ -84,22 +115,30 @@ def _check(q, k_cache, v_cache, k_new, v_new, key_mask, cache_dtype, scales=()):
             f"new {tuple(k_new.shape)}, mask {tuple(key_mask.shape)}, "
             f"scales {[tuple(t.shape) for t in scales]}"
         )
-    R = M * (H // KH) if KH and H % KH == 0 else 0
-    elem = k_cache.element_size()
-    if not R or D > MAX_HEAD_DIM or S < 1 or _smem_bytes(R, D, elem) > MAX_SMEM:
+    if not KH or H % KH or D > MAX_HEAD_DIM or S < 1:
         raise ValueError(
-            f"unsupported geometry H={H} KH={KH} M={M} D={D} S={S}: needs KH | H, "
-            f"D <= {MAX_HEAD_DIM} and the M*H/KH query rows' tiles in {MAX_SMEM} B "
-            "of shared memory"
+            f"unsupported geometry H={H} KH={KH} M={M} D={D} S={S}: needs KH | H and "
+            f"D <= {MAX_HEAD_DIM}"
         )
     return B, M, H, KH, S, D
 
 
-def _partials(q, B, KH, S, M, H, D):
-    """The fp32 scratch of the partial pass: (max, sum, acc) per tile and row."""
-    n = B * KH * -(-S // CHUNK) * M * (H // KH)
-    part_m = torch.empty(n, dtype=torch.float32, device=q.device)
-    return part_m, torch.empty_like(part_m), torch.empty(n * D, dtype=torch.float32, device=q.device)
+def _launch(entry: str, q, operands, B, M, H, KH, S, D) -> torch.Tensor:
+    """One launch of the C entry ``entry`` on q's stream; ``operands`` are
+    the tensors between q and the output in the entry's order."""
+    out = torch.empty_like(q)
+    per_block, splits = decode_plan(
+        B, KH, S, tensor_cores=q.dtype == torch.bfloat16 and D == MMA_HEAD_DIM
+    )
+    stream = _build.stream_of(q)
+    scratch = decode_scratch(q.device, stream, B, KH, M * (H // KH), D, splits)
+    err = getattr(_build.library(), entry)(
+        _DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in operands), out.data_ptr(),
+        *(t.data_ptr() for t in scratch), B, M, H, KH, S, D, per_block, splits,
+        1.0 / math.sqrt(D), stream,
+    )
+    _build.check(err, f"{entry[3:]} kernel")
+    return out
 
 
 def ensemble_decode_attention_fused(
@@ -123,17 +162,10 @@ def ensemble_decode_attention_fused(
     if q.device.type == "cpu":
         return ensemble_decode_attention(q, k_cache, v_cache, k_new, v_new, key_mask)
     B, M, H, KH, S, D = _check(q, k_cache, v_cache, k_new, v_new, key_mask, q.dtype)
-    out = torch.empty_like(q)
-    part_m, part_l, part_acc = _partials(q, B, KH, S, M, H, D)
-    err = _build.library().dd_ensemble_decode_attention(
-        _DTYPES[q.dtype],
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        B, M, H, KH, S, D, CHUNK, 1.0 / math.sqrt(D),
-        _build.stream_of(q),
+    out = _launch(
+        "dd_ensemble_decode_attention", q, (k_cache, v_cache, k_new, v_new, key_mask),
+        B, M, H, KH, S, D,
     )
-    _build.check(err, "ensemble_decode_attention kernel")
     ensemble_decode_attention_fused.launches += 1
     return out
 
@@ -165,17 +197,10 @@ def ensemble_decode_attention_int8kv_fused(
     if q.device.type == "cpu":
         return ensemble_decode_attention_int8kv(q, kq, ks, vq, vs, k_new, v_new, key_mask)
     B, M, H, KH, S, D = _check(q, kq, vq, k_new, v_new, key_mask, torch.int8, (ks, vs))
-    out = torch.empty_like(q)
-    part_m, part_l, part_acc = _partials(q, B, KH, S, M, H, D)
-    err = _build.library().dd_ensemble_decode_attention_int8kv(
-        _DTYPES[q.dtype],
-        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-        B, M, H, KH, S, D, CHUNK, 1.0 / math.sqrt(D),
-        _build.stream_of(q),
+    out = _launch(
+        "dd_ensemble_decode_attention_int8kv", q, (kq, ks, vq, vs, k_new, v_new, key_mask),
+        B, M, H, KH, S, D,
     )
-    _build.check(err, "ensemble_decode_attention_int8kv kernel")
     ensemble_decode_attention_int8kv_fused.launches += 1
     return out
 

@@ -13,21 +13,25 @@ point.  The layered form needs no kernel of its own here: a layer of a
 stacked [L, D/2, E] weight is a contiguous view (``q4[l]``), and the kernel
 reads it in place through its pointer.
 
-Three routes behind one entry, picked here from the call's shape
+Four routes behind one entry, picked here from the call's shape
 (``prefill_route``) and handed to the C entry, which refuses a route the
 shape cannot take.  bf16 activations run on the tensor cores: up to
-``SMALL_ROWS`` rows (the decode forwards: 1 or 3) on a 16-row ``mma.sync``
-tile with the contraction split over blocks and combined in a fixed order;
-more rows (the prefill) on the ``wgmma`` kernel, whose tensor maps need
-16-byte aligned rows, or else on a 64-row ``mma.sync`` tile.  fp32
-activations run a kernel of fp32 FMAs.  The TPU kernel rounds x to bf16
+``SMALL_ROWS`` rows (the decode forwards: 1 or 3) on the whole-tile kernel,
+one persistent block an SM, each taking 64-channel tiles over the whole
+contraction through a TMA ring, so that no sum crosses a block and a call
+is one launch with no scratch; more rows (the prefill) on the ``wgmma``
+kernel.  Both read through tensor maps, which need 16-byte aligned rows and
+groups of a multiple of 128; what they do not take (no model of the port: a
+ragged check shape) runs a 64-row ``mma.sync`` tile.  fp32 activations run a kernel of fp32 FMAs.  The TPU kernel rounds x to bf16
 whatever its dtype; here an fp32 x stays fp32, as in the JAX package's
 portable form (``models/llama._mm_int4``), so that the card agrees with
 the CPU twin.
 
 ``int4_matmul_twin`` is the plain twin.  The wrapper uses it for CPU
 tensors; for CUDA tensors it launches the kernel or raises.  ``launches``
-counts wrapper calls that launched, ``route_launches`` the same by route.
+counts wrapper calls that launched (each is one kernel launch, but for an
+fp32 call whose contraction is split: its combine follows), ``route_launches``
+the same by route.
 """
 from __future__ import annotations
 
@@ -38,12 +42,15 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 K_STEP = 16  # contraction rows per kernel step; the group size must be a multiple
-SMALL_ROWS = 16  # bf16 row count up to which the contraction is split over blocks
-_TILE_E = 128  # output channels per block, of either kernel at few rows
+SMALL_ROWS = 16  # bf16 row count up to which the whole-tile kernel runs
+_TILE_E = 128  # output channels per block of the FMA kernel
 _FMA_ROWS = 4  # x rows per block of the FMA kernel
 _MAX_BLOCK_K = 1024  # packed rows per block of the FMA kernel (its x tile is shared memory)
-_MIN_BLOCKS = 528  # four blocks, what an SM holds of the 16-row tile, for each of 132 SMs
-_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}  # as the C entry numbers them
+_MIN_BLOCKS = 528  # four blocks of the FMA kernel for each of 132 SMs
+_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2, "tiles": 3}  # as the C entry numbers them
+TILE_CHANNELS = 64  # output channels per tile of the whole-tile kernel
+TILE_ROWS = 128  # packed rows per box of its walk; the group size must be a multiple
+TILE_BOXES = 4  # boxes per item of its ring
 WGMMA_ROW_TILES = (120, 152)  # x rows per block the wgmma kernel is built for
 WGMMA_CHANNELS = 128  # output channels per block
 WGMMA_STEP = 128  # packed rows per step of its walk; the group size must be a multiple
@@ -96,29 +103,36 @@ def split_plan(R: int, D2: int, E: int) -> tuple[int, int]:
     return block_k, -(-D2 // block_k)
 
 
-def mma_split_plan(R: int, D2: int, E: int, g: int) -> tuple[int, int]:
-    """(packed rows per block, number of contraction splits) of the
-    tensor-core kernel.  More than ``SMALL_ROWS`` rows fill the card with
-    row and channel tiles and keep the contraction whole; fewer split it in
-    whole staged chunks (the largest of 128, 64, 32, 16 rows that divides
-    the group) until the blocks fill the card."""
-    if R > SMALL_ROWS:
-        return D2, 1
-    chunk = next(c for c in (128, 64, 32, 16) if g % c == 0)
-    chunks = D2 // chunk
-    want = min(chunks, -(-_MIN_BLOCKS // -(-E // _TILE_E)))
-    block_k = -(-chunks // want) * chunk
-    return block_k, -(-D2 // block_k)
+def tile_plan(D2: int, E: int) -> tuple[int, int, int]:
+    """(channel tiles, items a tile, blocks) of the whole-tile kernel: a tile
+    is ``TILE_CHANNELS`` output channels over the whole contraction, walked
+    in items of up to ``TILE_BOXES`` boxes of ``TILE_ROWS`` packed rows; one
+    persistent block for each SM (fewer tiles than SMs: a block a tile)
+    takes tiles b, b + blocks, ..., so no sum crosses a block."""
+    tiles, boxes = -(-E // TILE_CHANNELS), D2 // TILE_ROWS
+    return tiles, -(-boxes // TILE_BOXES), min(_SMS, tiles)
+
+
+def tile_walk(D2: int, E: int) -> list[list[tuple[int, int, int]]]:
+    """A model of the kernel's walk: for each block its items in order, each
+    as (tile, first box, end box)."""
+    tiles, items, blocks = tile_plan(D2, E)
+    boxes = D2 // TILE_ROWS
+    return [
+        [(t, it * TILE_BOXES, min((it + 1) * TILE_BOXES, boxes))
+         for t in range(b, tiles, blocks) for it in range(items)]
+        for b in range(blocks)
+    ]
 
 
 def prefill_route(R: int, D2: int, E: int, g: int, aligned: bool) -> str:
-    """The tensor-core kernel a bf16 call takes: "wgmma" for more than
-    ``SMALL_ROWS`` rows when TMA can read the operands (``aligned``: q4
-    starts on a 16-byte boundary; E a multiple of 16, so that every packed
-    row does) and a step of ``WGMMA_STEP`` packed rows lies inside one
-    group; else "mma", the ``mma.sync`` tiles."""
-    if R > SMALL_ROWS and aligned and E % 16 == 0 and g % WGMMA_STEP == 0:
-        return "wgmma"
+    """The tensor-core kernel a bf16 call takes.  When TMA can read the
+    operands (``aligned``: q4 and s4 start on 16-byte boundaries; E a multiple
+    of 16, so that every row of either does) and a step of ``WGMMA_STEP`` packed
+    rows lies inside one group: "wgmma" for more than ``SMALL_ROWS`` rows,
+    "tiles" for fewer.  Else "mma", the ``mma.sync`` tile."""
+    if aligned and E % 16 == 0 and g % WGMMA_STEP == 0:
+        return "wgmma" if R > SMALL_ROWS else "tiles"
     return "mma"
 
 
@@ -169,17 +183,16 @@ def int4_matmul(x, q4, s4, out_dtype=None) -> torch.Tensor:
     out = torch.empty(*x.shape[:-1], E, dtype=out_dtype, device=x.device)
     route, row_tile = "fma", 0
     if x.dtype == torch.bfloat16:
-        route = prefill_route(R, D2, E, g, aligned=q4.data_ptr() % 16 == 0)
+        route = prefill_route(R, D2, E, g, aligned=(q4.data_ptr() | s4.data_ptr()) % 16 == 0)
+    block_k, splits, partial = D2, 1, None
     if route == "wgmma":
-        block_k, splits = D2, 1
         row_tile = wgmma_row_tile(R, E)
-    elif route == "mma":
-        block_k, splits = mma_split_plan(R, D2, E, g)
-    else:
+    elif route == "tiles":
+        splits = tile_plan(D2, E)[2]
+    elif route == "fma":
         block_k, splits = split_plan(R, D2, E)
-    partial = None
-    if splits > 1:
-        partial = torch.empty(splits, R, E, dtype=torch.float32, device=x.device)
+        if splits > 1:
+            partial = torch.empty(splits, R, E, dtype=torch.float32, device=x.device)
     err = _build.library().dd_int4_matmul(
         _DTYPES[x.dtype], int(out_dtype == torch.float32),
         x.data_ptr(), q4.data_ptr(), s4.data_ptr(), out.data_ptr(),
@@ -194,3 +207,31 @@ def int4_matmul(x, q4, s4, out_dtype=None) -> torch.Tensor:
 
 int4_matmul.launches = 0
 int4_matmul.route_launches = dict.fromkeys(_ROUTES, 0)
+
+
+PROBE_MODES = {"kernel": -1, "spans": 0, "tiles": 1}
+
+
+def stream_probe(x, q4, mode="kernel", width=TILE_CHANNELS, stages=5) -> torch.Tensor:
+    """A walk's memory pattern alone, for measurement: blocks and a TMA ring
+    over ``q4`` [D/2, E], the consumers neither decoding nor multiplying.
+    ``mode`` "kernel" is the whole-tile kernel itself with its own tile,
+    boxes, stages and x [R, D] bf16 (R <= ``SMALL_ROWS``) riding the ring.
+    "tiles" walks whole tiles of ``width`` channels (64 or 128), block b
+    taking tiles b, b + blocks, ...; "spans" cuts the list of (256-channel
+    tile, 128-row chunk) pairs into one equal span a block (256 contiguous
+    bytes a row); both through ``stages`` stages of 32 KB.  Returns the one
+    word a block writes."""
+    R, (D2, E) = x.shape[0], q4.shape
+    if mode == "spans":
+        width = 256
+        blocks = min(_SMS, -(-E // width) * (D2 // TILE_ROWS))
+    else:
+        blocks = min(_SMS, -(-E // (TILE_CHANNELS if mode == "kernel" else width)))
+    words = torch.empty(blocks, dtype=torch.float32, device=x.device)
+    err = _build.library().dd_int4_stream_probe(
+        x.data_ptr(), q4.data_ptr(), words.data_ptr(), R, D2, E, width, stages,
+        PROBE_MODES[mode], blocks, _build.stream_of(x),
+    )
+    _build.check(err, f"int4 stream probe ({mode})")
+    return words

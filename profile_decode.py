@@ -2,7 +2,7 @@
 """Where a prefill's and a decode step's device time goes, by kernel, on one
 NVIDIA GPU.
 
-    python3 profile_decode.py [bf16] [int8] [int4] [next] [kernels]
+    python3 profile_decode.py [--tree DIR] [bf16] [int8] [int4] [next] [kernels]
                               (default: the three LLaVA-1.5-7B tiers)
 
 For each tier it builds the synthetic full-width model ``chip_smoke.py``
@@ -13,10 +13,15 @@ exact K=3.  It sums the device time of
 every CUDA kernel by name into the groups of PERF.md section 5 and prints
 one table per tier, then the heaviest kernel names.  The profiler slows the
 host, so the span is not the unprofiled step time; the device sums are what
-the kernels take.  ``kernels`` instead times K5 and K6 at the prefill
-shapes, tile by tile and beside the ``mma.sync`` kernels they replaced
-there (``chip_smoke.time_ms``: the median of 30 CUDA-graph replays, L2
-flushed).  Needs a GPU; prints the card's name and power limit.
+the kernels take.  ``kernels`` instead times every hand-written kernel
+of the decode and prefill paths against its bound (``chip_smoke.time_ms``:
+the median of 30 CUDA-graph replays, L2 flushed): K1 and K3 at the decode
+shapes of both models, K6 at the decode forwards' rows with the stream-only
+probes that tell its memory pattern from its decode work, then K5 and K6 at
+the prefill shapes, tile by tile and beside the ``mma.sync`` kernels they
+replaced there.  ``--tree DIR`` takes the package from DIR (say, a parent
+commit unpacked there by ``git archive``) and keeps this script's cases and
+timer, so that two commits are read in one call, on one card.  Needs a GPU; prints the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -32,8 +37,9 @@ import chip_smoke
 STEPS = 8
 GROUPS = (  # (label, substrings of the kernel names), first match wins
     ("K6, wgmma kernel (prefill)", ("int4_wgmma",)),
-    ("K6, mma.sync / FMA kernels + combine", ("int4_fma", "int4_combine", "int4_mma")),
-    ("K1 / K3 (partial + combine)", ("partial_kernel", "combine_kernel")),
+    ("K6, whole-tile kernel (decode)", ("int4_tile",)),
+    ("K6, mma.sync tile / FMA kernel + combine", ("int4_fma", "int4_combine", "int4_mma")),
+    ("K1 / K3", ("decode_mma_kernel", "decode_fma_kernel")),
     ("K4", ("append_kernel",)),
     ("K5", ("flash_",)),
     ("K2", ("stats_kernel", "cross_kernel", "pavg_")),
@@ -155,6 +161,10 @@ def profile_tier(tier: str) -> None:
             rows.setdefault(label, []).append(f"{ms / per[n]:.3f}")
     for label, cells in rows.items():
         print("| " + " | ".join([label, *cells]) + " |")
+    for n in names:  # a decode call of K1, K3 or K6 is one launch: no kernel adds partial sums
+        second = [name for name in columns[n][0] if "combine" in name]
+        if n != "prefill" and second:
+            raise AssertionError(f"{tier} {n}: a second launch on a decode route: {second}")
     for n in names:
         top = sorted(columns[n][0].items(), key=lambda kv: -kv[1])[:6]
         print(f"{tier} {n}, heaviest: " + "; ".join(
@@ -224,11 +234,78 @@ def flash_cases() -> None:
             k5.prefill_route = route
 
 
+def decode_attention_cases() -> None:
+    """K1 and K3 at the decode shapes of the full-width paths (LLaVA-1.5: G =
+    1, greedy M = 1 and exact M = 3, 620 of 1152 slots filled; LLaVA-NeXT: G =
+    4, 2947 of 3504), each held against the plain twin first, beside its
+    bound."""
+    from dropoutdecoding_tpu_torch.ops import attention as plain
+    from dropoutdecoding_tpu_torch.ops import cuda_decode_attention as k1
+
+    kernels = (
+        ("K1", k1.ensemble_decode_attention_fused, plain.ensemble_decode_attention, False),
+        ("K3", k1.ensemble_decode_attention_int8kv_fused, plain.ensemble_decode_attention_int8kv,
+         True),
+    )
+    for label, M, KH, S, cur in (("M=1 G=1", 1, 32, 1152, 620), ("M=3 G=1", 3, 32, 1152, 620),
+                                 ("M=3 G=4", 3, 8, 1152, 620), ("M=4 G=4", 4, 8, 1152, 620),
+                                 ("M=3 G=4, NeXT", 3, 8, 3504, 2947)):
+        for name, kernel, twin, int8 in kernels:
+            args = chip_smoke._decode_inputs(1, M, 32, KH, 128, S, cur, torch.bfloat16, seed=100,
+                                             int8=int8)
+            got = kernel(*args)
+            err = (got.float() - twin(*args).float()).abs().max().item()
+            ms = chip_smoke.time_ms(lambda: kernel(*args))
+            nbytes, bound = chip_smoke.decode_least_time(args, got, cur)
+            print(f"{name} {label}, {cur} of {S} slots: {ms * 1e3:.1f} us, bound "
+                  f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']}, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e}")
+
+
+def int4_decode_rows() -> None:
+    """K6's whole-tile kernel at the four fused projections of a 7B layer for
+    the decode forwards' 1 and 3 rows (and 16, the kernel's last), beside
+    the bound, and the stream alone through a TMA ring: the kernel's own
+    pattern with the decode and the mmas off; whole tiles of 64 and of 128
+    channels (64 and 128 contiguous bytes a row); and equal spans of the
+    list of (256-channel tile, 128-row chunk) pairs, 256 contiguous bytes a
+    row."""
+    from dropoutdecoding_tpu_torch.ops import cuda_int4_matmul as k6
+
+    g = torch.Generator(device="cuda").manual_seed(600)
+    probes = [("kernel", {}), ("tiles", dict(width=64)), ("tiles", dict(width=128)),
+              ("spans", {})]
+    for name, D, E in (("qkv", 4096, 12288), ("o", 4096, 4096), ("gate_up", 4096, 22016),
+                       ("down", 11008, 4096)):
+        q4 = torch.randint(-128, 128, (D // 2, E), dtype=torch.int8, device="cuda", generator=g)
+        s4 = torch.empty(D // 128, E, device="cuda").uniform_(0.002, 0.006, generator=g)
+        for R in (1, 3, 16):
+            x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
+            got = k6.int4_matmul(x, q4, s4)
+            err = (got.float() - k6.int4_matmul_twin(x, q4, s4).float()).abs().max().item()
+            ms = chip_smoke.time_ms(lambda: k6.int4_matmul(x, q4, s4))
+            nbytes = chip_smoke._nbytes(x, q4, s4, got)
+            bound = chip_smoke.least_time(nbytes, 2 * R * D * E, "bf16")
+            print(f"K6 {name} [{R}, {D}] x [{D}, {E}]: {ms * 1e3:.1f} us, bound "
+                  f"{bound['bound_ms'] * 1e3:.1f} us by {bound['bound_by']}, "
+                  f"{nbytes / ms / 1e6:.0f} GB/s, max_abs_err {err:.3e}")
+        x = torch.randn(3, D, generator=g, device="cuda").to(torch.bfloat16)  # the exact step's rows
+        for mode, kw in probes if hasattr(k6, "stream_probe") else ():  # not in an older tree
+            ms = chip_smoke.time_ms(lambda: k6.stream_probe(x, q4, mode, **kw))
+            print(f"   stream only, {mode} {kw}: {ms * 1e3:.1f} us, "
+                  f"{q4.numel() / ms / 1e6:.0f} GB/s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
-    tiers = sys.argv[1:] or ["bf16", "int8", "int4"]
+    args = sys.argv[1:]
+    if args[:1] == ["--tree"] and len(args) > 1:
+        sys.path.insert(0, args[1])  # the package is imported inside the functions
+        print(f"package from {args[1]}")
+        args = args[2:]
+    tiers = args or ["bf16", "int8", "int4"]
     if any(t not in ("bf16", "int8", "int4", "next", "kernels") for t in tiers):
         print(__doc__, file=sys.stderr)
         return 2
@@ -236,6 +313,8 @@ def main() -> int:
     chip_smoke.build()
     for tier in tiers:
         if tier == "kernels":
+            decode_attention_cases()
+            int4_decode_rows()
             int4_rows()
             flash_cases()
         else:

@@ -269,23 +269,38 @@ PLAN_CASES = [  # (R, D2, E, g): the 7B leaves, the narrow model's, a tiny one, 
 
 @pytest.mark.parametrize("R,D2,E,g", PLAN_CASES)
 def test_split_plans_cover_the_contraction(R, D2, E, g):
-    """Both kernels' plans: blocks of whole steps (FMA) or whole staged
-    chunks (tensor cores) that cover D2, enough of them to fill the card
-    where the matrix allows, and no split above ``SMALL_ROWS`` rows."""
+    """Both plans.  The FMA kernel's: blocks of whole steps that cover D2,
+    enough of them to fill the card where the matrix allows.  The whole-tile
+    kernel's, for the shapes its route takes: every (tile, box) of the
+    product lies in exactly one item, a tile's items follow one another in
+    one block from box 0 to the last, none holds more than ``TILE_BOXES``
+    boxes, and block b takes tiles b, b + blocks, ..."""
     tiles = -(-E // 128)
     block_k, splits = k6.split_plan(R, D2, E)
     assert block_k % k6.K_STEP == 0 and k6.K_STEP <= block_k <= 1024
     assert splits == -(-D2 // block_k) and (splits - 1) * block_k < D2 <= splits * block_k
     assert splits * tiles * -(-R // 4) >= min(528, -(-D2 // 128) * tiles) // 2
 
-    block_k, splits = k6.mma_split_plan(R, D2, E, g)
-    chunk = next(c for c in (128, 64, 32, 16) if g % c == 0)
-    assert block_k % chunk == 0 and splits == -(-D2 // block_k)
-    assert (splits - 1) * block_k < D2 <= splits * block_k
-    if R > k6.SMALL_ROWS:
-        assert (block_k, splits) == (D2, 1)
-    else:
-        assert splits * tiles >= min(528, (D2 // chunk) * tiles) // 2
+    if k6.prefill_route(R, D2, E, g, aligned=True) != "tiles":
+        assert R > k6.SMALL_ROWS or g % k6.TILE_ROWS or E % 16
+        return
+    tiles, items, blocks = k6.tile_plan(D2, E)
+    boxes = D2 // k6.TILE_ROWS
+    assert tiles == -(-E // k6.TILE_CHANNELS) and 1 <= blocks <= min(132, tiles)
+    walk = k6.tile_walk(D2, E)
+    assert len(walk) == blocks
+    seen = {}
+    for b, its in enumerate(walk):
+        assert len(its) == items * len(range(b, tiles, blocks))
+        for n, (t, lo, hi) in enumerate(its):
+            assert t % blocks == b and 0 < hi - lo <= k6.TILE_BOXES and lo % k6.TILE_BOXES == 0
+            if lo:  # the item before it is the same tile's, and ends where this one starts
+                assert its[n - 1][0] == t and its[n - 1][2] == lo
+            for box in range(lo, hi):
+                assert (t, box) not in seen
+                seen[t, box] = b
+    assert len(seen) == tiles * boxes
+    assert {t for t, _ in seen} == set(range(tiles)) and {x for _, x in seen} == set(range(boxes))
 
 
 # --- the decoder with int4 leaves ----------------------------------------------

@@ -11,10 +11,12 @@ against its plain twin there and checks the route every case took.
 import ctypes
 import re
 
+import numpy as np
 import pytest
 import torch
 
 from dropoutdecoding_tpu_torch.ops import _build
+from dropoutdecoding_tpu_torch.ops import cuda_decode_attention as k1
 from dropoutdecoding_tpu_torch.ops import cuda_flash_prefill as k5
 from dropoutdecoding_tpu_torch.ops import cuda_int4_matmul as k6
 
@@ -32,9 +34,13 @@ K6_ROUTES = [  # (label, R, D2, E, g, aligned, route)
     ("g = 64: a step would span two groups", 595, 2048, 4096, 64, True, "mma"),
     ("tiny contraction, g = 16", 40, 16, 64, 16, True, "mma"),
     ("a view off the 16-byte grid", 595, 2048, 4096, 128, False, "mma"),
-    ("exact decode, 3 rows", 3, 2048, 22016, 128, True, "mma"),
-    ("greedy decode, 1 row", 1, 5504, 4096, 128, True, "mma"),
-    ("16 rows", 16, 2048, 4096, 128, True, "mma"),
+    ("exact decode, 3 rows", 3, 2048, 22016, 128, True, "tiles"),
+    ("greedy decode, 1 row", 1, 5504, 4096, 128, True, "tiles"),
+    ("16 rows", 16, 2048, 4096, 128, True, "tiles"),
+    ("int4 head, exact decode", 3, 2048, 32064, 128, True, "tiles"),
+    ("narrow model decode", 3, 128, 768, 128, True, "tiles"),
+    ("ragged decode, g = 32", 3, 1376, 130, 32, True, "mma"),
+    ("decode on a view off the 16-byte grid", 3, 2048, 4096, 128, False, "mma"),
 ]
 
 
@@ -98,6 +104,144 @@ def test_int4_wgmma_plan_at_the_7b_shapes():
     assert k6.wgmma_row_tile(595, 12288) == 152
     assert k6.wgmma_row_tile(595, 22016) == 120
     assert -(-32064 // k6.WGMMA_CHANNELS) == 251  # the head ends inside a tile: 250.5
+
+
+def test_int4_tile_constants_are_the_sources():
+    """The whole-tile kernel's tile, box and item, and the row count up to
+    which its route runs, are what the wrapper plans with."""
+    assert k6.TILE_CHANNELS == _constant("int4_matmul.cu", "kTcChannels")
+    assert k6.TILE_ROWS == _constant("int4_matmul.cu", "kTcRows")
+    assert k6.TILE_BOXES == _constant("int4_matmul.cu", "kTcBoxes")
+    assert k6.SMALL_ROWS == _constant("int4_matmul.cu", "kSmallRows")
+    # sixteen consumer warps: a 16-channel group for each of the tile's four, by a box
+    assert _constant("int4_matmul.cu", "kTcConsumers") == 32 * (k6.TILE_CHANNELS // 16) * k6.TILE_BOXES
+
+
+@pytest.mark.parametrize(
+    "D2,E,blocks,per_block",
+    [(2048, 12288, 132, (8, 4)), (2048, 4096, 64, (4, 4)), (2048, 22016, 132, (12, 8)),
+     (5504, 4096, 64, (11, 11)), (2048, 32064, 132, (16, 12)), (128, 768, 12, (1, 1))],
+    ids=["qkv", "o", "gate_up", "down", "head", "narrow"],
+)
+def test_int4_tile_plan_at_the_model_shapes(D2, E, blocks, per_block):
+    """One block an SM, or a block a tile where the tiles are fewer; the most
+    and the fewest items a block walks (43 boxes of down are 11 items, the
+    last of 3 boxes; the head's 501st tile holds 64 of its channels)."""
+    assert k6.tile_plan(D2, E)[2] == blocks
+    counts = [len(items) for items in k6.tile_walk(D2, E)]
+    assert (max(counts), min(counts)) == per_block
+
+
+# --- K1 / K3: the plan, the walk and the scratch ---------------------------------
+
+
+def test_decode_attention_constants_are_the_sources():
+    assert k1.TILE == _constant("decode_attention.cu", "kTile")
+    assert k1.MMA_ROWS == _constant("decode_attention.cu", "kMmaRows")
+    assert k1.MMA_HEAD_DIM == _constant("decode_attention.cu", "kMmaD")
+    assert k1.MAX_SPLITS == _constant("decode_attention.cu", "kMaxSplits")
+    assert k1.MAX_HEAD_DIM == 32 * _constant("decode_attention.cu", "kMaxDPerLane")
+
+
+DECODE_GEOMETRIES = [(1, 32), (1, 8), (2, 32), (2, 2), (16, 8)]  # (B, KH)
+
+
+@pytest.mark.parametrize("S", [1, 64, 65, 1152, 3504, 20000])
+@pytest.mark.parametrize("B,KH", DECODE_GEOMETRIES)
+@pytest.mark.parametrize("tensor_cores", [True, False], ids=["mma", "fma"])
+def test_decode_plan_covers_every_tile_once(S, B, KH, tensor_cores):
+    """The blocks of a (batch row, kv group) take contiguous runs of tiles
+    that cover the cache's capacity once, in split order; no more splits
+    than the merge keeps weights for; the grid is a function of the
+    capacity alone."""
+    per_block, splits = k1.decode_plan(B, KH, S, tensor_cores)
+    tiles = -(-S // k1.TILE)
+    assert per_block >= 1 and splits == -(-tiles // per_block) and splits <= k1.MAX_SPLITS
+    runs = [(sp * per_block, min((sp + 1) * per_block, tiles)) for sp in range(splits)]
+    assert runs[0][0] == 0 and runs[-1][1] == tiles
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:])) and all(lo < hi for lo, hi in runs)
+    if per_block > 1 and -(-tiles // (per_block - 1)) <= k1.MAX_SPLITS:
+        # a shorter run would put more blocks on the card than the plan aims at
+        aim = (k1._BLOCKS_PER_SM if tensor_cores else k1._FMA_BLOCKS_PER_SM) * 132
+        assert B * KH * tiles > aim * (per_block - 1)
+
+
+def test_decode_plan_at_the_model_shapes():
+    """LLaVA-1.5 (MHA, 1152 slots): two tiles a block, 288 blocks; LLaVA-NeXT
+    (8 kv groups, 3504 slots): two tiles a block, 224 blocks; the fp32 FMA
+    kernel takes a tile a block."""
+    assert k1.decode_plan(1, 32, 1152) == (2, 9)
+    assert k1.decode_plan(1, 8, 1152) == (1, 18)
+    assert k1.decode_plan(1, 8, 3504) == (2, 28)
+    assert k1.decode_plan(2, 32, 1152) == (3, 6)
+    assert k1.decode_plan(1, 32, 1152, tensor_cores=False) == (1, 18)
+
+
+def _live_subtiles(mask, per_block):
+    """A model of the tensor-core kernel's walk over one batch row's mask [M,
+    S]: the (split, tile of the block, warp) triples whose 16 slots a member
+    attends, as the kernel's ``live`` derives them from the staged mask."""
+    M, S = mask.shape
+    tiles = -(-S // k1.TILE)
+    sub = k1.TILE // 4
+    live = []
+    for split in range(-(-tiles // per_block)):
+        for j in range(per_block):
+            for warp in range(4):
+                s0 = (split * per_block + j) * k1.TILE + warp * sub
+                if mask[:, s0:s0 + sub].any():
+                    live.append((split, j, warp))
+    return live
+
+
+@pytest.mark.parametrize("S,fill", [(1, 1), (64, 64), (65, 65), (1152, 620), (1152, 768),
+                                    (3504, 2947), (3504, 0)])
+def test_decode_walk_covers_every_attended_slot_once(rng, S, fill):
+    """Every slot some member attends lies in exactly one live sub-tile of
+    exactly one block, whatever holes the members' masks have; a sub-tile no
+    member attends is not walked; no sub-tile starts past the capacity."""
+    M = 3
+    mask = (np.arange(S) < fill)[None, :] & (rng.random((M, S)) > 0.4)
+    mask[M - 1] = False  # a member that attends only its own token
+    per_block, splits = k1.decode_plan(1, 8, S)
+    live = _live_subtiles(mask, per_block)
+    assert len(set(live)) == len(live)
+    covered = np.zeros(S + k1.TILE, dtype=int)
+    sub = k1.TILE // 4
+    for split, j, warp in live:
+        assert split < splits
+        s0 = (split * per_block + j) * k1.TILE + warp * sub
+        assert s0 < S
+        covered[s0:s0 + sub] += 1
+    attended = mask.any(0)
+    assert (covered[:S][attended] == 1).all() and covered.max(initial=0) <= 1
+    assert len(live) == len({s // sub for s in np.flatnonzero(attended)})
+
+
+def test_decode_scratch_is_kept_by_device_stream_and_geometry():
+    """One set of buffers a (device, stream, geometry), made once and handed
+    out again (the kernel leaves the counters zero); two geometries, or two
+    streams, that may be in flight together never meet in one."""
+    k1._scratch.clear()
+    a = k1.decode_scratch("cpu", 0, B=1, KH=32, R=3, D=128, splits=9)
+    assert a is k1.decode_scratch("cpu", 0, B=1, KH=32, R=3, D=128, splits=9)
+    part_m, part_l, part_acc, counters = a
+    assert part_m.shape == part_l.shape == (32 * 9 * 3,) and part_acc.shape == (32 * 9 * 3 * 128,)
+    assert counters.dtype == torch.int32 and counters.shape == (32,) and not counters.any()
+    others = [
+        k1.decode_scratch("cpu", 0, B=1, KH=8, R=12, D=128, splits=18),   # another geometry
+        k1.decode_scratch("cpu", 0, B=1, KH=32, R=3, D=128, splits=6),    # another plan
+        k1.decode_scratch("cpu", 7, B=1, KH=32, R=3, D=128, splits=9),    # another stream
+        k1.decode_scratch("meta", 0, B=1, KH=32, R=3, D=128, splits=9),   # another device
+    ]
+    ptrs = {t.data_ptr() for t in a}
+    for other in others:
+        assert other is not a
+        if other[0].device.type == "cpu":
+            assert not ptrs & {t.data_ptr() for t in other}
+    # 24 query rows take two tensor-core tiles: two counters a (batch row, kv group)
+    assert k1.decode_scratch("cpu", 0, B=2, KH=8, R=24, D=128, splits=18)[3].shape == (32,)
+    k1._scratch.clear()
 
 
 K5_ROUTES = [  # (label, dtype, S, D, route)

@@ -78,11 +78,12 @@ def test_prefill_attention(rng, G):
         _close(got, ref)
 
 
-def _decode_inputs(rng, B, M, KH, G, D, S):
+def _decode_inputs(rng, B, M, KH, G, D, S, fill=None):
     H = KH * G
     q, kn, vn = _f32(rng, B, M, H, D), _f32(rng, B, M, KH, D), _f32(rng, B, M, KH, D)
     kc, vc = _f32(rng, B, S, KH, D), _f32(rng, B, S, KH, D)
-    mask = np.arange(S)[None, None, :] < S - 5  # slots past the fill
+    fill = np.asarray([S - 5] * B if fill is None else fill)  # a row's filled slots
+    mask = np.arange(S)[None, None, :] < fill[:, None, None]  # slots past the fill
     mask = mask & (rng.random((B, M, S)) > 0.4)  # holes inside the prefix
     mask[0, M - 1] = False  # a member that attends only its own token
     return q, kc, vc, kn, vn, mask
@@ -113,6 +114,88 @@ def test_decode_attention_twin_bf16_matches_tpu_kernel(rng, G, monkeypatch):
     got = ensemble_decode_attention_fused(*targs, torch.from_numpy(args[5]))
     assert got.dtype == torch.bfloat16
     _close(got, ref, rtol=0, atol=2e-2)
+
+
+# (label, B, M, KH, G, D, S, filled slots a row): the query rows of a kv group fill
+# one 16-row tensor-core tile, or take two; batch rows with their own fills
+DECODE_GEOMETRIES = [
+    ("16 rows a group", 1, 4, 2, 4, 16, 70, None),
+    ("24 rows a group", 1, 6, 2, 4, 16, 70, None),
+    ("two rows, fills 3 and 64", 2, 3, 2, 2, 16, 70, [3, 64]),
+    ("two rows, one with no filled slot", 2, 3, 2, 2, 8, 65, [0, 65]),
+]
+
+
+@pytest.mark.parametrize(
+    "B,M,KH,G,D,S,fill", [c[1:] for c in DECODE_GEOMETRIES], ids=[c[0] for c in DECODE_GEOMETRIES]
+)
+def test_decode_attention_twin_geometries_match_jax(rng, B, M, KH, G, D, S, fill):
+    args = _decode_inputs(rng, B, M, KH, G, D, S, fill)
+    got = ensemble_decode_attention_fused(*map(torch.from_numpy, args))
+    ref = jattn.ensemble_decode_attention(*map(jnp.asarray, args))
+    _close(got, ref)
+
+
+@pytest.mark.parametrize(
+    "B,M,KH,G,D,S,fill", [c[1:] for c in DECODE_GEOMETRIES], ids=[c[0] for c in DECODE_GEOMETRIES]
+)
+def test_decode_attention_twin_bf16_geometries_match_tpu_kernel(
+    rng, B, M, KH, G, D, S, fill, monkeypatch
+):
+    from jax.experimental import pallas as pl
+
+    from dropoutdecoding_tpu.ops.pallas_decode_attention import (
+        ensemble_decode_attention_fused as tpu_kernel,
+    )
+
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    args = _decode_inputs(rng, B, M, KH, G, D, S, fill)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in args[:5]] + [jnp.asarray(args[5])]
+    ref = np.asarray(tpu_kernel(*jargs).astype(jnp.float32))
+    targs = [torch.from_numpy(np.array(a.astype(jnp.float32))).bfloat16() for a in jargs[:5]]
+    got = ensemble_decode_attention_fused(*targs, torch.from_numpy(args[5]))
+    _close(got, ref, rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("S,fill,per_block", [(70, [65, 3], 1), (200, [195, 64], 2),
+                                              (1152, [620, 768], 3), (130, [0, 129], 1)])
+def test_decode_attention_pieces_merged_in_split_order_equal_the_twin(rng, S, fill, per_block):
+    """The arithmetic of the card's kernel, in numpy: each block's run of
+    64-slot tiles leaves the partial softmax (max, sum, unnormalised PV) of
+    the slots its member attends; the pieces are merged in split order with
+    the member's own token, a piece with no attended slot taking no part.
+    Equal to the twin to fp32 rounding, for any cut of the slots."""
+    from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import TILE
+
+    B, M, KH, G, D = 2, 3, 2, 2, 16
+    q, kc, vc, kn, vn, mask = _decode_inputs(rng, B, M, KH, G, D, S, fill)
+    ref = ensemble_decode_attention_fused(*map(torch.from_numpy, (q, kc, vc, kn, vn, mask))).numpy()
+    run = per_block * TILE
+    got = np.zeros_like(ref)
+    for b in range(B):
+        for m in range(M):
+            for h in range(KH * G):
+                g = h // G
+                scores = kc[b, :, g] @ q[b, m, h] / np.sqrt(D)
+                own = kn[b, m, g] @ q[b, m, h] / np.sqrt(D)
+                pieces = []
+                for s0 in range(0, S, run):
+                    on = mask[b, m, s0:s0 + run]
+                    if not on.any():
+                        pieces.append((-np.inf, 0.0, np.zeros(D, np.float32)))
+                        continue
+                    sc = scores[s0:s0 + run][on]
+                    e = np.exp(sc - sc.max())
+                    pieces.append((sc.max(), e.sum(), e @ vc[b, s0:s0 + run, g][on]))
+                top = max([own] + [mx for mx, total, _ in pieces if total > 0])
+                denom = sum(total * np.exp(mx - top) for mx, total, _ in pieces if total > 0)
+                denom += np.exp(own - top)
+                out = np.zeros(D, np.float32)
+                for mx, total, acc in pieces:  # split order
+                    if total > 0:
+                        out += np.exp(mx - top) / denom * acc
+                got[b, m, h] = out + np.exp(own - top) / denom * vn[b, m, g]
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
 def test_decode_attention_wrapper_never_falls_back(rng):

@@ -160,8 +160,9 @@ def test_synthetic_int8_engine_runs():
 # --- K3's plain twin against the JAX op --------------------------------------
 
 
-def _int8kv_inputs(rng, B, M, KH, G, D, S):
+def _int8kv_inputs(rng, B, M, KH, G, D, S, fill=None):
     H = KH * G
+    fill = np.asarray([S - 6] * B if fill is None else fill)  # a row's filled slots
     q = rng.normal(size=(B, M, H, D)).astype(np.float32)
     kq = rng.integers(-127, 128, (B, S, KH, D)).astype(np.int8)
     vq = rng.integers(-127, 128, (B, S, KH, D)).astype(np.int8)
@@ -169,7 +170,7 @@ def _int8kv_inputs(rng, B, M, KH, G, D, S):
     vs = rng.uniform(0.01, 0.03, (B, KH, S)).astype(np.float32)
     kn = rng.normal(size=(B, M, KH, D)).astype(np.float32)
     vn = rng.normal(size=(B, M, KH, D)).astype(np.float32)
-    mask = (np.arange(S)[None, None] < S - 6) & (rng.random((B, M, S)) < 0.7)
+    mask = (np.arange(S)[None, None] < fill[:, None, None]) & (rng.random((B, M, S)) < 0.7)
     mask[0, M - 1] = False  # a member that attends only its own token
     return q, kq, ks, vq, vs, kn, vn, mask
 
@@ -194,6 +195,26 @@ def test_int8kv_attention_twin_matches_jax(rng, G, dtype):
     err = np.abs(got.float().numpy() - ref).max()
     bound = 1e-5 if dtype == "float32" else 2e-2 * np.abs(ref).max()
     assert err <= bound, (err, bound)
+
+
+@pytest.mark.parametrize(
+    "B,M,KH,G,fill",
+    [(1, 4, 2, 4, None), (1, 6, 2, 4, None), (2, 3, 2, 2, [3, 64]), (2, 3, 2, 2, [0, 70])],
+    ids=["16 rows a group", "24 rows a group", "two rows, fills 3 and 64",
+         "two rows, one with no filled slot"],
+)
+def test_int8kv_attention_twin_geometries_match_jax(rng, B, M, KH, G, fill):
+    """The query rows of a kv group fill one 16-row tensor-core tile, or take
+    two; batch rows with their own fills."""
+    from dropoutdecoding_tpu.ops.attention import ensemble_decode_attention_int8kv as jop
+    from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import (
+        ensemble_decode_attention_int8kv_fused,
+    )
+
+    args = _int8kv_inputs(rng, B, M, KH, G, D=16, S=70, fill=fill)
+    ref = np.asarray(jop(*map(jnp.asarray, args)))
+    got = ensemble_decode_attention_int8kv_fused(*map(torch.from_numpy, args))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_wrappers_never_fall_back(rng):
