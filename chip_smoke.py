@@ -18,8 +18,12 @@ Phases, each fatal on failure:
    kernel at D = 64; every case one launch, and twice for equal bits), K3
    (the same over an int8 cache with scales in [0.01, 0.03]), K4 (the int8
    cache append at
-   [32, 1, 1152, 4096] and a B = 2 case, bit-equal), K2 (visual-token
-   uncertainty at [1, 576, 32064] fp32, with and without ``valid``) and K5
+   [32, 1, 1152, 4096], a B = 2 case and the scalar route at D = 64,
+   bit-equal, beside its launch floor), K2 (visual-token uncertainty with the
+   top-k table at ``K2_CASES``: LLaVA-1.5's [1, 576, 32064] with and without
+   ``valid``, LLaVA-NeXT's 2928 rows, B = 2 with an empty image, rows off
+   the 16-byte grid and the streaming route; ids equal to the twin's with
+   planted ties, two calls with equal bits) and K5
    (flash prefill at B=1, S=2950, H=32, KH=8, D=128, bf16, with a padded
    key-mask tail, on the wgmma kernel; G=1, S = 1024 and 1025, B = 2 with
    two mask tails, rows with no attendable key at D = 128, 64 and 16, fp32,
@@ -81,7 +85,12 @@ import torch.nn.functional as F
 # tile.  fp32: atol absolute, summation order only.
 K1_TOL = {torch.bfloat16: (6e-3, 1e-2), torch.float32: (1e-5, 0.0)}
 K1_ATOL_CAP = 2e-2
+# K2: every field within K2_RTOL of the field's scale.  epis = -alea - C is the
+# difference of two fp32 sums over V near log V = 10.4, so where rows are alike
+# and epis small (under 0.1) kernel and twin also differ by the rounding of
+# those sums: its bound has a floor of K2_EPIS_ULPS fp32 steps of max|alea|.
 K2_RTOL = 1e-4
+K2_EPIS_ULPS = 16
 # K5 (atol, rtol).  bf16: the kernel rounds the unnormalised exp terms to
 # bf16 for PV, the twin the normalised probabilities, and both round the
 # output, so an output may land on the neighbouring bf16 value (2^-8 of
@@ -339,51 +348,149 @@ def check_decode_attention() -> dict:
 def check_kernels() -> dict:
     """Each kernel against its plain twin on the card; returns the JSON
     records of the slice-shape cases, keyed by kernel."""
-    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
-        vision_uncertainty_fused,
-        vision_uncertainty_twin,
-    )
-
     records = check_decode_attention()
     records["K4"] = check_cache_append()
     records["K5"] = check_flash_prefill()
     records["K6"] = check_int4_matmul()
 
-    g = torch.Generator(device="cuda").manual_seed(7)
-    logits = 3.0 * torch.randn(1, 576, 32064, generator=g, device="cuda")
-    valid = torch.rand(1, 576, generator=g, device="cuda") > 0.1
-    for label, v in (("no valid", None), ("valid", valid)):
-        got = vision_uncertainty_fused(logits, v)
-        torch.cuda.synchronize()
-        ref = vision_uncertainty_twin(logits, v)
-        err = 0.0
-        for key, r in ref.items():
-            d = (got[key] - r).abs()
-            # rtol against each field's scale: var is ~1e-6, epis ~1
-            bound = K2_RTOL * r.abs().max().item()
-            if not d.max().item() <= bound:
-                raise AssertionError(f"K2 {label} {key}: {d.max().item()} > {bound}")
-            err = max(err, d.max().item())
-        ms = time_ms(lambda: vision_uncertainty_fused(logits, v))
-        plain_ms = time_ms(lambda: vision_uncertainty_twin(logits, v))
-        print(
-            f"K2 {label}: max_abs_err {err:.3e} (rtol {K2_RTOL:g}), "
-            f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us"
-        )
-        if v is None:
-            # the logits once; about 8 fp32 operations a logit over the passes
-            records["K2"] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                **least_time(_nbytes(logits, *got.values()), 8 * logits.numel(), "fp32"),
-                "library_ms": None,
-            }
+    records["K2"] = check_uncertainty()
     return records
+
+
+# K2's cases: (label, B, L, V, k, valid, route).  valid: None, a share of
+# rows kept at random, "empty": image 1 has no valid row, or "flood": no mask,
+# and in every other row a third of the logits tied at the row's 10th largest.
+K2_CASES = [
+    ("[1, 576, 32064] k=5", 1, 576, 32064, 5, None, "resident"),
+    ("[1, 576, 32064] k=5, 90% valid", 1, 576, 32064, 5, 0.9, "resident"),
+    ("[1, 2928, 32064] k=10, 80% valid (LLaVA-NeXT)", 1, 2928, 32064, 10, 0.8, "resident"),
+    ("[2, 576, 32064] k=5, an image with no valid row", 2, 576, 32064, 5, "empty", "resident"),
+    ("[1, 32, 32001] k=10 (InstructBLIP: rows off the 16-byte grid)", 1, 32, 32001, 10, None,
+     "resident"),
+    ("[1, 64, 130000] k=5 (a row longer than the ring)", 1, 64, 130000, 5, None, "stream"),
+    ("[2, 40, 32064] k=10, 10,000 logits of every other row tied at its 10th value", 2, 40,
+     32064, 10, "flood", "resident"),
+]
+
+
+def uncertainty_inputs(B, L, V, valid, seed):
+    """(logits [B, L, V] fp32, valid [B, L] bool or None) of a K2 case.  The
+    logits are bf16 values (so many are equal to the last bit, as a bf16
+    head's are) with ties planted in every row: the row's maximum at columns
+    100 and V - 7, the next value at 2047, 2048 and 2051 (either side of a
+    copy chunk and of a thread's four columns), the next at 3 and 4;
+    ``valid == "flood"`` also ties every third logit of the odd rows at the
+    row's 10th value."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (3.0 * torch.randn(B, L, V, generator=g, device="cuda")).bfloat16().float()
+    top = logits.amax(dim=-1, keepdim=True)
+    planted = ((1.5, (100, V - 7)), (1.0, (2047, 2048, 2051)), (0.5, (3, 4)))
+    for step, cols in planted:
+        logits[..., list(cols)] = top + step
+    if valid == "flood":  # the selection's candidates overflow their buffer
+        tenth = logits.topk(10, dim=-1).values[..., 9:]
+        logits[:, 1::2, 6::3] = tenth[:, 1::2]
+        for step, cols in planted:
+            logits[..., list(cols)] = top + step
+    if valid is None or valid == "flood":
+        return logits, None
+    share = 0.9 if valid == "empty" else valid
+    mask = torch.rand(B, L, generator=g, device="cuda") < share
+    if valid == "empty":
+        mask[1] = False
+    return logits, mask
+
+
+def check_uncertainty() -> dict:
+    """K2 against its twin at ``K2_CASES``: every field within ``K2_RTOL`` of
+    the field's scale, the top-k ids equal element for element (planted and
+    natural ties), the route the case must take, one launch a call, and two
+    calls with equal bits.  Every case runs before the first failure is
+    raised.  Beside the first and the LLaVA-NeXT case the time of
+    ``exact_top_k_ids`` alone (the table as the main path made it before the
+    kernel did) and of pass C after the first launch and after an L2 flush.
+    Returns the record of the first case."""
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
+        exact_top_k_ids,
+        launch_phases,
+        vision_uncertainty_fused,
+        vision_uncertainty_twin,
+    )
+
+    record, failed = None, []
+    for i, (label, B, L, V, k, valid, route) in enumerate(K2_CASES):
+        logits, v = uncertainty_inputs(B, L, V, valid, seed=7 + i)
+        before = dict(vision_uncertainty_fused.route_launches)
+        calls = vision_uncertainty_fused.launches
+        got = vision_uncertainty_fused(logits, v, top_k=k)
+        torch.cuda.synchronize()
+        took = [r for r, n in vision_uncertainty_fused.route_launches.items() if n != before[r]]
+        if took != [route] or vision_uncertainty_fused.launches != calls + 1:
+            raise AssertionError(f"K2 {label}: took {took}, not the {route} route")
+        again = vision_uncertainty_fused(logits, v, top_k=k)
+        same = all(torch.equal(got[key], again[key]) for key in got)
+        ref = vision_uncertainty_twin(logits, v, top_k=k)
+        ids_equal = torch.equal(got["topk_ids"], ref["topk_ids"])
+        planted = got["topk_ids"][0, 0, :5].tolist() == [100, V - 7, 2047, 2048, 2051]
+        err, worst = 0.0, 0.0
+        for key, r in ref.items():
+            if key == "topk_ids":
+                continue
+            d = (got[key] - r).abs().max().item()
+            # rtol against each field's scale: var is ~1e-6, epis ~1
+            scale = r.abs().max().item()
+            limit = K2_RTOL * scale
+            if key.startswith("epis"):
+                alea = ref["alea_uncert_per_token"].abs().max().item()
+                limit += K2_EPIS_ULPS * torch.finfo(torch.float32).eps * alea
+            err, worst = max(err, d), max(worst, d / limit if limit else d)
+            if not d <= limit:
+                failed.append(f"{label}: {key} {d:.3e} > {limit:.3e}")
+        bad_ids = int((got["topk_ids"] != ref["topk_ids"]).sum())
+        ms = time_ms(lambda: vision_uncertainty_fused(logits, v, top_k=k))
+        plain_ms = time_ms(lambda: vision_uncertainty_twin(logits, v, top_k=k))
+        bound = least_time(_nbytes(logits, *got.values()), 8 * logits.numel(), "fp32")
+        two_reads_ms = 2 * _nbytes(logits) / HBM_BYTES_PER_S * 1e3
+        line = (f"K2 {label} ({route}): max_abs_err {err:.3e}, at most {worst:.2f} of a field's "
+                f"bound (rtol {K2_RTOL:g} of its scale; epis + {K2_EPIS_ULPS} fp32 steps of "
+                f"max|alea|), ids differing from the twin {bad_ids}, planted ties in "
+                f"order {planted}, twice the same bits {same}, kernel with the table "
+                f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, bound "
+                f"{bound['bound_ms'] * 1e3:.2f} us by {bound['bound_by']}, two reads "
+                f"{two_reads_ms * 1e3:.1f} us")
+        extra = {}
+        if i in (0, 2):
+            extra["table_before_ms"] = time_ms(lambda: exact_top_k_ids(logits, k))
+            no_table = time_ms(lambda: vision_uncertainty_fused(logits, v))
+            # pass C alone: with the L2 as launch 1 left it, and after a flush
+            ab = time_ms(lambda: launch_phases(logits, v, k, ab=True))
+            ab_c = time_ms(lambda: launch_phases(logits, v, k, ab=True, cross=True))
+            c_cold = time_ms(lambda: launch_phases(logits, v, k, cross=True))
+            line += (f"; exact_top_k_ids alone {extra['table_before_ms'] * 1e3:.1f} us, kernel "
+                     f"without the table {no_table * 1e3:.1f} us; launch 1 {ab * 1e3:.1f} us, "
+                     f"pass C after it {(ab_c - ab) * 1e3:.1f} us, after an L2 flush "
+                     f"{c_cold * 1e3:.1f} us")
+        print(line)
+        if not (ids_equal and planted and same):
+            failed.append(f"{label}: ids equal {ids_equal}, planted {planted}, same bits {same}")
+        if i == 0:
+            record = {
+                "kernel_route": route, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **bound, "two_reads_ms": two_reads_ms, "library_ms": None, **extra,
+            }
+        if i == 2:
+            record["next"] = {"ms": ms, "two_reads_ms": two_reads_ms, **extra}
+        del logits, got, again, ref
+    if failed:
+        raise AssertionError(f"K2: {failed}")
+    return record
 
 
 def check_cache_append() -> dict:
     """K4 against its twin from the same random int8 cache: the whole q and
     s buffers must be bit-equal.  Returns the record of the 7B-shape case."""
     from dropoutdecoding_tpu_torch.ops.cuda_cache_append import (
+        cache_append_floor,
         cache_append_int8,
         cache_append_int8_twin,
     )
@@ -395,6 +502,8 @@ def check_cache_append() -> dict:
         ("[32, 2, 1152, 4096] bf16, cur_len 620 / 1151", 32, 2, 1152, 32, 128, [620, 1151],
          torch.bfloat16),
         ("[32, 1, 1152, 4096] fp32", 32, 1, 1152, 32, 128, [7], torch.float32),
+        # the scalar route: another head dim
+        ("[4, 2, 96, 8 x 64] bf16, cur_len 5 / 95", 4, 2, 96, 8, 64, [5, 95], torch.bfloat16),
     ]
     for i, (label, L, B, S, KH, D, cur, dtype) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(300 + i)
@@ -423,9 +532,16 @@ def check_cache_append() -> dict:
         if sum(diff) or not changed:
             raise AssertionError(f"K4 {label}: {diff} elements differ, {changed} written")
         if record is None:
+            # the launch floor: the same grid, cur_len read, a word a warp written
+            words = cache_append_floor(cur_len, L, KH)
+            if not bool((words == cur[0]).all()):
+                raise AssertionError("K4 floor kernel: wrong words")
+            floor_ms = time_ms(lambda: cache_append_floor(cur_len, L, KH))
+            print(f"K4 {label}: launch floor {floor_ms * 1e3:.1f} us")
             # the new rows read; the int8 rows and their scales written
             written = 2 * L * B * KH * (D + 4)
             record = {
+                "launch_floor_ms": floor_ms,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **least_time(_nbytes(k_new, v_new, cur_len) + written, 8 * k_new.numel(), "fp32"),
                 "library_ms": None,
@@ -872,8 +988,11 @@ def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> d
     """Greedy, then exact K=3: 32 new tokens each through the engine's
     ``generate(*args)`` (the main path), ``make(ensemble, gen)`` building
     the engine, with every kernel's launch count set to 0 just before and
-    checked just after.  Returns the exact K=3 run's counts."""
+    checked just after; one prefill more, hooked, must launch K2 once and
+    give the top-k table ``exact_top_k_ids`` gives on its logits.  Returns
+    the exact K=3 run's counts."""
     from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import exact_top_k_ids
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
 
     wrappers = _wrappers()
@@ -906,7 +1025,16 @@ def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> d
         tok = result.tokens
         if tok.shape != (1, T) or not ((tok >= 0) & (tok < V)).all():
             raise AssertionError(f"{tier} {label}: bad tokens {tok}")
+        tables = []  # one prefill more, its table held against the plain version's
+        eng.on_prefill = lambda logits, st: tables.append(
+            (wrappers["K2"].launches,
+             torch.equal(st.topk_ids, exact_top_k_ids(logits, eng.ens.topk))))
         unc = eng.prefill(*args).uncertainty
+        eng.on_prefill = None
+        if tables != [(counts["K2"] + 1, True)] or "topk_ids" in unc:
+            raise AssertionError(
+                f"{tier} {label}: (K2 launches, table equal to exact_top_k_ids) of one more "
+                f"prefill {tables}, want [({counts['K2'] + 1}, True)]")
         for key, v in unc.items():
             if not torch.isfinite(v).all():
                 raise AssertionError(f"{tier} {label}: non-finite uncertainty field {key}")
@@ -1104,6 +1232,7 @@ KERNELS = {
         "name": "vision_uncertainty",
         "route": "cuda",
         "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
+        # and the top-k table XLA made beside it (engine/generate.py:334)
         "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
     },
     "K3": {

@@ -33,7 +33,7 @@ The JAX engine's w8a8 and int8-prefix-cache options have no counterpart yet
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -43,7 +43,7 @@ from ..decoding.masks import build_member_drop_mask, check_policy, overlap_keep_
 from ..models import llama as llama_mod
 from ..models import llava as llava_mod
 from ..models.llama import KVCache
-from ..ops.uncertainty import exact_top_k_ids, vision_uncertainty_auto
+from ..ops.uncertainty import vision_uncertainty_auto
 from ..utils.config import EnsembleConfig, GenerationConfig, LlavaConfig
 from ..utils.prng import PhiloxUniform, UniformSource
 
@@ -92,6 +92,9 @@ class LlavaEngine:
     text_mask_policy: str = "none"
     int8_kv: bool = False  # int8 KV cache (K3 reads it, K4 appends to it)
     uniform: UniformSource | None = None
+    # called as on_prefill(img_logits [B, N, V], state) at the end of every
+    # prefill: a check's view of the logits the state was made from
+    on_prefill: Callable | None = None
 
     def __post_init__(self):
         if self.ensemble and self.ens.fused_step:
@@ -159,8 +162,9 @@ class LlavaEngine:
         idx = start[:, None] + torch.arange(N, device=self.device)[None]
         hidden_img = hidden.gather(1, idx[..., None].expand(B, N, E))
         img_logits = llama_mod.lm_head(lm, hidden_img)  # [B, N, V] fp32
-        uncert = vision_uncertainty_auto(img_logits, visual_mask)
-        topk_ids = exact_top_k_ids(img_logits, self.ens.topk)
+        # one call: K2 finds the top-k ids while it takes its first statistics
+        uncert = vision_uncertainty_auto(img_logits, visual_mask, top_k=self.ens.topk)
+        topk_ids = uncert.pop("topk_ids")
 
         cache = llama_mod.empty_cache(
             self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv
@@ -168,7 +172,7 @@ class LlavaEngine:
         llama_mod.cache_seed(cache, kv)
         if visual_mask is None:
             visual_mask = torch.ones((B, N), dtype=torch.bool, device=self.device)
-        return PrefillState(
+        state = PrefillState(
             cache=cache,
             cur_len=cur_len,
             last_logits=last_logits,
@@ -179,6 +183,9 @@ class LlavaEngine:
             visual_mask=visual_mask,
             uncertainty=uncert,
         )
+        if self.on_prefill is not None:
+            self.on_prefill(img_logits, state)
+        return state
 
     # ------------------------------------------------------------------
     # decode

@@ -43,10 +43,12 @@ _SIGNATURES = {
     # dtype, q, kq, ks, vq, vs, k_new, v_new, key_mask, out, part_m, part_l,
     # part_acc, counters, B, M, H, KH, S, D, tiles_per_block, nsplit, scale, stream
     "dd_ensemble_decode_attention_int8kv": [_I] + [_P] * 13 + [_I] * 8 + [_F, _P],
-    # dtype, k_new, v_new, kq, ks, vq, vs, cur_len, L, B, KH, S, D, stream
-    "dd_cache_append_int8": [_I] + [_P] * 7 + [_I] * 5 + [_P],
-    # x, w, m, z, a, b, scratch, c, B, L, V, stream
-    "dd_vision_uncertainty": [_P] * 8 + [_I] * 3 + [_P],
+    # dtype, k_new, v_new, kq, ks, vq, vs, cur_len, L, B, KH, S, D, route, stream
+    "dd_cache_append_int8": [_I] + [_P] * 7 + [_I] * 6 + [_P],
+    # cur_len, out, L, B, KH, stream
+    "dd_cache_append_floor": [_P] * 2 + [_I] * 3 + [_P],
+    # x, w, n, stats, scratch, tok, img, topk, B, L, V, k, route, G, phases, stream
+    "dd_vision_uncertainty": [_P] * 8 + [_I] * 7 + [_P],
     # dtype, q, k, v, key_mask, out, B, S, H, KH, D, scale, route, stream
     "dd_flash_prefill_attention": [_I] + [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     # x_dtype, out_f32, x, q4, s4, out, partial, R, D2, E, N, block_k, splits, route,

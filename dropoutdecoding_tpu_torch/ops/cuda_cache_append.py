@@ -7,9 +7,16 @@ Replaces the TPU kernel ``cache_append_rows_int8``
 step quantizes the winner's K and V rows and writes the int8 values and the
 scales at each row's ``cur_len``, for every layer, in place.
 
+Two routes, picked by ``append_route``: "row128" (head dim 128: a lane
+holds its four values from one load, one trip to memory) and "scalar" (any
+other head dim, or operands off the kernel's alignment).
+
 ``cache_append_int8_twin`` is the plain twin (``quantize_kv`` and indexed
 assignment).  The wrapper uses it for CPU tensors; for CUDA tensors it
-launches the kernel or raises.  ``launches`` counts kernel launches.
+launches the kernel or raises.  ``launches`` counts kernel launches,
+``route_launches`` the same by route.  ``cache_append_floor`` launches the
+kernel's grid with nothing to do but read ``cur_len`` and write a word a
+warp: the time a launch of this shape cannot go below.
 """
 from __future__ import annotations
 
@@ -19,6 +26,14 @@ from ..utils.quantize import quantize_kv
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROW_HEAD_DIM = 128  # kRowD in csrc/cache_append.cu
+_ROUTES = {"row128": 0, "scalar": 1}
+
+
+def append_route(D: int, aligned: bool = True) -> str:
+    """The kernel an append of head dim ``D`` takes.  ``aligned``: the new
+    rows start on a 16-byte and the int8 leaves on a 4-byte boundary."""
+    return "row128" if D == ROW_HEAD_DIM and aligned else "scalar"
 
 
 def cache_append_int8_twin(kq, ks, vq, vs, cur_len, k_new, v_new) -> None:
@@ -71,13 +86,33 @@ def cache_append_int8(kq, ks, vq, vs, cur_len, k_new, v_new) -> None:
             f"shape mismatch: q {tuple(kq.shape)}, s {tuple(ks.shape)}, "
             f"new {tuple(k_new.shape)}, cur_len {tuple(cur_len.shape)}"
         )
+    aligned = not (k_new.data_ptr() % 16 or v_new.data_ptr() % 16
+                   or kq.data_ptr() % 4 or vq.data_ptr() % 4)
+    route = append_route(D, aligned)
     err = _build.library().dd_cache_append_int8(
         _DTYPES[k_new.dtype], k_new.data_ptr(), v_new.data_ptr(),
         kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(), cur_len.data_ptr(),
-        L, B, KH, S, D, _build.stream_of(kq),
+        L, B, KH, S, D, _ROUTES[route], _build.stream_of(kq),
     )
-    _build.check(err, "cache_append_int8 kernel")
+    _build.check(err, f"cache_append_int8 kernel ({route})")
     cache_append_int8.launches += 1
+    cache_append_int8.route_launches[route] += 1
 
 
 cache_append_int8.launches = 0
+cache_append_int8.route_launches = dict.fromkeys(_ROUTES, 0)
+
+
+def cache_append_floor(cur_len: torch.Tensor, L: int, KH: int) -> torch.Tensor:
+    """The launch floor of the "row128" route for ``cur_len`` [B] on the
+    card: the same grid, ``cur_len`` read, one word a warp written and
+    returned ([2 * L * B * KH] int32, each row's ``cur_len``)."""
+    if cur_len.device.type != "cuda" or cur_len.dtype != torch.int64:
+        raise ValueError("cur_len must be an int64 tensor on the card")
+    B = cur_len.shape[0]
+    out = torch.empty(2 * L * B * KH, dtype=torch.int32, device=cur_len.device)
+    err = _build.library().dd_cache_append_floor(
+        cur_len.data_ptr(), out.data_ptr(), L, B, KH, _build.stream_of(cur_len)
+    )
+    _build.check(err, "cache_append floor kernel")
+    return out

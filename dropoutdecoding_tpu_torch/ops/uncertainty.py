@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .cuda_uncertainty import vision_uncertainty_fused
+from .cuda_uncertainty import exact_top_k_ids, vision_uncertainty_fused  # noqa: F401
 
 _EPS = 1e-10  # the reference's log(p + 1e-10)
 
@@ -56,25 +56,11 @@ def vision_uncertainty(logits: torch.Tensor, valid: torch.Tensor | None = None) 
 
 
 def vision_uncertainty_auto(
-    logits: torch.Tensor, valid: torch.Tensor | None = None
+    logits: torch.Tensor, valid: torch.Tensor | None = None, top_k: int | None = None
 ) -> dict:
-    """The engine's uncertainty: K2 on the card, its plain twin on the CPU."""
-    return vision_uncertainty_fused(logits.float().contiguous(), valid)
-
-
-def exact_top_k_ids(logits: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries along the last axis, in descending
-    order with ties broken toward the lower index (argmax's rule, and
-    ``jax.lax.top_k``'s order).  k argmax passes rather than
-    ``torch.topk``, which promises no order among ties.
-    """
-    x = logits.clone()
-    ids = []
-    for _ in range(k):
-        idx = x.argmax(dim=-1)
-        ids.append(idx)
-        x.scatter_(-1, idx[..., None], -math.inf)
-    return torch.stack(ids, dim=-1).to(torch.int32)
+    """The engine's uncertainty: K2 on the card, its plain twin on the CPU;
+    with ``top_k`` the same call gives the projection table ``"topk_ids"``."""
+    return vision_uncertainty_fused(logits.float().contiguous(), valid, top_k)
 
 
 def entropy_varentropy(logits: torch.Tensor) -> tuple:
@@ -86,3 +72,41 @@ def entropy_varentropy(logits: torch.Tensor) -> tuple:
     entropy = -(probs * log_probs).sum(dim=-1) / ln2
     varentropy = (probs * (log_probs / ln2 + entropy[..., None]) ** 2).sum(dim=-1)
     return entropy, varentropy
+
+
+def topk_token_ids(logits: torch.Tensor, k: int) -> tuple:
+    """Top-k text-token projection table per visual token: (values [B, L,
+    k], ids [B, L, k] int32), descending, the lower index first among ties
+    (``jax.lax.top_k``'s order)."""
+    ids = exact_top_k_ids(logits, k)
+    return logits.gather(-1, ids.long()), ids
+
+
+def kl_to_current(image_logits: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """Per-visual-token KL(softmax(current step logits) || softmax(image
+    token logits)).
+
+    Args:
+      image_logits: [L, V] visual-token logits (prefill projection).
+      logits: [V] current-step logits.
+    Returns:
+      [L] KL divergences; terms with p = 0 count as 0.
+    """
+    log_q = torch.log_softmax(image_logits.float(), dim=-1)
+    p = torch.softmax(logits.float(), dim=-1)
+    terms = torch.where(p > 0, p * (torch.log(p) - log_q), torch.zeros_like(log_q))
+    return terms.sum(dim=-1)
+
+
+def lowest_percent_kl_indices_mask(
+    image_logits: torch.Tensor, logits: torch.Tensor, percent: float = 0.1
+) -> torch.Tensor:
+    """Boolean [L] mask of the lowest-``percent`` KL visual tokens (the
+    ``epis_kl`` policy); the lower index first among equal KLs."""
+    kl = kl_to_current(image_logits, logits)
+    num = int(percent * kl.shape[0])
+    mask = torch.zeros(kl.shape, dtype=torch.bool, device=kl.device)
+    if num == 0:
+        return mask
+    mask[torch.sort(kl, stable=True).indices[:num]] = True  # one launch, ties in index order
+    return mask

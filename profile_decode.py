@@ -2,7 +2,7 @@
 """Where a prefill's and a decode step's device time goes, by kernel, on one
 NVIDIA GPU.
 
-    python3 profile_decode.py [--tree DIR] [bf16] [int8] [int4] [next] [kernels]
+    python3 profile_decode.py [--tree DIR] [tokens] [bf16] [int8] [int4] [next] [kernels] [k2k4]
                               (default: the three LLaVA-1.5-7B tiers)
 
 For each tier it builds the synthetic full-width model ``chip_smoke.py``
@@ -19,7 +19,12 @@ the median of 30 CUDA-graph replays, L2 flushed): K1 and K3 at the decode
 shapes of both models, K6 at the decode forwards' rows with the stream-only
 probes that tell its memory pattern from its decode work, then K5 and K6 at
 the prefill shapes, tile by tile and beside the ``mma.sync`` kernels they
-replaced there.  ``--tree DIR`` takes the package from DIR (say, a parent
+replaced there, then K2 at ``chip_smoke.K2_CASES`` with the top-k table
+(in a tree whose K2 has no ``top_k``: K2 and ``exact_top_k_ids`` apart) and
+K4 beside its launch floor.
+``k2k4`` runs those last two alone.  ``tokens`` before the tiers prints each
+tier's 32 greedy and exact K=3 tokens in place of a profile, so that two
+trees can be held token for token.  ``--tree DIR`` takes the package from DIR (say, a parent
 commit unpacked there by ``git archive``) and keeps this script's cases and
 timer, so that two commits are read in one call, on one card.  Needs a GPU; prints the card's name and power limit.
 """
@@ -40,9 +45,10 @@ GROUPS = (  # (label, substrings of the kernel names), first match wins
     ("K6, whole-tile kernel (decode)", ("int4_tile",)),
     ("K6, mma.sync tile / FMA kernel + combine", ("int4_fma", "int4_combine", "int4_mma")),
     ("K1 / K3", ("decode_mma_kernel", "decode_fma_kernel")),
-    ("K4", ("append_kernel",)),
+    ("K4", ("append_kernel", "append_row128_kernel")),
     ("K5", ("flash_",)),
-    ("K2", ("stats_kernel", "cross_kernel", "pavg_")),
+    ("K2", ("ab_resident_kernel", "cross_resident_kernel", "finish_kernel", "stats_kernel",
+            "topk_stream_kernel", "cross_kernel", "pavg_")),
     ("cuBLAS / other matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "cublas")),
     ("copies / dtype casts", ("copy", "Memcpy", "memcpy", "Memset", "memset")),
 )
@@ -85,14 +91,16 @@ def grouped(by_name: dict) -> dict:
     return out
 
 
-def profile_tier(tier: str) -> None:
+def tier_engines(tier: str, gen):
+    """(make, args, params): ``make(ensemble)`` builds the tier's engine at
+    full width with ``chip_smoke.end_to_end``'s synthetic weights, prompt and
+    image, ``args`` are its ``generate`` arguments."""
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
     from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
     from dropoutdecoding_tpu_torch.models import llavanext
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
     from dropoutdecoding_tpu_torch.utils.config import (
         EnsembleConfig,
-        GenerationConfig,
         LlavaConfig,
         LlavaNextConfig,
     )
@@ -103,7 +111,6 @@ def profile_tier(tier: str) -> None:
         synthetic_llavanext_params,
     )
 
-    gen = GenerationConfig(max_new_tokens=STEPS + 1, eos_token_id=-1, pad_token_id=0)
     rng = np.random.default_rng(11)  # chip_smoke.end_to_end's prompt and images
     cfg = LlavaNextConfig() if tier == "next" else LlavaConfig()
     ids = rng.integers(2, 32000, size=(1, 20))
@@ -137,6 +144,28 @@ def profile_tier(tier: str) -> None:
                 cfg=cfg, params=params, max_len=1152, ensemble=ensemble, int8_kv=tier != "bf16",
                 gen=gen,
             )
+    return make, args, params
+
+
+def print_tokens(tier: str) -> None:
+    """The 32 tokens of the tier's greedy and exact K=3 ``generate``, as
+    ``chip_smoke.py`` drives them: two trees must print the same lines."""
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=32, eos_token_id=-1, pad_token_id=0)
+    make, args, params = tier_engines(tier, gen)
+    for label, ensemble in (("greedy", False), ("exact K=3", True)):
+        print(f"tokens {tier} {label}: {make(ensemble).generate(*args).tokens[0].tolist()}")
+    del params, make
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def profile_tier(tier: str) -> None:
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    gen = GenerationConfig(max_new_tokens=STEPS + 1, eos_token_id=-1, pad_token_id=0)
+    make, args, params = tier_engines(tier, gen)
     columns = {}
     for label, ensemble in (("greedy", False), ("exact", True)):
         eng = make(ensemble)
@@ -169,7 +198,7 @@ def profile_tier(tier: str) -> None:
         top = sorted(columns[n][0].items(), key=lambda kv: -kv[1])[:6]
         print(f"{tier} {n}, heaviest: " + "; ".join(
             f"{name[:60]} {ms / per[n]:.3f}" for name, ms in top))
-    del params, state, eng
+    del params, state, eng, make
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -296,6 +325,62 @@ def int4_decode_rows() -> None:
                   f"{q4.numel() / ms / 1e6:.0f} GB/s")
 
 
+def uncertainty_cases() -> None:
+    """K2 with the top-k table at every case of ``chip_smoke.K2_CASES``, held
+    against the twin's ids first.  In a tree whose K2 takes no ``top_k`` the
+    two calls the main path made then are timed apart and summed."""
+    import inspect
+
+    from dropoutdecoding_tpu_torch.ops import cuda_uncertainty as k2
+    from dropoutdecoding_tpu_torch.ops import uncertainty as uq
+
+    folded = "top_k" in inspect.signature(k2.vision_uncertainty_fused).parameters
+    for i, (label, B, L, V, k, valid, _) in enumerate(chip_smoke.K2_CASES):
+        logits, v = chip_smoke.uncertainty_inputs(B, L, V, valid, seed=7 + i)
+        two_reads = 2 * chip_smoke._nbytes(logits) / chip_smoke.HBM_BYTES_PER_S * 1e6
+        table = chip_smoke.time_ms(lambda: uq.exact_top_k_ids(logits, k)) * 1e3
+        if folded:
+            got = k2.vision_uncertainty_fused(logits, v, top_k=k)["topk_ids"]
+            equal = torch.equal(got, uq.exact_top_k_ids(logits, k))
+            both = chip_smoke.time_ms(lambda: k2.vision_uncertainty_fused(logits, v, top_k=k)) * 1e3
+            alone = chip_smoke.time_ms(lambda: k2.vision_uncertainty_fused(logits, v)) * 1e3
+            print(f"K2 {label}: with the table {both:.1f} us (ids equal {equal}), without "
+                  f"{alone:.1f} us, exact_top_k_ids alone {table:.1f} us, two reads "
+                  f"{two_reads:.1f} us")
+        else:
+            alone = chip_smoke.time_ms(lambda: k2.vision_uncertainty_fused(logits, v)) * 1e3
+            print(f"K2 {label}: {alone:.1f} us + exact_top_k_ids {table:.1f} us = "
+                  f"{alone + table:.1f} us, two reads {two_reads:.1f} us")
+        del logits
+
+
+def cache_append_cases() -> None:
+    """K4 at the 7B decode step's shape, three readings each: the kernel and
+    the launch floor (where the tree has the probe)."""
+    from dropoutdecoding_tpu_torch.ops import cuda_cache_append as k4
+
+    L, B, S, KH, D = 32, 1, 1152, 32, 128
+    g = torch.Generator(device="cuda").manual_seed(300)
+    kq, vq = (torch.randint(-127, 128, (L, B, S, KH * D), dtype=torch.int8, device="cuda",
+                            generator=g) for _ in range(2))
+    ks, vs = (torch.rand(L, B, KH, S, device="cuda", generator=g) for _ in range(2))
+    k_new, v_new = ((3 * torch.randn(L, B, KH, D, device="cuda", generator=g)).bfloat16()
+                    for _ in range(2))
+    cur_len = torch.tensor([620], dtype=torch.long, device="cuda")
+
+    def append():
+        k4.cache_append_int8(kq, ks, vq, vs, cur_len, k_new, v_new)
+
+    def us(fn):  # 300 replays: these times are near the timer's own spread
+        return chip_smoke.time_ms(fn, reps=300) * 1e3
+
+    for reading in range(3):
+        line = f"K4 [32, 1, 1152, 4096] bf16, reading {reading}: {us(append):.2f} us"
+        if hasattr(k4, "cache_append_floor"):
+            line += f", launch floor {us(lambda: k4.cache_append_floor(cur_len, L, KH)):.2f} us"
+        print(line)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -305,8 +390,10 @@ def main() -> int:
         sys.path.insert(0, args[1])  # the package is imported inside the functions
         print(f"package from {args[1]}")
         args = args[2:]
-    tiers = args or ["bf16", "int8", "int4"]
-    if any(t not in ("bf16", "int8", "int4", "next", "kernels") for t in tiers):
+    tokens = args[:1] == ["tokens"]
+    tiers = args[1:] if tokens else args
+    tiers = tiers or ["bf16", "int8", "int4"]
+    if any(t not in ("bf16", "int8", "int4", "next", "kernels", "k2k4") for t in tiers):
         print(__doc__, file=sys.stderr)
         return 2
     print(f"card: {chip_smoke._card_line()}")
@@ -317,6 +404,13 @@ def main() -> int:
             int4_decode_rows()
             int4_rows()
             flash_cases()
+            uncertainty_cases()
+            cache_append_cases()
+        elif tier == "k2k4":  # the last two of ``kernels`` alone
+            uncertainty_cases()
+            cache_append_cases()
+        elif tokens:
+            print_tokens(tier)
         else:
             profile_tier(tier)
     return 0

@@ -103,6 +103,31 @@ def test_prefill_state_matches_jax(weights):
     )
 
 
+@pytest.mark.parametrize("topk", [1, 5, 10])
+def test_prefill_makes_one_uncertainty_call_with_the_table(weights, monkeypatch, topk):
+    """The engine asks for the uncertainty and the top-k table in one call;
+    the table is the JAX engine's and ``exact_top_k_ids``' of the same
+    logits, handed to ``on_prefill`` with the state."""
+    from dropoutdecoding_tpu_torch.engine import generate as tgen
+    from dropoutdecoding_tpu_torch.ops.uncertainty import exact_top_k_ids
+
+    je, te = _engines(weights, topk=topk)
+    calls, seen = [], []
+    auto = tgen.vision_uncertainty_auto
+    monkeypatch.setattr(
+        tgen, "vision_uncertainty_auto",
+        lambda logits, valid=None, top_k=None: calls.append(top_k) or auto(logits, valid, top_k),
+    )
+    te.on_prefill = lambda logits, state: seen.append((logits, state))
+    ts = te.prefill(INPUT_IDS, weights[2])
+    assert calls == [topk] and len(seen) == 1 and seen[0][1] is ts
+    assert ts.topk_ids.shape == (1, 16, topk) and ts.topk_ids.dtype == torch.int32
+    assert "topk_ids" not in ts.uncertainty
+    assert torch.equal(ts.topk_ids, exact_top_k_ids(seen[0][0], topk))
+    js = je.prefill(INPUT_IDS, weights[2])
+    np.testing.assert_array_equal(ts.topk_ids.numpy(), np.asarray(js.topk_ids))
+
+
 def test_ensemble_masks_change_the_output(weights):
     """The tiny model is sensitive enough that masking matters: exact K=3
     decoding departs from greedy (so the parity above is not vacuous)."""

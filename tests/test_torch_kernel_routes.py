@@ -1,7 +1,8 @@
 """Which kernel a call takes on the card, and how its tiles cover the work:
-the route functions of K5 (``ops/cuda_flash_prefill.py``) and K6
-(``ops/cuda_int4_matmul.py``) and K6's choice of row tile, which are plain
-Python; the constants they reckon with against the kernel sources; models of
+the route functions of K2 (``ops/cuda_uncertainty.py``), K4
+(``ops/cuda_cache_append.py``), K5 (``ops/cuda_flash_prefill.py``) and K6
+(``ops/cuda_int4_matmul.py``), K2's row plan and K6's choice of row tile,
+which are plain Python; the constants they reckon with against the kernel sources; models of
 the kernels' tilings; and the ctypes signatures of ``ops/_build.py`` against
 the C entries in ``csrc/*.cu``.
 
@@ -16,9 +17,11 @@ import pytest
 import torch
 
 from dropoutdecoding_tpu_torch.ops import _build
+from dropoutdecoding_tpu_torch.ops import cuda_cache_append as k4
 from dropoutdecoding_tpu_torch.ops import cuda_decode_attention as k1
 from dropoutdecoding_tpu_torch.ops import cuda_flash_prefill as k5
 from dropoutdecoding_tpu_torch.ops import cuda_int4_matmul as k6
+from dropoutdecoding_tpu_torch.ops import cuda_uncertainty as k2
 
 K6_ROUTES = [  # (label, R, D2, E, g, aligned, route)
     ("7B qkv prefill", 595, 2048, 12288, 128, True, "wgmma"),
@@ -303,6 +306,162 @@ def test_flash_wgmma_tiles_cover_the_causal_triangle_once(S):
             assert sum(max(0, min(k1, q + 1) - k0) for k0, k1 in tiles) == q + 1
         pairs += sum((q + 1) for q in range(q0, q1))
     assert pairs == S * (S + 1) // 2
+
+
+# --- K2: the route, the row plan, the copy spans and the candidates ---------------
+
+K2_ROUTES = [  # (label, L, V, k, aligned, route)
+    ("LLaVA-1.5", 576, 32064, 5, True, "resident"),
+    ("LLaVA-NeXT", 2928, 32064, 10, True, "resident"),
+    ("InstructBLIP: rows off the 16-byte grid", 32, 32001, 10, True, "resident"),
+    ("a row longer than the ring", 64, 130000, 5, True, "stream"),
+    ("no table", 576, 32064, 0, True, "resident"),
+    ("the narrow model", 16, 128, 5, True, "resident"),
+    ("the longest resident row", 8, 32768, 16, True, "resident"),
+    ("one column more", 8, 32769, 5, True, "stream"),
+    ("the longest row off the grid", 8, 32763, 5, True, "resident"),
+    ("off the grid, the span a chunk too long", 8, 32765, 5, True, "stream"),
+    ("a tensor off the 16-byte grid", 576, 32064, 5, False, "stream"),
+]
+
+
+@pytest.mark.parametrize(
+    "L,V,k,aligned,route", [c[1:] for c in K2_ROUTES], ids=[c[0] for c in K2_ROUTES]
+)
+def test_uncertainty_route(L, V, k, aligned, route):
+    assert k2.uncertainty_route(L, V, k, aligned) == route
+
+
+@pytest.mark.parametrize("V,k", [(32064, 17), (8, 9), (32064, -1)])
+def test_uncertainty_route_refuses_a_table_it_cannot_make(V, k):
+    with pytest.raises(ValueError, match="top_k"):
+        k2.uncertainty_route(576, V, k)
+
+
+def test_uncertainty_constants_are_the_sources():
+    """What the wrapper plans and sizes its scratch with is what the kernels
+    are built with."""
+    src = "uncertainty.cu"
+    assert k2.RES_MAX_SPAN == _constant(src, "kResMaxSpan")
+    assert k2.RES_MAX_SPAN == _constant(src, "kResThreads") * _constant(src, "kResCols")
+    assert k2.MAX_TOP_K == _constant(src, "kMaxTopK")
+    assert k2.ROWS_PER_BLOCK == _constant(src, "kRowsPerBlock")
+    assert k2.C_PIECES == _constant(src, "kCrossThreads") // 32
+    # a row and the next one's first chunks fit the ring; the ring fits a block
+    chunk, slots = _constant(src, "kChunk"), _constant(src, "kSlots")
+    assert chunk == 4 * _constant(src, "kResThreads")
+    assert k2.RES_MAX_SPAN // chunk < slots and slots * chunk * 4 + 8192 <= 232448
+    assert k2.MAX_TOP_K <= 16  # the k-th largest of the sixteen warps' maxima
+
+
+@pytest.mark.parametrize("B", [1, 2, 5, 200])
+@pytest.mark.parametrize("L", [1, 32, 576, 577, 2928])
+def test_uncertainty_row_plan_covers_every_row_once(B, L):
+    """Block g of an image walks rows g, g + G, ...: every row of the image
+    once, no block without a row, at most 132 blocks over all images (never
+    the card's own count), the blocks' loads within a row of each other."""
+    G = k2.row_plan(B, L)
+    assert 1 <= G <= L and (B * G <= k2.RES_BLOCKS or G == 1)
+    walks = [list(k2.block_rows(g, G, L)) for g in range(G)]
+    assert sorted(r for w in walks for r in w) == list(range(L))
+    assert all(walks) and max(map(len, walks)) - min(map(len, walks)) <= 1
+    # the kernels derive a block's row count as (L - g + G - 1) // G
+    assert [len(w) for w in walks] == [(L - g + G - 1) // G for g in range(G)]
+
+
+def test_uncertainty_row_plan_at_the_model_shapes():
+    assert k2.row_plan(1, 576) == 132 and k2.row_plan(1, 2928) == 132
+    assert k2.row_plan(2, 576) == 66 and k2.row_plan(1, 32) == 32
+
+
+@pytest.mark.parametrize("V,rows", [(32064, 5), (32001, 9), (32763, 6), (130, 7), (3, 11)])
+def test_uncertainty_copy_spans_hold_each_row(V, rows):
+    """A model of ``row_span`` and the producer's copies: each row is copied
+    as the 16-byte-aligned span around it, in chunks; every copy starts and
+    ends on the 16-byte grid inside the tensor, the floats past the grid's
+    last boundary come one by one, and column v of the row lies at float
+    shift + v of the span."""
+    chunk = _constant("uncertainty.cu", "kChunk")
+    total = rows * V
+    x = np.arange(total, dtype=np.float32)
+    total4 = total & ~3
+    for row in range(rows):
+        e0 = row * V
+        shift = e0 & 3
+        a0, span = e0 - shift, (shift + V + 3) & ~3
+        chunks = -(-span // chunk)
+        assert span <= k2.RES_MAX_SPAN and chunks * chunk >= span
+        got = np.full(chunks * chunk, np.nan, dtype=np.float32)
+        for c in range(chunks):
+            src = a0 + c * chunk
+            end = src + min(chunk, span - c * chunk)
+            if end > total4:
+                for e in range(max(src, total4), total):
+                    got[c * chunk + e - src] = x[e]
+                end = max(src, total4)
+            assert src % 4 == 0 and end % 4 == 0 and end <= total
+            got[c * chunk:c * chunk + end - src] = x[src:end]
+        np.testing.assert_array_equal(got[shift:shift + V], x[e0:e0 + V])
+
+
+def _candidates(row, k, threads=512):
+    """A model of the resident kernel's top-k threshold for one row: thread t
+    of 512 holds columns 2048 c + 4 t .. + 3 of every chunk c; tau is the
+    larger of (the largest over the 16 warps of a warp's k-th largest thread
+    max) and (the k-th largest of the warps' maxima); the candidates are the
+    columns with a logit >= tau."""
+    V = row.shape[0]
+    padded = np.full(-(-V // (4 * threads)) * 4 * threads, -np.inf, dtype=np.float32)
+    padded[:V] = row
+    thread_max = padded.reshape(-1, threads, 4).max(axis=(0, 2))
+    warps = -np.sort(-thread_max.reshape(16, 32), axis=1)
+    tau = max(warps[:, k - 1].max(), -np.sort(-warps[:, 0])[k - 1])
+    return np.flatnonzero(row >= tau)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+@pytest.mark.parametrize("V", [32064, 32001, 512, 128])
+def test_uncertainty_candidates_hold_the_top_k(rng, V, k):
+    """The logits >= tau always include the top-k under (value descending,
+    index ascending), ties planted at the threshold included, and for logits
+    like a bf16 head's they are few: far under the kernel's buffer, whose
+    overflow takes the slow path."""
+    cap = _constant("uncertainty.cu", "kCandCap")
+    for trial in range(4):
+        row = torch.from_numpy(3 * rng.normal(size=V).astype(np.float32)).bfloat16().float().numpy()
+        if trial == 1:
+            row[[7, V // 2, V - 1]] = row.max()  # the maximum three times
+        if trial == 2:
+            row[::3] = np.sort(row)[-k]  # thousands of logits tied at the k-th value
+        cand = _candidates(row, k)
+        order = np.lexsort((np.arange(V), -row))[:k]
+        assert set(order) <= set(cand)
+        ranked = cand[np.lexsort((cand, -row[cand]))][:k]
+        np.testing.assert_array_equal(ranked, order)
+        np.testing.assert_array_equal(
+            ranked, k2.exact_top_k_ids(torch.from_numpy(row)[None], k)[0].numpy())
+        if trial != 2 and V >= 512:
+            assert len(cand) <= cap // 2
+        if trial == 2 and V >= 32001:
+            assert len(cand) > cap  # this row takes the kernel's slow path
+
+
+# --- K4: the route ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "D,aligned,route",
+    [(128, True, "row128"), (128, False, "scalar"), (64, True, "scalar"), (96, True, "scalar"),
+     (256, True, "scalar")],
+)
+def test_cache_append_route(D, aligned, route):
+    assert k4.append_route(D, aligned) == route
+
+
+def test_cache_append_constants_are_the_sources():
+    assert k4.ROW_HEAD_DIM == _constant("cache_append.cu", "kRowD")
+    # a lane holds four values of the row: 32 lanes a head dim of 128
+    assert _constant("cache_append.cu", "kRowD") == 4 * 32
 
 
 # --- the ctypes table against the C entries --------------------------------------
