@@ -58,6 +58,13 @@ Phases, each fatal on failure:
    LLaVA-v1.6-Mistral-7B width and depth with synthetic bf16 weights and
    one 640 x 480 image (5 tiles, 2340 of 2928 visual slots real), whose
    2947-token prefill runs K5 in every layer (K1 at G=4, K2 with ``valid``).
+6. The CHAIR CLI (``chair_cli``): LLaVA-1.5-7B at full width and depth,
+   synthetic bf16 weights written as an HF checkpoint (published
+   config.json, three .safetensors shards and their index), loaded by the
+   CLI's ``build_engine`` with its load time, host peak RSS and device
+   peak, leaves checked bit-equal; two images captioned through the CLI
+   with the default Dropout Decoding arm and ``--original``, each caption
+   equal to ``generate`` called directly, K1 and K2 launches counted.
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -1221,6 +1228,414 @@ def end_to_end() -> dict:
     }
 
 
+# llava-hf/llava-1.5-7b-hf's config.json as published (the core dims of its
+# Vicuna-7B text_config are transformers' LlamaConfig defaults, left out)
+LLAVA_7B_HF_CONFIG = {
+    "architectures": ["LlavaForConditionalGeneration"],
+    "ignore_index": -100,
+    "image_token_index": 32000,
+    "model_type": "llava",
+    "pad_token_id": 32001,
+    "projector_hidden_act": "gelu",
+    "text_config": {
+        "_name_or_path": "lmsys/vicuna-7b-v1.5",
+        "architectures": ["LlamaForCausalLM"],
+        "max_position_embeddings": 4096,
+        "model_type": "llama",
+        "rms_norm_eps": 1e-05,
+        "torch_dtype": "float16",
+        "vocab_size": 32064,
+    },
+    "tie_word_embeddings": False,
+    "torch_dtype": "float16",
+    "transformers_version": "4.36.0.dev0",
+    "vision_config": {
+        "hidden_size": 1024,
+        "image_size": 336,
+        "intermediate_size": 4096,
+        "model_type": "clip_vision_model",
+        "num_attention_heads": 16,
+        "num_hidden_layers": 24,
+        "patch_size": 14,
+        "projection_dim": 768,
+        "vocab_size": 32000,
+    },
+    "vision_feature_layer": -2,
+    "vision_feature_select_strategy": "default",
+    "vocab_size": 32064,
+}
+# and its preprocessor_config.json (CLIPImageProcessor at 336 px)
+LLAVA_7B_HF_PREPROCESSOR = {
+    "crop_size": {"height": 336, "width": 336},
+    "do_center_crop": True,
+    "do_convert_rgb": True,
+    "do_normalize": True,
+    "do_rescale": True,
+    "do_resize": True,
+    "image_mean": [0.48145466, 0.4578275, 0.40821073],
+    "image_processor_type": "CLIPImageProcessor",
+    "image_std": [0.26862954, 0.26130258, 0.27577711],
+    "processor_class": "LlavaProcessor",
+    "resample": 3,
+    "rescale_factor": 0.00392156862745098,
+    "size": {"shortest_edge": 336},
+}
+
+
+def _hf_tensors(cfg, params) -> list:
+    """The inverse of ``models.llava.params_from_hf``: [(HF name, shape,
+    make)] in the real checkpoint's (pre-4.52) key layout, ``make()``
+    giving the tensor on the params' device.  Vision tower first, then the
+    LM layer by layer, as the published shards are ordered."""
+    vc, tc = cfg.vision, cfg.text
+    vis, proj, lm = params
+    out = []
+
+    def add(name, make):
+        out.append((name, tuple(make().shape), make))  # views: no copy for the shape
+
+    v = "vision_tower.vision_model."
+    D, P = vc.hidden_size, vc.patch_size
+    add(v + "embeddings.class_embedding", lambda: vis["class_embedding"])
+    add(v + "embeddings.patch_embedding.weight",
+        lambda: vis["patch_embedding"].t().reshape(D, 3, P, P))
+    add(v + "embeddings.position_embedding.weight", lambda: vis["position_embedding"])
+    add(v + "pre_layrnorm.weight", lambda: vis["pre_ln_w"])
+    add(v + "pre_layrnorm.bias", lambda: vis["pre_ln_b"])
+    vl = vis["layers"]
+    for i in range(vc.num_hidden_layers):
+        e = f"{v}encoder.layers.{i}."
+        for hf, ours in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            add(f"{e}{hf}.weight", lambda o=ours, i=i: vl[f"{o}_w"][i])
+            add(f"{e}{hf}.bias", lambda o=ours, i=i: vl[f"{o}_b"][i])
+        for hf, ours in (("self_attn.q_proj", "q"), ("self_attn.k_proj", "k"),
+                         ("self_attn.v_proj", "v"), ("self_attn.out_proj", "out"),
+                         ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            add(f"{e}{hf}.weight", lambda o=ours, i=i: vl[f"{o}_w"][i].t())
+            add(f"{e}{hf}.bias", lambda o=ours, i=i: vl[f"{o}_b"][i])
+    add(v + "post_layernorm.weight", lambda: torch.ones_like(vis["pre_ln_w"]))  # unused by LLaVA
+    add(v + "post_layernorm.bias", lambda: torch.zeros_like(vis["pre_ln_b"]))
+    for j in (1, 2):
+        add(f"multi_modal_projector.linear_{j}.weight", lambda j=j: proj[f"fc{j}_w"].t())
+        add(f"multi_modal_projector.linear_{j}.bias", lambda j=j: proj[f"fc{j}_b"])
+    add("language_model.model.embed_tokens.weight", lambda: lm["embed_tokens"])
+    ll = lm["layers"]
+    for i in range(tc.num_hidden_layers):
+        e = f"language_model.model.layers.{i}."
+        add(e + "input_layernorm.weight", lambda i=i: ll["input_ln"][i])
+        add(e + "post_attention_layernorm.weight", lambda i=i: ll["post_attn_ln"][i])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            add(f"{e}self_attn.{name}.weight", lambda n=name, i=i: ll[n][i].t())
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            add(f"{e}mlp.{name}.weight", lambda n=name, i=i: ll[n][i].t())
+    add("language_model.model.norm.weight", lambda: lm["norm"])
+    add("language_model.lm_head.weight", lambda: lm["lm_head"].t())
+    return out
+
+
+_ST_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32", torch.float16: "F16"}
+
+
+def write_hf_checkpoint(path, cfg, params, config: dict, shards: int = 3) -> int:
+    """``params`` written as an HF LLaVA checkpoint directory: ``config``
+    as config.json, the 336 px preprocessor_config.json, and the tensors in
+    ``shards`` .safetensors files (the format: an 8-byte little-endian
+    header length, a JSON header padded to 8 bytes, the raw bytes) with a
+    ``model.safetensors.index.json``.  One tensor is on the host at a time.
+    Returns the bytes written."""
+    import numpy as np
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=2)
+    px = cfg.vision.image_size  # 336: the published file
+    with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
+        json.dump({**LLAVA_7B_HF_PREPROCESSOR, "crop_size": {"height": px, "width": px},
+                   "size": {"shortest_edge": px}}, f, indent=2)
+    tensors = _hf_tensors(cfg, params)
+    dtype = params.lm["embed_tokens"].dtype
+    item = torch.empty((), dtype=dtype).element_size()
+    sizes = [int(np.prod(shape)) * item for _, shape, _ in tensors]
+    # cut into shards of about equal bytes, in order
+    bounds, acc, total = [0], 0, sum(sizes)
+    for k, size in enumerate(sizes):
+        acc += size
+        if acc >= total * len(bounds) / shards and len(bounds) < shards:
+            bounds.append(k + 1)
+    bounds.append(len(tensors))
+    weight_map, written = {}, 0
+    for s in range(shards):
+        name = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        part = range(bounds[s], bounds[s + 1])
+        header, offset = {"__metadata__": {"format": "pt"}}, 0
+        for k in part:
+            key, shape, _ = tensors[k]
+            header[key] = {"dtype": _ST_NAMES[dtype], "shape": list(shape),
+                           "data_offsets": [offset, offset + sizes[k]]}
+            offset += sizes[k]
+            weight_map[key] = name
+        blob = json.dumps(header).encode()
+        blob += b" " * (-len(blob) % 8)
+        with open(os.path.join(path, name), "wb") as f:
+            f.write(len(blob).to_bytes(8, "little"))
+            f.write(blob)
+            for k in part:
+                t = tensors[k][2]().to(dtype).contiguous().cpu()
+                f.write(t.reshape(-1).view(torch.uint8).numpy().data)
+        written += 8 + len(blob) + offset
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=2)
+    return written
+
+
+class _StandInTokenizer:
+    """The ``transformers`` tokenizer surface ``VlmProcessor`` uses, over a
+    fixed word list: a prompt word's id is a hash of it, "<image>" is
+    LLaVA's image token, and an id decodes to a word of ``WORDS``."""
+
+    WORDS = ("a", "dog", "sits", "on", "the", "chair", "next", "to", "table", "with", "cat",
+             "and", "person", "car", "near", "bed", "in", "room.")
+    eos_token_id = 2
+
+    def __init__(self, image_token_index: int, vocab: int):
+        self.image, self.vocab = image_token_index, vocab
+
+    def __call__(self, text, return_tensors="np"):
+        import zlib
+
+        import numpy as np
+
+        ids = [1] + [
+            self.image if w == "<image>" else 3 + zlib.crc32(w.encode()) % (min(self.vocab, 32000) - 3)
+            for w in text.split()
+        ]
+        return {"input_ids": np.array([ids], np.int64)}
+
+    def decode(self, ids, skip_special_tokens=True):
+        return " ".join(self.WORDS[int(i) % len(self.WORDS)] for i in ids
+                        if not (skip_special_tokens and int(i) < 3))
+
+
+def _rss_gib() -> float:
+    """This process's resident set (``VmRSS``), GiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 2**20
+    raise KeyError("VmRSS")
+
+
+class _RssPeak:
+    """The largest ``VmRSS`` seen while the block runs, read every 10 ms by
+    a thread (not every kernel keeps a ``VmHWM``)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = _rss_gib(), threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.01):
+                self.peak = max(self.peak, _rss_gib())
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gib())
+
+
+def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_new: int = 16,
+              check_counts=None) -> dict:
+    """The port's CHAIR CLI on a real checkpoint layout: LLaVA-1.5-7B at full
+    width and depth with synthetic bf16 weights, written in the HF sharded
+    layout (the published config.json, three .safetensors shards and the
+    index) under ``.smoke_ckpt/``, loaded through the CLI's own
+    ``build_engine`` (no cache), leaves checked bit-equal to what was
+    written; then the CLI captions two images with the default Dropout
+    Decoding arm and with ``--original`` (``max_new`` tokens, no eos), a
+    stand-in tokenizer inside the real ``VlmProcessor`` and
+    ``ClipImagePreprocessor``: ``main`` whole where PIL and nltk are
+    importable, else ``run_engine`` + ``emit_caption`` per image.  Every
+    caption must equal the same engine's ``generate`` called directly, and
+    the CLI's run launches K1 32 times a step on ``--original`` and 64 on the
+    default arm, K2 once a caption.  ``cfg`` / ``config`` / ``device`` make a
+    narrow rehearsal on the CPU possible.  Returns the phase's numbers."""
+    import dataclasses
+    import importlib.util
+    import resource
+    import shutil
+
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.cli import chair_test as cli
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig, LlavaConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+    from dropoutdecoding_tpu_torch.utils.processor import ClipImagePreprocessor, VlmProcessor
+
+    cfg = cfg or LlavaConfig()
+    config = config or LLAVA_7B_HF_CONFIG
+    if LlavaConfig.from_hf_dict(config) != cfg:
+        raise AssertionError("config.json does not describe the model written")
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, ".smoke_ckpt")  # listed in .gitignore
+    cuda = device == "cuda"
+    record = {}
+    try:
+        # --- write the checkpoint, keep a sample of its leaves ---
+        params = synthetic_llava_params(cfg, device, torch.bfloat16, seed=0)
+        L = cfg.text.num_hidden_layers
+        ll = params.lm["layers"]
+        sample = {"embed_tokens": params.lm["embed_tokens"].clone(),
+                  "lm_head": params.lm["lm_head"].clone(),
+                  "patch_embedding": params.vision["patch_embedding"].clone()}
+        for i in (0, L - 1):
+            for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+                sample[f"{n}[{i}]"] = ll[n][i].clone()
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(ckpt, cfg, params, config)
+        write_s = time.perf_counter() - t0
+        del params, ll
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # --- load through the CLI ---
+        args = cli.build_parser().parse_args(
+            ["--coco-data-dir", "unused", "--model-path", ckpt, "--image-numbers", "2"])
+        rss0 = _rss_gib()
+        t0 = time.perf_counter()
+        with _RssPeak() as rss:
+            engine = cli.build_engine(args, device, cache=False)
+            if cuda:
+                torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        host_peak = rss.peak
+        dev_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else float("nan")
+        lm, ll = engine.params.lm, engine.params.lm["layers"]
+        E, H, KH, Dh = cfg.text.hidden_size, cfg.text.num_attention_heads, \
+            cfg.text.num_key_value_heads, cfg.text.head_dim
+        spans = {"q_proj": (0, H * Dh), "k_proj": (H * Dh, (H + KH) * Dh),
+                 "v_proj": ((H + KH) * Dh, (H + 2 * KH) * Dh)}
+        got = {"embed_tokens": lm["embed_tokens"], "lm_head": lm["lm_head"],
+               "patch_embedding": engine.params.vision["patch_embedding"]}
+        for i in (0, L - 1):
+            for n, (a, b) in spans.items():
+                got[f"{n}[{i}]"] = ll["qkv_proj"][i][:, a:b]  # build_engine fuses q/k/v
+            got[f"o_proj[{i}]"] = ll["o_proj"][i]
+        unequal = [k for k in sample if not torch.equal(got[k], sample[k])]
+        print(f"chair_cli: wrote {nbytes / 2**30:.2f} GiB in 3 shards in {write_s:.1f} s; "
+              f"build_engine {load_s:.1f} s, host RSS {rss0:.2f} GiB before, peak {host_peak:.2f} "
+              f"GiB during it (ru_maxrss of the run "
+              f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB), device peak "
+              f"{dev_peak:.2f} GiB; {len(sample)} leaves compared, bit-equal: {not unequal}")
+        if unequal:
+            raise AssertionError(f"chair_cli: loaded leaves differ from the written ones: {unequal}")
+        del got, sample, lm, ll
+
+        # --- caption through the CLI ---
+        tok = _StandInTokenizer(cfg.image_token_index, cfg.text.vocab_size)
+        processor = VlmProcessor(tok, ClipImagePreprocessor.from_checkpoint(ckpt))
+        whole = all(importlib.util.find_spec(m) for m in ("PIL", "nltk"))
+        print("chair_cli: " + ("main whole (PIL and nltk importable)" if whole else
+                                "run_engine + emit_caption per image (nltk not importable)"))
+        from PIL import Image
+
+        rng = np.random.default_rng(17)
+        images = [Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8))
+                  for _ in range(2)]
+        files = [f"COCO_val2014_{i:012d}.jpg" for i in (139, 285)]
+        coco = os.path.join(ckpt, "coco")
+        if whole:  # main reads JPEGs: the direct runs read the same decoded pixels
+            _write_coco(coco, files, images)
+            images = [Image.open(os.path.join(coco, "val2014", f)).convert("RGB") for f in files]
+        gen = GenerationConfig(max_new_tokens=max_new, eos_token_id=-1, pad_token_id=0)
+        wrappers = _wrappers()
+        make_engine = cli.make_engine
+        for arm, extra in (("dropout decoding", []), ("--original", ["--original", "True"])):
+            work = os.path.join(ckpt, "run")
+            shutil.rmtree(work, ignore_errors=True)
+            os.makedirs(work)
+            arm_args = cli.build_parser().parse_args(
+                ["--coco-data-dir", coco, "--model-path", ckpt, "--image-numbers", "2",
+                 "--seed", "0", "--method", "smoke", "--output-dir", os.path.join(work, "out"),
+                 "--sample-save-name", os.path.join(work, "sample.log")] + extra)
+            eng = dataclasses.replace(engine, gen=gen, ensemble=not cli.str2bool(arm_args.original))
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            if whole:
+                cli.make_engine = lambda a, device="cuda": (eng, processor)
+                cwd = os.getcwd()
+                os.chdir(work)  # main writes ./vlm_results and ./results
+                try:
+                    cli.main(arm_args, device=device)
+                finally:
+                    os.chdir(cwd)
+                    cli.make_engine = make_engine
+                (captions,) = [f for f in os.listdir(arm_args.output_dir) if f.startswith("smoke")]
+                captions = os.path.join(arm_args.output_dir, captions)
+            else:
+                captions = os.path.join(work, "captions.jsonl")
+                for img_file, image in zip(files, images):
+                    text = cli.run_engine(eng, processor, "llava-1.5", cli.PROMPTS["llava-1.5"], image)
+                    cli.emit_caption(captions, "llava-1.5", img_file, text)
+            if cuda:
+                torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            direct = os.path.join(work, "direct.jsonl")
+            for img_file, image in zip(files, images):
+                inputs = processor(cli.PROMPTS["llava-1.5"], image)
+                result = eng.generate(inputs["input_ids"], inputs["pixel_values"])
+                cli.emit_caption(direct, "llava-1.5", img_file,
+                                 processor.decode(result.tokens[0][: result.num_tokens[0]]))
+            recs = sorted((json.loads(line) for line in open(captions)), key=lambda r: r["image_id"])
+            same = recs == [json.loads(line) for line in open(direct)]  # files are in id order
+            steps = len(files) * (max_new - 1)
+            want = {"K1": steps * L * (2 if eng.ensemble else 1), "K2": len(files),
+                    "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+            print(f"chair_cli {arm}: {len(recs)} captions in {cli_s:.2f} s through the CLI, equal to "
+                  f"generate called directly: {same}; launches {counts} (want {want}); "
+                  f"first caption: {recs[0]['caption']!r}")
+            if not same or len(recs) != len(files):
+                raise AssertionError(f"chair_cli {arm}: CLI captions differ from generate's")
+            (check_counts or _check_counts)(f"chair_cli {arm}", counts, want)
+            record[arm] = {"captions_s": cli_s, "launches": counts}
+        record.update(write_s=write_s, load_s=load_s, host_peak_gib=host_peak,
+                      device_peak_gib=dev_peak, whole_main=whole)
+        return record
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _check_counts(label: str, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+
+
+def _write_coco(data_dir: str, files: list, images: list) -> None:
+    """A COCO directory of ``images`` as ``files`` (JPEG) with caption and
+    instance annotations, as ``load_coco_data`` and ``chair_eval`` read it."""
+    os.makedirs(os.path.join(data_dir, "val2014"), exist_ok=True)
+    os.makedirs(os.path.join(data_dir, "annotations"), exist_ok=True)
+    entries = []
+    for name, image in zip(files, images):
+        image.save(os.path.join(data_dir, "val2014", name), "JPEG")
+        entries.append({"id": int(name[-10:-4]), "file_name": name})
+    caps = {"images": entries, "annotations": [
+        {"id": 10 * e["id"] + j, "image_id": e["id"], "caption": f"a dog on a chair {j}"}
+        for e in entries for j in range(2)]}
+    inst = {"images": entries, "categories": [{"id": 1, "name": "dog"}, {"id": 2, "name": "chair"}],
+            "annotations": [{"id": 900 + k, "image_id": e["id"], "category_id": 1 + k % 2}
+                            for k, e in enumerate(entries)]}
+    for name, d in (("captions_val2014.json", caps), ("instances_val2014.json", inst)):
+        with open(os.path.join(data_dir, "annotations", name), "w") as f:
+            json.dump(d, f)
+
+
 KERNELS = {
     "K1": {
         "name": "ensemble_decode_attention",
@@ -1277,6 +1692,8 @@ def main() -> int:
     small_reference("int4")
     small_reference("next")
     launches = end_to_end()
+    cli_record = chair_cli()
+    print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,56 @@ import torch
 from ..ops.attention import prefill_attention
 from ..ops.basic import act_fn, layer_norm
 from ..utils.config import ClipVisionConfig
+from ..utils.hf_io import hf_leaf, hf_stacked
+
+
+def params_from_hf(
+    cfg: ClipVisionConfig,
+    sd: dict,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+    prefix: str = "vision_model.",
+) -> dict:
+    """An HF CLIPVisionModel state dict -> the tower's params on ``device``
+    in ``dtype`` (JAX ``models/clip_vit.py:57``): linear weights [out, in]
+    -> [in, out], layers stacked, and the patch conv [D, 3, P, P] as the
+    [3*P*P, D] matrix ``patchify`` multiplies."""
+
+    def leaf(name, transpose=False):
+        return hf_leaf(sd, prefix + name, dtype, device, transpose)
+
+    def stack(fmt, transpose=False):
+        names = [prefix + fmt.format(i) for i in range(cfg.num_hidden_layers)]
+        return hf_stacked(sd, names, dtype, device, transpose)
+
+    conv = torch.as_tensor(sd[prefix + "embeddings.patch_embedding.weight"]).to(device)
+    patch_w = conv.reshape(conv.shape[0], -1).t().to(dtype).contiguous()
+    attn, mlp = "encoder.layers.{}.self_attn.", "encoder.layers.{}.mlp."
+    return {
+        "class_embedding": leaf("embeddings.class_embedding"),
+        "patch_embedding": patch_w,
+        "position_embedding": leaf("embeddings.position_embedding.weight"),
+        "pre_ln_w": leaf("pre_layrnorm.weight"),
+        "pre_ln_b": leaf("pre_layrnorm.bias"),
+        "layers": {
+            "ln1_w": stack("encoder.layers.{}.layer_norm1.weight"),
+            "ln1_b": stack("encoder.layers.{}.layer_norm1.bias"),
+            "ln2_w": stack("encoder.layers.{}.layer_norm2.weight"),
+            "ln2_b": stack("encoder.layers.{}.layer_norm2.bias"),
+            "q_w": stack(attn + "q_proj.weight", True),
+            "q_b": stack(attn + "q_proj.bias"),
+            "k_w": stack(attn + "k_proj.weight", True),
+            "k_b": stack(attn + "k_proj.bias"),
+            "v_w": stack(attn + "v_proj.weight", True),
+            "v_b": stack(attn + "v_proj.bias"),
+            "out_w": stack(attn + "out_proj.weight", True),
+            "out_b": stack(attn + "out_proj.bias"),
+            "fc1_w": stack(mlp + "fc1.weight", True),
+            "fc1_b": stack(mlp + "fc1.bias"),
+            "fc2_w": stack(mlp + "fc2.weight", True),
+            "fc2_b": stack(mlp + "fc2.bias"),
+        },
+    }
 
 
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:

@@ -41,6 +41,7 @@ from ..ops.cuda_decode_attention import (
 from ..ops.cuda_flash_prefill import flash_prefill_attention
 from ..ops.cuda_int4_matmul import int4_matmul
 from ..utils.config import LlamaConfig
+from ..utils.hf_io import hf_leaf, hf_stacked
 from ..utils.quantize import quantize_kv
 
 _W8A8 = "w8a8 projections are not ported yet (ROADMAP Queue 1 item 12)"
@@ -55,6 +56,43 @@ class KVCache(NamedTuple):
 
     k: torch.Tensor | dict
     v: torch.Tensor | dict
+
+
+def params_from_hf(
+    cfg: LlamaConfig,
+    sd: dict,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+    prefix: str = "",
+) -> dict:
+    """An HF LlamaForCausalLM (or Mistral) state dict -> the decoder's
+    params on ``device`` in ``dtype`` (JAX ``models/llama.py:309``): linear
+    weights [out, in] -> [in, out], layers stacked; without an
+    ``lm_head.weight`` the head is the tied embedding, transposed."""
+
+    def stack(fmt, transpose=False):
+        names = [f"{prefix}model.layers.{i}.{fmt}" for i in range(cfg.num_hidden_layers)]
+        return hf_stacked(sd, names, dtype, device, transpose)
+
+    head = prefix + "lm_head.weight"
+    if head not in sd:  # tied embeddings
+        head = prefix + "model.embed_tokens.weight"
+    return {
+        "embed_tokens": hf_leaf(sd, prefix + "model.embed_tokens.weight", dtype, device),
+        "layers": {
+            "input_ln": stack("input_layernorm.weight"),
+            "post_attn_ln": stack("post_attention_layernorm.weight"),
+            "q_proj": stack("self_attn.q_proj.weight", True),
+            "k_proj": stack("self_attn.k_proj.weight", True),
+            "v_proj": stack("self_attn.v_proj.weight", True),
+            "o_proj": stack("self_attn.o_proj.weight", True),
+            "gate_proj": stack("mlp.gate_proj.weight", True),
+            "up_proj": stack("mlp.up_proj.weight", True),
+            "down_proj": stack("mlp.down_proj.weight", True),
+        },
+        "norm": hf_leaf(sd, prefix + "model.norm.weight", dtype, device),
+        "lm_head": hf_leaf(sd, head, dtype, device, transpose=True),
+    }
 
 
 def empty_cache(

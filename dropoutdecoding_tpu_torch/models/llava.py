@@ -1,12 +1,15 @@
-"""LLaVA-1.5 composition: CLIP tower + MLP projector + Llama LM, and the
-image/text merge (port of ``dropoutdecoding_tpu/models/llava.py``)."""
+"""LLaVA-1.5 composition: CLIP tower + MLP projector + Llama LM, the
+image/text merge, and the loading of an HF checkpoint (port of
+``dropoutdecoding_tpu/models/llava.py``)."""
 from __future__ import annotations
 
+import json
+import os
 from typing import NamedTuple
 
 import torch
 
-from . import clip_vit, projector
+from . import clip_vit, llama, projector
 from ..utils.config import LlavaConfig
 
 
@@ -14,6 +17,73 @@ class LlavaParams(NamedTuple):
     vision: dict
     projector: dict
     lm: dict
+
+
+def _normalize_hf_keys(sd: dict) -> dict:
+    """Accept both pre-4.52 ('language_model.model.*') and post-4.52
+    ('model.language_model.*') HF llava key layouts."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("model.language_model."):
+            k = "language_model.model." + k[len("model.language_model.") :]
+        elif k.startswith("model.vision_tower."):
+            k = "vision_tower." + k[len("model.vision_tower.") :]
+        elif k.startswith("model.multi_modal_projector."):
+            k = "multi_modal_projector." + k[len("model.multi_modal_projector.") :]
+        elif k == "lm_head.weight":
+            k = "language_model.lm_head.weight"
+        out[k] = v
+    return out
+
+
+def params_from_hf(
+    cfg: LlavaConfig,
+    sd: dict,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+) -> LlavaParams:
+    """An HF LlavaForConditionalGeneration state dict (either key layout)
+    -> LlavaParams on ``device`` in ``dtype``, built leaf by leaf (JAX
+    ``models/llava.py:59``)."""
+    sd = _normalize_hf_keys(sd)
+    return LlavaParams(
+        vision=clip_vit.params_from_hf(
+            cfg.vision, sd, dtype, device, prefix="vision_tower.vision_model."
+        ),
+        projector=projector.params_from_hf(sd, dtype, device),
+        lm=llama.params_from_hf(cfg.text, sd, dtype, device, prefix="language_model."),
+    )
+
+
+def load(
+    model_dir: str,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+    cache: bool = True,
+):
+    """Config and weights of an HF checkpoint directory -> (LlavaConfig,
+    LlavaParams on ``device``), through the converted-params cache
+    (``utils/cache.py``) unless ``cache`` is off."""
+    return load_checkpoint(
+        model_dir, LlavaConfig, params_from_hf, LlavaParams, dtype, device, cache
+    )
+
+
+def load_checkpoint(model_dir, config_cls, from_hf, params_cls, dtype, device, cache):
+    """``load`` of either family: ``config_cls.from_hf_dict`` of the
+    directory's config.json, and ``from_hf`` of its state dict as a
+    ``params_cls``."""
+    from ..utils.cache import load_or_convert
+    from ..utils.hf_io import load_state_dict
+
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = config_cls.from_hf_dict(json.load(f))
+
+    def convert():
+        return from_hf(cfg, load_state_dict(model_dir), dtype, device)._asdict()
+
+    tree = load_or_convert(model_dir, convert, dtype, device, enable=cache)
+    return cfg, params_cls(**tree)
 
 
 def image_features(

@@ -19,8 +19,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .llava import image_features
+from . import clip_vit, llama, projector
+from .llava import _normalize_hf_keys, image_features, load_checkpoint
 from ..utils.config import LlavaNextConfig
+from ..utils.hf_io import hf_leaf
 
 
 class LlavaNextParams(NamedTuple):
@@ -28,6 +30,40 @@ class LlavaNextParams(NamedTuple):
     projector: dict
     image_newline: torch.Tensor  # [D]
     lm: dict
+
+
+def params_from_hf(
+    cfg: LlavaNextConfig,
+    sd: dict,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+) -> LlavaNextParams:
+    """An HF LlavaNextForConditionalGeneration state dict (either key
+    layout; ``image_newline`` under either key) -> LlavaNextParams on
+    ``device`` in ``dtype`` (JAX ``models/llavanext.py:121``)."""
+    sd = _normalize_hf_keys(sd)
+    newline = "image_newline" if "image_newline" in sd else "model.image_newline"
+    return LlavaNextParams(
+        vision=clip_vit.params_from_hf(
+            cfg.vision, sd, dtype, device, prefix="vision_tower.vision_model."
+        ),
+        projector=projector.params_from_hf(sd, dtype, device),
+        image_newline=hf_leaf(sd, newline, dtype, device),
+        lm=llama.params_from_hf(cfg.text, sd, dtype, device, prefix="language_model."),
+    )
+
+
+def load(
+    model_dir: str,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cuda",
+    cache: bool = True,
+):
+    """Config and weights of an HF LLaVA-NeXT checkpoint directory ->
+    (LlavaNextConfig, LlavaNextParams on ``device``), as ``llava.load``."""
+    return load_checkpoint(
+        model_dir, LlavaNextConfig, params_from_hf, LlavaNextParams, dtype, device, cache
+    )
 
 
 # ---------------------------------------------------------------------------

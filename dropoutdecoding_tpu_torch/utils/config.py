@@ -34,15 +34,21 @@ class LlamaConfig:
 
     @classmethod
     def from_hf_dict(cls, d: dict) -> "LlamaConfig":
-        heads = d["num_attention_heads"]
+        """A core dim the dict leaves out (vocab, width, FFN, depth, heads)
+        takes transformers' LlamaConfig / MistralConfig default, as
+        ``from_pretrained`` does: the published llava-hf configs
+        (llava-1.5-7b-hf, llava-v1.6-mistral-7b-hf) leave them out of their
+        ``text_config``.  The JAX package's copy requires them."""
+        heads = d.get("num_attention_heads", 32)
+        hidden = d.get("hidden_size", 4096)
         return cls(
-            vocab_size=d["vocab_size"],
-            hidden_size=d["hidden_size"],
-            intermediate_size=d["intermediate_size"],
-            num_hidden_layers=d["num_hidden_layers"],
+            vocab_size=d.get("vocab_size", 32000),
+            hidden_size=hidden,
+            intermediate_size=d.get("intermediate_size", 11008),
+            num_hidden_layers=d.get("num_hidden_layers", 32),
             num_attention_heads=heads,
             num_key_value_heads=d.get("num_key_value_heads", heads),
-            head_dim=d.get("head_dim") or d["hidden_size"] // heads,
+            head_dim=d.get("head_dim") or hidden // heads,
             max_position_embeddings=d.get("max_position_embeddings", 4096),
             rms_norm_eps=d.get("rms_norm_eps", 1e-5),
             rope_theta=d.get("rope_theta", 10000.0),

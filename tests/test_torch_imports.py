@@ -2,7 +2,9 @@
 with the JAX package's field by field, and ``chip_smoke.py`` refuses to run
 without a GPU."""
 import dataclasses
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -14,14 +16,24 @@ from dropoutdecoding_tpu_torch.utils import config as torch_config
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _IMPORT_ALL = """
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 import dropoutdecoding_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "dropoutdecoding_tpu.")))
-print(len(names), "dropoutdecoding_tpu_torch.ops.cuda_int4_matmul" in names, leaked)
+print(json.dumps([names, leaked]))
 """
+# modules the scan must have imported: one of each layer, the CLI's among them
+EXPECTED_MODULES = [
+    "ops.cuda_int4_matmul", "utils.hf_io", "utils.cache", "utils.processor",
+    "utils.native_image", "engine.trace", "evalsuite.chair", "evalsuite.coco",
+    "evalsuite.text", "evalsuite.throne", "evalsuite.metrics.evalcap",
+    "evalsuite.metrics.meteor", "evalsuite.metrics.spice_lite", "cli.chair_test",
+    "cli.chair2throne",
+]
+# an import statement of JAX or of the JAX package, in any source line
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|dropoutdecoding_tpu(\.|\s|$))", re.M)
 
 
 def _run(args, cwd=ROOT, timeout=120):
@@ -35,10 +47,26 @@ def _run(args, cwd=ROOT, timeout=120):
 def test_port_modules_import_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
-    n, int4, leaked = proc.stdout.strip().split(" ", 2)
-    assert int(n) >= 27  # every module of the port was imported,
-    assert int4 == "True"  # the int4 matmul's among them
-    assert leaked == "[]", f"port modules pulled in {leaked}"
+    names, leaked = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) >= 47  # every module of the port was imported,
+    missing = {f"dropoutdecoding_tpu_torch.{m}" for m in EXPECTED_MODULES} - set(names)
+    assert not missing  # the new ones among them
+    assert leaked == [], f"port modules pulled in {leaked}"
+
+
+def test_no_source_line_imports_jax():
+    """No import of ``jax`` or of the JAX package in any source file of the
+    port or in ``chip_smoke.py``, imported or not (a lazy import inside a
+    function is caught here, not by the scan above)."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "dropoutdecoding_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    assert len(files) >= 48
+    bad = [f for f in files if _FORBIDDEN.search(open(f).read())]
+    assert bad == []
+    assert _FORBIDDEN.search("    from dropoutdecoding_tpu.utils import hf_io")
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert not _FORBIDDEN.search("from dropoutdecoding_tpu_torch.utils import hf_io")
 
 
 @pytest.mark.parametrize(
