@@ -11,9 +11,9 @@ Phases, each fatal on failure:
    nvcc per source, all at once (or reuses the build in
    ``dropoutdecoding_tpu_torch/_build/``).
 3. Kernel vs plain twin at the slice shapes: K1 (ensemble decode attention,
-   M in {1, 3}, H = 32, D = 128, S = 1152 with 620 slots filled, bf16, with
+   M in {1, 3, 4}, H = 32, D = 128, S = 1152 with 620 slots filled, bf16, with
    mask holes that differ by member, at G = 1 and G = 4; the LLaVA-NeXT
-   cache, 2947 of 3504 slots; 16 and 24 query rows a kv group; B = 2 with
+   cache, 2947 of 3504 slots, at M = 3 and 4; 16 and 24 query rows a kv group; B = 2 with
    a fill a row; a member that attends only its own token; fp32; the FMA
    kernel at D = 64; every case one launch, and twice for equal bits), K3
    (the same over an int8 cache with scales in [0.01, 0.03]), K4 (the int8
@@ -31,7 +31,7 @@ Phases, each fatal on failure:
    moves the output by many times the bound: a peaked softmax, and v
    stepped by key tile)
    and K6 (the packed-int4 matmul at the four 7B projection shapes for R =
-   1, 3, 16 and 595 rows in bf16, every call twice for equal bits, the
+   1, 3, 4, 16 and 595 rows in bf16, every call twice for equal bits, the
    decode's on the whole-tile kernel, the prefill's on the wgmma kernel,
    also at R = 17, 64, 128, 600, batched and on a layer's view; fp32 input and output, a ragged shape with g = 32, and K6', one
    layer of a stacked weight read in place).  Times are the median
@@ -45,10 +45,12 @@ Phases, each fatal on failure:
    twins), with the same injected mask draws, with dense weights and a
    dense cache, then int8 fused weights and ``int8_kv=True``, then packed
    int4 fused weights (K6) and ``int8_kv=True``; then a narrow LLaVA-NeXT in
-   fp32 whose merged prompt (1320 tokens) runs K5: tokens must be equal.
-5. End to end, greedy then exact K=3, 32 new tokens each, with every
-   kernel's launch count checked, and that the prefill's K5 and K6 launches
-   took the wgmma kernels: ``LlavaEngine.generate`` at full
+   fp32 whose merged prompt (1320 tokens) runs K5; then the fp32 LLaVA in
+   fused mode (K1 at M = 4) with lagged "epis_kl", the "entropy" text mask
+   and sampling, all three draw streams injected: tokens must be equal.
+5. End to end, greedy, exact K=3 and fused K=3 (one M = 4 forward a step),
+   32 new tokens each, with every kernel's launch count checked exactly, and
+   that the prefill's K5 and K6 launches took the wgmma kernels: ``LlavaEngine.generate`` at full
    LLaVA-1.5-7B width and depth, first with synthetic bf16 weights and a
    bf16 cache (K1, K2), then synthetic int8 fused weights and an int8 cache
    (K2, K3, K4), on both a batch of two requests too, whose rows stop at
@@ -58,6 +60,11 @@ Phases, each fatal on failure:
    LLaVA-v1.6-Mistral-7B width and depth with synthetic bf16 weights and
    one 640 x 480 image (5 tiles, 2340 of 2928 visual slots real), whose
    2947-token prefill runs K5 in every layer (K1 at G=4, K2 with ``valid``).
+   On bf16 the same runs go on through the other arms (``LLAVA_RUNS``):
+   fused and exact "epis_kl", sampling at top-k 1 (tokens equal to the
+   arm's unsampled ones) and at temperature 0.7 / top-p 0.9, and the
+   "logits" and "entropy" text masks; then the per-step cost of the
+   "epis_kl" keep set and of the top-p sort.
 6. The CHAIR CLI (``chair_cli``): LLaVA-1.5-7B at full width and depth,
    synthetic bf16 weights written as an HF checkpoint (published
    config.json, three .safetensors shards and their index), loaded by the
@@ -124,7 +131,7 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 # int8 gets a few times its measured gap: the int8 head rounds its input to
 # bf16, so a hidden value near a rounding boundary can round apart on the
 # two devices.  See CHANGES.md.
-NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "int4": 1e-3, "next": 1e-4}
+NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "int4": 1e-3, "next": 1e-4, "modes": 1e-4}
 
 
 def _card_line() -> str:
@@ -290,6 +297,8 @@ def check_decode_attention() -> dict:
         ("M=3 G=1 bf16", 1, 3, 32, 32, 128, 1152, 620, bf16, False, True),
         ("M=1 G=1 bf16", 1, 1, 32, 32, 128, 1152, 620, bf16, False, True),
         ("M=3 G=1 bf16 dead member", 1, 3, 32, 32, 128, 1152, 620, bf16, True, False),
+        # fused mode's forward at LLaVA-1.5's decode shape: K+1 = 4 members
+        ("M=4 G=1 bf16", 1, 4, 32, 32, 128, 1152, 620, bf16, False, True),
         ("M=3 G=4 bf16", 1, 3, 32, 8, 128, 1152, 620, bf16, False, True),
         # LLaVA-NeXT's decode: 2947 of 3504 slots, the last tile ragged
         ("M=3 G=4 bf16 S=3504", 1, 3, 32, 8, 128, 3504, 2947, bf16, False, True),
@@ -305,6 +314,8 @@ def check_decode_attention() -> dict:
         # the FMA kernel at the narrow model's head dim; S ends one slot into a tile
         ("M=3 G=2 D=64 S=65 fp32", 1, 3, 4, 2, 64, 65, 65, fp32, False, False),
         ("M=3 G=2 D=64 S=65 bf16", 1, 3, 4, 2, 64, 65, 64, bf16, False, False),
+        # fused mode's forward on LLaVA-NeXT: K+1 = 4 members over the ragged cache
+        ("M=4 G=4 bf16 S=3504", 1, 4, 32, 8, 128, 3504, 2947, bf16, False, True),
     ]
     attention = (  # (kernel, wrapper, plain twin, int8 cache, seed base)
         ("K1", ensemble_decode_attention_fused, ensemble_decode_attention, False, 100),
@@ -718,7 +729,8 @@ def check_int4_matmul() -> dict:
     for name, D, E in shapes:
         q4, s4 = packed(D=D, E=E, group=128)
         dense = dequantize_matrix_int4({"q4": q4, "s4": s4}, torch.bfloat16)
-        for R in (1, 3, 16, 595):  # 16: the last row count of the whole-tile kernel
+        # 4: fused mode's decode forward, B·(K+1) rows; 16: the whole-tile kernel's last
+        for R in (1, 3, 4, 16, 595):
             x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
             route = "wgmma" if R == 595 else "tiles"
             rec, got = compare(f"{name} [{R}, {D}] x [{D}, {E}] bf16 ({route})", x, q4, s4, None,
@@ -851,9 +863,12 @@ def small_reference(tier: str) -> None:
     in its fp32 instantiation, g = 128);
     "next" is LLaVA-NeXT with the reference's NeXT settings (no mask
     accumulation, top-10 table, seed 506) and one 150 x 220 image (5 tiles,
-    982 of 1312 visual slots real), whose 1320-token prefill runs K5.  A
-    CPU prefill in fp64 anchors the epis of both sides, so a miss shows
-    which side moved."""
+    982 of 1312 visual slots real), whose 1320-token prefill runs K5;
+    "modes" is the fp32 LLaVA in fused mode (K1 at M = 4) with lagged
+    "epis_kl", the "entropy" text mask and sampling (temperature 0.7, top-k
+    5, top-p 0.9), its greedy run sampled too, with the text-mask draws and
+    the Gumbel noise injected from tables as well.  A CPU prefill in fp64
+    anchors the epis of both sides, so a miss shows which side moved."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
@@ -889,6 +904,9 @@ def small_reference(tier: str) -> None:
         pixels = rng.normal(size=(1, 3, 112, 112)).astype(np.float32)
         images, images64 = (pixels,), (pixels.astype(np.float64),)
         kw = dict(int8_kv=tier in ("int8", "int4"))
+        if tier == "modes":
+            kw = dict(ens=EnsembleConfig(fused_step=True, mask_policy="epis_kl"),
+                      text_mask_policy="entropy")
 
     # x10: std 0.2.  The narrow NeXT takes x5: at x10 one visual token's fp32
     # epis lands 3.6e-3 from the fp64 one on the CPU (1.1e-3 of the scale),
@@ -907,19 +925,32 @@ def small_reference(tier: str) -> None:
     ids = np.array([[1, 17, 29, image, 41, 53, 67, 71, 83]])
     N = Engine(cfg=cfg, params=params, max_len=max_len, **kw).n_visual
     draws = torch.from_numpy(rng.random((16, 1, 3, N), dtype=np.float32))
-    gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1, pad_token_id=0)
+    text_draws = torch.from_numpy(rng.random((16, 1, max_len), dtype=np.float32))
+    noise = -torch.log(-torch.log(torch.from_numpy(
+        rng.random((16, 1, cfg.text.vocab_size), dtype=np.float32)).clamp(min=1e-38)))
+    sampled = dict(do_sample=True, temperature=0.7, top_k=5, top_p=0.9) if tier == "modes" else {}
+    gen = GenerationConfig(max_new_tokens=12, eos_token_id=-1, pad_token_id=0, **sampled)
     out = {}
     flash_prefill_attention.launches = 0
+    K1 = _wrappers()["K1"]
     for device in ("cuda", "cpu"):
         p = Params(*(_to(part, device) for part in params))
         for ensemble in (False, True):
             eng = Engine(
                 cfg=cfg, params=p, gen=gen, max_len=max_len, ensemble=ensemble,
-                uniform=lambda step, row, m, n: draws[step, row, m, :n], **kw,
+                uniform=lambda step, row, m, n: draws[step, row, m, :n],
+                text_uniform=lambda step, row, n: text_draws[step, row, :n],
+                gumbel=lambda step, row, n: noise[step, row, :n], **kw,
             )
             state = eng.prefill(ids, *images)
             valid = state.visual_mask.cpu()
+            K1.launches = 0
             out[device, ensemble] = (eng.generate(ids, *images).tokens, state.epis.cpu()[valid])
+            if tier == "modes" and device == "cuda" and ensemble:  # one M = K + 1 forward a step
+                want = (gen.max_new_tokens - 1) * cfg.text.num_hidden_layers
+                print(f"narrow modes fused: K1 launched {K1.launches} times (want {want})")
+                if K1.launches != want:
+                    raise AssertionError(f"narrow modes: K1 launches {K1.launches} != {want}")
     if tier == "next":  # two prefills per engine on the card, K5 in both layers of each
         want = 2 * 2 * cfg.text.num_hidden_layers
         print(f"narrow {tier}: K5 launched {flash_prefill_attention.launches} times on the card "
@@ -937,7 +968,7 @@ def small_reference(tier: str) -> None:
         # fp32 on two devices: every matmul sums in another order, and epis
         # = -alea - C cancels terms of about log V
         bound = NARROW_EPIS_RTOL[tier] * epis_c.abs().max().item()
-        label = "exact K=3" if ensemble else "greedy"
+        label = ("fused K=3" if tier == "modes" else "exact K=3") if ensemble else "greedy"
         print(
             f"narrow {tier} {label}: card {tok_g[0].tolist()} cpu {tok_c[0].tolist()} "
             f"epis err {err:.2e} (bound {bound:.2e}); from the fp64 prefill: card "
@@ -991,57 +1022,117 @@ def _wrappers() -> dict:
     }
 
 
-def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> dict:
-    """Greedy, then exact K=3: 32 new tokens each through the engine's
-    ``generate(*args)`` (the main path), ``make(ensemble, gen)`` building
-    the engine, with every kernel's launch count set to 0 just before and
-    checked just after; one prefill more, hooked, must launch K2 once and
-    give the top-k table ``exact_top_k_ids`` gives on its logits.  Returns
-    the exact K=3 run's counts."""
+def want_counts(T: int, L: int, forwards: int, S: int, int8_kv: bool, int4: bool) -> dict:
+    """Each kernel's launches in a ``generate`` of ``T`` tokens on an
+    ``L``-layer model whose decode step runs ``forwards`` forwards (greedy
+    and fused 1, exact 2) after a prefill of ``S`` tokens."""
     from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL
+
+    attention = (T - 1) * forwards * L  # every layer of every decode forward
+    return {
+        "K1": 0 if int8_kv else attention,
+        "K2": 1,
+        "K3": attention if int8_kv else 0,
+        "K4": T - 1 if int8_kv else 0,  # one append per decode step
+        "K5": L if S >= LONG_PREFILL else 0,  # every layer of the one prefill
+        # the four fused projections of every layer of every forward
+        "K6": 4 * L * (1 + (T - 1) * forwards) if int4 else 0,
+    }
+
+
+# the runs of ``drive``: (label, ensemble, EnsembleConfig fields,
+# GenerationConfig fields, engine fields, label of the run whose tokens these
+# must equal)
+GREEDY = ("greedy", False, {}, {}, {}, None)
+EXACT = ("exact K=3", True, {}, {}, {}, None)
+FUSED = ("fused K=3", True, {"fused_step": True}, {}, {}, None)
+TOP_K_1 = {"do_sample": True, "top_k": 1}
+LLAVA_RUNS = [
+    GREEDY, EXACT, FUSED,
+    ("fused K=3, sampled top-k 1", True, {"fused_step": True}, TOP_K_1, {}, "fused K=3"),
+    ("exact K=3, sampled top-k 1", True, {}, TOP_K_1, {}, "exact K=3"),
+    ("exact epis_kl", True, {"mask_policy": "epis_kl"}, {}, {}, None),
+    ("fused epis_kl (lagged)", True, {"fused_step": True, "mask_policy": "epis_kl"}, {}, {}, None),
+    ("exact K=3, sampled T 0.7 top-p 0.9", True, {},
+     {"do_sample": True, "temperature": 0.7, "top_p": 0.9}, {}, None),
+    ("exact K=3, text mask logits", True, {}, {}, {"text_mask_policy": "logits"}, None),
+    ("exact K=3, text mask entropy", True, {}, {}, {"text_mask_policy": "entropy"}, None),
+]
+
+
+def drive(make, args, tier: str, runs: list, ens, int8_kv: bool = False,
+          int4: bool = False) -> dict:
+    """Each of ``runs``: 32 new tokens through the engine's
+    ``generate(*args)`` (the main path), ``make(ensemble, gen, ens=...,
+    **fields)`` building the engine from ``ens`` with the run's changes,
+    with every kernel's launch count set to 0 just before and checked
+    exactly just after (greedy and fused mode one forward a step, exact
+    two); tokens in range, and equal to those of the run ``same_as`` names
+    (a run sampled at top-k 1 and its arm without sampling).  One prefill
+    more, hooked, must launch K2 once, give the top-k table
+    ``exact_top_k_ids`` gives on its logits, and keep ``image_logits``
+    [B, N, V] fp32 under epis_kl (a [B, N, 1] stub otherwise).  Prints each
+    run's prefill ms, decode tokens/s and ms a step.  Returns each run's
+    launch counts by label."""
+    import dataclasses
+
+    import numpy as np
+
     from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import exact_top_k_ids
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
 
     wrappers = _wrappers()
     T = 32
-    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
-    make(True, GenerationConfig(max_new_tokens=3, eos_token_id=-1)).generate(*args)  # warm-up
-
-    counts = None
-    for label, ensemble in (("greedy", False), ("exact K=3", True)):
-        eng = make(ensemble, gen)
+    runs_counts, tokens = {}, {}
+    for label, ensemble, ens_kw, gen_kw, fields, same_as in runs:
+        gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0, **gen_kw)
+        run_ens = dataclasses.replace(ens, **ens_kw)
+        fused = ensemble and run_ens.fused_step
+        # warm-up at this run's shapes
+        make(ensemble, dataclasses.replace(gen, max_new_tokens=3), ens=run_ens,
+             **fields).generate(*args)
+        eng = make(ensemble, gen, ens=run_ens, **fields)
         L, V = eng.cfg.text.num_hidden_layers, eng.cfg.text.vocab_size
         S = args[0].shape[1] + eng.n_visual - 1  # the merged (padded) prompt
         prefill_s = statistics.median(_sync_time(lambda: eng.prefill(*args))[1] for _ in range(3))
-        state = eng.prefill(*args)
-        real = int(state.cur_len[0])
-        _, decode_s = _sync_time(lambda: eng.decode(state))
-        del state
+        decode, decode_s = eng.decode, []
 
+        def timed_decode(state):
+            out, secs = _sync_time(lambda: decode(state))
+            decode_s.append(secs)
+            return out
+
+        eng.decode = timed_decode
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
         for k in ("K5", "K6"):
             wrappers[k].route_launches = dict.fromkeys(wrappers[k].route_launches, 0)
         result, total_s = _sync_time(lambda: eng.generate(*args))  # the main path
-        counts = {k: fn.launches for k, fn in wrappers.items()}
+        counts = runs_counts[label] = {k: fn.launches for k, fn in wrappers.items()}
         # the prefill's launches of K5 and K6 that took the wgmma kernels
         wgmma = {k: wrappers[k].route_launches["wgmma"] for k in ("K5", "K6")}
         peak = torch.cuda.max_memory_allocated() / 2**30
 
-        tok = result.tokens
+        tok = tokens[label] = result.tokens
         if tok.shape != (1, T) or not ((tok >= 0) & (tok < V)).all():
             raise AssertionError(f"{tier} {label}: bad tokens {tok}")
-        tables = []  # one prefill more, its table held against the plain version's
-        eng.on_prefill = lambda logits, st: tables.append(
+        if same_as is not None and not np.array_equal(tok, tokens[same_as]):
+            raise AssertionError(f"{tier} {label}: tokens {tok} differ from {same_as}'s "
+                                 f"{tokens[same_as]}")
+        hooked = []  # one prefill more, its table held against the plain version's
+        eng.on_prefill = lambda logits, st: hooked.append(
             (wrappers["K2"].launches,
-             torch.equal(st.topk_ids, exact_top_k_ids(logits, eng.ens.topk))))
+             torch.equal(st.topk_ids, exact_top_k_ids(logits, eng.ens.topk)),
+             tuple(st.image_logits.shape), st.image_logits.dtype))
         unc = eng.prefill(*args).uncertainty
         eng.on_prefill = None
-        if tables != [(counts["K2"] + 1, True)] or "topk_ids" in unc:
+        n_img = (1, eng.n_visual, V if run_ens.mask_policy == "epis_kl" else 1)
+        want_hooked = [(counts["K2"] + 1, True, n_img, torch.float32)]
+        if hooked != want_hooked or "topk_ids" in unc:
             raise AssertionError(
-                f"{tier} {label}: (K2 launches, table equal to exact_top_k_ids) of one more "
-                f"prefill {tables}, want [({counts['K2'] + 1}, True)]")
+                f"{tier} {label}: (K2 launches, table equal to exact_top_k_ids, image_logits "
+                f"shape and dtype) of one more prefill {hooked}, want {want_hooked}")
         for key, v in unc.items():
             if not torch.isfinite(v).all():
                 raise AssertionError(f"{tier} {label}: non-finite uncertainty field {key}")
@@ -1049,30 +1140,45 @@ def drive(make, args, tier: str, int8_kv: bool = False, int4: bool = False) -> d
             raise AssertionError(
                 f"{tier} {label}: epis shape {tuple(unc['epis_uncert_per_token'].shape)}"
             )
-        attention = (T - 1) * (2 if ensemble else 1) * L  # every layer of every decode forward
-        want = {
-            "K1": 0 if int8_kv else attention,
-            "K2": 1,
-            "K3": attention if int8_kv else 0,
-            "K4": T - 1 if int8_kv else 0,  # one append per decode step
-            "K5": L if S >= LONG_PREFILL else 0,  # every layer of the one prefill
-            # the four fused projections of every layer of every forward
-            "K6": 4 * L * (1 + (T - 1) * (2 if ensemble else 1)) if int4 else 0,
-        }
+        want = want_counts(T, L, 2 if ensemble and not fused else 1, S, int8_kv, int4)
         # every K5 launch, and K6's four projections of every layer of the prefill
         want_wgmma = {"K5": want["K5"], "K6": 4 * L if int4 else 0}
         print(
-            f"{tier} {label}: prompt {S} tokens ({real} real), prefill {prefill_s * 1e3:.1f} ms, "
-            f"decode {(T - 1) / decode_s:.2f} tokens/s ({decode_s / (T - 1) * 1e3:.2f} ms/step), "
+            f"{tier} {label}: prompt {S} tokens, prefill {prefill_s * 1e3:.1f} ms, decode "
+            f"{(T - 1) / decode_s[0]:.2f} tokens/s ({decode_s[0] / (T - 1) * 1e3:.2f} ms/step), "
             f"generate {T / total_s:.2f} tokens/s end to end, peak {peak:.2f} GiB, "
             f"launches {counts} (want {want}), of them on wgmma {wgmma} (want {want_wgmma}); "
             f"tokens {tok[0, :8].tolist()}..."
         )
-        if counts != want:
-            raise AssertionError(f"{tier} {label}: launch counts {counts} != {want}")
+        _check_counts(f"{tier} {label}", counts, want)
         if wgmma != want_wgmma:
             raise AssertionError(f"{tier} {label}: wgmma launches {wgmma} != {want_wgmma}")
-    return counts
+    return runs_counts
+
+
+def step_costs(n_visual: int, V: int) -> None:
+    """The per-step cost of the epis_kl keep set over [1, ``n_visual``, V]
+    fp32 visual-token logits beside its byte floor (the logits read once),
+    and of sampling's warp (temperature 0.7, top-p 0.9: a sort of the V
+    logits) and draw beside the greedy argmax, at one row."""
+    from dropoutdecoding_tpu_torch.ops.sampling import sample_token, warp_logits
+    from dropoutdecoding_tpu_torch.ops.uncertainty import lowest_percent_kl_indices_mask
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    image = 3.0 * torch.randn(1, n_visual, V, generator=g, device="cuda")
+    logits = 3.0 * torch.randn(1, V, generator=g, device="cuda")
+    noise = -torch.log(-torch.log(torch.rand(1, V, generator=g, device="cuda").clamp(min=1e-38)))
+    gen = GenerationConfig(do_sample=True, temperature=0.7, top_p=0.9)
+    kl_ms = time_ms(lambda: lowest_percent_kl_indices_mask(image, logits))
+    floor = least_time(_nbytes(image, logits), 0, "fp32")["bound_ms"]
+    warp_ms = time_ms(lambda: warp_logits(logits, 0.7, None, 0.9))
+    draw_ms = time_ms(lambda: sample_token(logits, noise, gen))
+    argmax_ms = time_ms(lambda: logits.argmax(dim=-1))
+    del image
+    print(f"step costs: epis_kl keep set over [1, {n_visual}, {V}] {kl_ms * 1e3:.1f} us (byte floor "
+          f"{floor * 1e3:.1f} us); top-p warp over V = {V} {warp_ms * 1e3:.1f} us, warp + draw "
+          f"{draw_ms * 1e3:.1f} us, greedy argmax {argmax_ms * 1e3:.1f} us")
 
 
 def batch_of_two(cfg, params, tier: str, int8_kv: bool) -> None:
@@ -1174,13 +1280,15 @@ def end_to_end() -> dict:
     pixels = rng.normal(size=(1, 3, 336, 336)).astype(np.float32)
 
     def llava(params, int8_kv):
-        return lambda ensemble, gen: LlavaEngine(
-            cfg=cfg, params=params, gen=gen, max_len=1152, ensemble=ensemble, int8_kv=int8_kv
+        return lambda ensemble, gen, **fields: LlavaEngine(
+            cfg=cfg, params=params, gen=gen, max_len=1152, ensemble=ensemble, int8_kv=int8_kv,
+            **fields,
         )  # 1152 = 576 + 64 + 512
 
     params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
     print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
-    drive(llava(params, False), (ids, pixels), "bf16")
+    drive(llava(params, False), (ids, pixels), "bf16", LLAVA_RUNS, EnsembleConfig())
+    step_costs(cfg.vision.num_patches, cfg.text.vocab_size)
     batch_of_two(cfg, params, "bf16", int8_kv=False)
 
     # free the bf16 tower before the int8 one exists; keep vision + projector
@@ -1190,14 +1298,16 @@ def end_to_end() -> dict:
     lm, secs = _sync_time(lambda: synthetic_int8_lm(cfg.text, "cuda", seed=0))
     params = LlavaParams(vision, projector, lm)
     print(f"synthetic int8 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
-    int8 = drive(llava(params, True), (ids, pixels), "int8", int8_kv=True)
+    int8 = drive(llava(params, True), (ids, pixels), "int8", [GREEDY, EXACT, FUSED],
+                 EnsembleConfig(), int8_kv=True)["exact K=3"]
     batch_of_two(cfg, params, "int8", int8_kv=True)
     del params, lm
     free()
     lm, secs = _sync_time(lambda: synthetic_int4_lm(cfg.text, "cuda", seed=0))
     params = LlavaParams(vision, projector, lm)
     print(f"synthetic int4 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
-    int4 = drive(llava(params, True), (ids, pixels), "int4", int8_kv=True, int4=True)
+    int4 = drive(llava(params, True), (ids, pixels), "int4", [GREEDY, EXACT, FUSED],
+                 EnsembleConfig(), int8_kv=True, int4=True)["exact K=3"]
     del params, vision, projector, lm
     free()
 
@@ -1212,14 +1322,14 @@ def end_to_end() -> dict:
     print(f"synthetic NeXT 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in "
           f"{secs:.1f} s; {n_tiles} tiles")
     ens = EnsembleConfig(mask_accumulate=False, topk=10)  # the reference's NeXT settings
-    nxt = drive(
-        lambda ensemble, gen: LlavaNextEngine(
-            cfg=ncfg, params=params, ens=ens, gen=gen, seed=506, ensemble=ensemble,
-            max_len=llavanext.max_image_tokens(ncfg) + 64 + 512,
-        ),
-        (ids, tiles, size),
-        "next",
-    )
+    def make_next(ensemble, gen, **fields):
+        return LlavaNextEngine(
+            cfg=ncfg, params=params, gen=gen, seed=506, ensemble=ensemble,
+            max_len=llavanext.max_image_tokens(ncfg) + 64 + 512, **{"ens": ens, **fields},
+        )
+
+    nxt = drive(make_next, (ids, tiles, size), "next", [GREEDY, EXACT, FUSED], ens)["exact K=3"]
+    step_costs(llavanext.max_image_tokens(ncfg), ncfg.text.vocab_size)
     del params
     free()
     return {
@@ -1691,6 +1801,7 @@ def main() -> int:
     small_reference("int8")
     small_reference("int4")
     small_reference("next")
+    small_reference("modes")
     launches = end_to_end()
     cli_record = chair_cli()
     print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")

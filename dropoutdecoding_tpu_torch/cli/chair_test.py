@@ -9,9 +9,12 @@ Usage:
 
 It runs on the first CUDA device; ``main(args, device="cpu")`` runs it on
 the CPU (the kernels' plain twins).  The parser is the JAX CLI's, flag for
-flag.  Flags whose engine is not ported yet raise ``NotImplementedError``
-naming their ROADMAP Queue 1 item when the engine is built, before any
-image is read (``NOT_PORTED``).
+flag.  Every Dropout Decoding arm runs: exact and fused mode
+(``--fused-step``), every ``--mask-policy``, sampling (``--do-sample`` with
+``--temperature`` / ``--top-p`` / ``--top-k``) and the text mask
+(``--text-logit-mask``).  Flags whose engine is not ported yet raise
+``NotImplementedError`` naming their ROADMAP Queue 1 item when the engine
+is built, before any image is read (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -55,9 +58,6 @@ NOT_PORTED = (
     ("--num-beams > 1", lambda a: (a.num_beams or 1) > 1, 9),
     ("--opera", lambda a: str2bool(a.opera), 13),
     ("--spec-gamma", lambda a: bool(getattr(a, "spec_gamma", None)), 14),
-    ("--do-sample", lambda a: str2bool(getattr(a, "do_sample", False)), 6),
-    ("--fused-step", lambda a: str2bool(getattr(a, "fused_step", False)), 6),
-    ("--text-logit-mask", lambda a: str2bool(getattr(a, "text_logit_mask", False)), 6),
     ("--quantize w8a8", lambda a: getattr(a, "quantize", None) == "w8a8", 12),
     ("--w8a8-decode", lambda a: str2bool(getattr(a, "w8a8_decode", False)), 12),
     ("--int8-prefix-cache", lambda a: str2bool(getattr(a, "int8_prefix_cache", False)), 12),
@@ -68,8 +68,16 @@ NOT_PORTED = (
 
 
 def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for the first flag in ``args`` whose
-    engine the port does not have yet."""
+    """Exit, as the JAX CLI does, on ``--do-sample`` with beams; then raise
+    ``NotImplementedError`` for the first flag in ``args`` whose engine the
+    port does not have yet."""
+    # the JAX CLI's beam count: --opera defaults to 3 beams
+    num_beams = args.num_beams if args.num_beams is not None else (3 if str2bool(args.opera) else 1)
+    if str2bool(getattr(args, "do_sample", False)) and num_beams > 1:
+        raise SystemExit(
+            "--do-sample with --num-beams > 1 (beam-sample) is not "
+            "implemented; drop one of the two flags."
+        )
     for flag, asked, item in NOT_PORTED:
         if asked(args):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
@@ -137,13 +145,23 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
     weights; ``eos_token_id`` is the tokenizer's, 2 for LLaVA's Llama and
     Mistral tokenizers).  ``cache`` keeps the converted weights between
     runs (``utils/cache.py``)."""
-    check_ported(args)  # beams and sampling raise, so their knobs stay unread
+    check_ported(args)  # beams raise, so their knobs stay unread
     model = args.model
+    gen = GenerationConfig(
+        max_new_tokens=512,
+        eos_token_id=eos_token_id,
+        pad_token_id=eos_token_id,
+        do_sample=str2bool(getattr(args, "do_sample", False)),
+        temperature=getattr(args, "temperature", 1.0),
+        top_p=getattr(args, "top_p", 1.0),
+        top_k=getattr(args, "top_k", None),
+    )
     common = dict(
         ens=build_ensemble_config(args, model),
-        gen=GenerationConfig(max_new_tokens=512, eos_token_id=eos_token_id, pad_token_id=eos_token_id),
+        gen=gen,
         ensemble=not str2bool(args.original),
         seed=args.seed if args.seed is not None else REFERENCE_SEEDS[model],
+        text_logits_mask=str2bool(getattr(args, "text_logit_mask", False)),
         int8_kv=str2bool(getattr(args, "int8_kv", False)),
     )
     if model == "llava-1.5":

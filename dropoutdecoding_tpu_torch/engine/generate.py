@@ -1,5 +1,5 @@
-"""The inference engine: prefill, then the exact-mode ensemble (or greedy)
-decode loop.  Port of ``LlavaEngine`` in
+"""The inference engine: prefill, then the ensemble (exact or fused) or
+greedy decode loop.  Port of ``LlavaEngine`` in
 ``dropoutdecoding_tpu/engine/generate.py``; ``engine/llavanext_engine.py``
 reuses its decode loop and its state assembly.
 
@@ -14,21 +14,37 @@ Per generated token, exact mode runs:
   4. the vote, and an append of only the winner's K/V to the cache (K4,
      ``ops/cuda_cache_append.py``, quantizes it into an int8 cache).
 
-``int8_kv=True`` with int8 weights (``utils/quantize.py``) is the JAX
-package's deployment tier (``--quantize int8 --int8-kv``); with packed int4
-weights (``quantize_llama_params_int4``, every projection through K6,
-``ops/cuda_int4_matmul.py``) its int4 tier (``--quantize int4``).  The tier
-is a property of the params: the engine has no field for it.
+Fused mode (``EnsembleConfig.fused_step``) runs one M=K+1 forward a token
+instead of steps 1 and 3: member 0 unmasked, members 1..K masked from the
+previous step's argmax, so the weights stream once a token instead of
+twice; the K/V of member ``winner + 1`` goes to the cache.
+
+Along the way, each as the JAX engine does it:
+
+- sampling (``GenerationConfig.do_sample``): HF's warpers, then a draw from
+  the vote winner's logits (the member average under ``use_avg``), every
+  token sampled, the first from the prefill's logits; masks and overlap
+  stay on the argmax (``ops/sampling.py``);
+- the text-mask policies (``text_mask_policy`` "logits" or "entropy";
+  ``text_logits_mask=True`` means "logits"): generated positions dropped
+  by the statistics of the step that emitted them, the last 3 always
+  attended;
+- "epis_kl" keeps the prefill's visual-token logits in the state
+  (``PrefillState.image_logits``); fused mode reads the previous step's
+  unmasked logits against them (the lagged variant).
+
+Draws come from three sources, one a stream, each keyed by a row's
+``rng_id`` (``utils/prng.py``).  ``int8_kv=True`` with int8 weights
+(``utils/quantize.py``) is the JAX package's deployment tier (``--quantize
+int8 --int8-kv``); with packed int4 weights (``quantize_llama_params_int4``,
+every projection through K6, ``ops/cuda_int4_matmul.py``) its int4 tier
+(``--quantize int4``).  The tier is a property of the params: the engine
+has no field for it.
 
 The loop makes no host sync per token: it reads ``done`` back only every
-``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.
-
-Not ported yet (each raises ``NotImplementedError``): fused mode
-(``EnsembleConfig.fused_step``), sampling (``GenerationConfig.do_sample``),
-the text-mask policies, the mask policies other than "epis",
-"epis_no_overlap", "random_image" and "none" (among them ``epis_kl``).
-The JAX engine's w8a8 and int8-prefix-cache options have no counterpart yet
-(ROADMAP Queue 1 item 12).
+``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.  The JAX engine's
+w8a8 and int8-prefix-cache options have no counterpart yet (ROADMAP Queue
+1 item 12).
 """
 from __future__ import annotations
 
@@ -39,15 +55,61 @@ import numpy as np
 import torch
 
 from ..decoding.aggregate import select_by_average, select_by_vote
-from ..decoding.masks import build_member_drop_mask, check_policy, overlap_keep_mask
+from ..decoding.masks import (
+    build_member_drop_mask,
+    check_policy,
+    overlap_keep_mask,
+    overlap_keep_mask_multi,
+)
 from ..models import llama as llama_mod
 from ..models import llava as llava_mod
 from ..models.llama import KVCache
-from ..ops.uncertainty import vision_uncertainty_auto
+from ..ops.sampling import sample_token
+from ..ops.uncertainty import (
+    entropy_varentropy,
+    lowest_percent_kl_indices_mask,
+    vision_uncertainty_auto,
+)
 from ..utils.config import EnsembleConfig, GenerationConfig, LlavaConfig
-from ..utils.prng import PhiloxUniform, UniformSource
+from ..utils.prng import (
+    PhiloxGumbel,
+    PhiloxTextUniform,
+    PhiloxUniform,
+    RowSource,
+    UniformSource,
+)
 
 DONE_CHECK_EVERY = 8  # decode steps between host reads of ``done``
+TEXT_POLICIES = ("none", "logits", "entropy")
+
+
+def extract_probe_ids(
+    input_ids: torch.Tensor,
+    marker: int = 727,
+    max_probes: int = 8,
+    text_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The token ids after the first ``marker`` ('?') token of each row,
+    [B, max_probes] int32, -1 padded (the "vqa" policy's probe words).
+    ``text_lens``: each right-padded row's real length, so that its pad
+    ids are never taken."""
+    B, S = input_ids.shape
+    hit = input_ids == marker
+    pos = hit.int().argmax(dim=1)  # the first hit
+    gather = pos[:, None] + 1 + torch.arange(max_probes, device=input_ids.device)[None]
+    limit = S if text_lens is None else torch.as_tensor(text_lens, device=input_ids.device)[:, None]
+    valid = hit.any(dim=1)[:, None] & (gather < limit)
+    ids = input_ids.gather(1, gather.clamp(0, S - 1))
+    return torch.where(valid, ids, -1).int()
+
+
+class TextMaskState(NamedTuple):
+    """Per-generated-position statistics for the text-mask policies, [B, T]
+    each, of the step that emitted the position."""
+
+    prob: torch.Tensor  # 1 / max logit
+    ent: torch.Tensor  # entropy (base 2)
+    vent: torch.Tensor  # varentropy
 
 
 class PrefillState(NamedTuple):
@@ -57,8 +119,13 @@ class PrefillState(NamedTuple):
     first_token: torch.Tensor  # [B] greedy token from those logits
     epis: torch.Tensor  # [B, N] epistemic uncertainty per visual token
     topk_ids: torch.Tensor  # [B, N, k] text-projection table
+    image_logits: torch.Tensor  # [B, N, V] fp32 visual-token logits under
+    #   "epis_kl" (its keep set reads them every step), a [B, N, 1] stub else
     image_pos: torch.Tensor  # [B] start of the visual span
     visual_mask: torch.Tensor  # [B, N] real visual tokens (all True on LLaVA-1.5)
+    probe_ids: torch.Tensor  # [B, P] "vqa" probe token ids, -1 padded
+    rng_id: torch.Tensor  # [B] each row's stream id, on the host: the draw
+    #   sources are called from Python, so reading it costs no device sync
     uncertainty: dict  # the full uncertainty dict
 
 
@@ -67,18 +134,44 @@ class GenerationResult(NamedTuple):
     num_tokens: np.ndarray  # [B]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1)")
+def kl_logits_or_stub(img_logits: torch.Tensor, mask_policy: str) -> torch.Tensor:
+    """The visual-token logits for "epis_kl", the only policy that reads
+    them after the prefill; a [B, N, 1] zero stub for every other, so that
+    the [B, N, V] fp32 buffer does not stay alive in the state."""
+    if mask_policy == "epis_kl":
+        return img_logits
+    return img_logits.new_zeros(img_logits.shape[:-1] + (1,))
+
+
+def _record_text_stats(tm: TextMaskState, step: int, winner_logits: torch.Tensor) -> TextMaskState:
+    """Write 1 / max logit, the entropy and the varentropy of the emitting
+    step's logits [B, V] at generation index ``step`` (every row's; the
+    last position past the end), in place; returns ``tm``."""
+    idx = min(max(step, 0), tm.prob.shape[1] - 1)
+    ent, vent = entropy_varentropy(winner_logits)
+    tm.prob[:, idx] = 1.0 / winner_logits.float().amax(dim=-1)
+    tm.ent[:, idx] = ent
+    tm.vent[:, idx] = vent
+    return tm
+
+
+class _Carry(NamedTuple):
+    """What a decode step hands the next besides token, fill and done."""
+
+    tm: TextMaskState | None  # None unless a text policy is on
+    prev_argmax0: torch.Tensor  # [B] member 0's argmax (fused mode's overlap source)
+    prev_logits0: torch.Tensor | None  # [B, V] member 0's logits (lagged epis_kl only)
 
 
 @dataclass
 class LlavaEngine:
     """LLaVA-1.5 dropout-decoding engine: ``generate(input_ids, pixel_values)``.
 
-    The params' device and dtype are the engine's.  ``uniform`` is the
-    mask-draw source ``uniform(step, row, member, n)``; by default torch
-    Philox along the seed -> step -> row -> member key tree
-    (``utils/prng.py``).  A row's index in the batch is its RNG stream id.
+    The params' device and dtype are the engine's.  The draw sources, by
+    default torch Philox along each stream's key tree (``utils/prng.py``):
+    ``uniform(step, row, member, n)`` the members' mask draws,
+    ``text_uniform(step, row, n)`` the text-mask draws and ``gumbel(step,
+    row, n)`` the sampling noise; ``row`` is the row's ``rng_id``.
     """
 
     cfg: LlavaConfig
@@ -87,28 +180,33 @@ class LlavaEngine:
     gen: GenerationConfig = GenerationConfig()
     max_len: int = 1280
     seed: int = 24
-    ensemble: bool = True  # False => plain greedy
-    text_logits_mask: bool = False
-    text_mask_policy: str = "none"
+    ensemble: bool = True  # False => plain greedy (or sampled, under do_sample)
+    text_logits_mask: bool = False  # the "+ logit text-mask" variant: policy "logits"
+    text_mask_policy: str = "none"  # "none" | "logits" | "entropy"
     int8_kv: bool = False  # int8 KV cache (K3 reads it, K4 appends to it)
     uniform: UniformSource | None = None
+    text_uniform: RowSource | None = None
+    gumbel: RowSource | None = None
     # called as on_prefill(img_logits [B, N, V], state) at the end of every
     # prefill: a check's view of the logits the state was made from
     on_prefill: Callable | None = None
 
     def __post_init__(self):
-        if self.ensemble and self.ens.fused_step:
-            raise _not_ported("fused mode (EnsembleConfig.fused_step)")
-        if self.gen.do_sample:
-            raise _not_ported("sampling (GenerationConfig.do_sample)")
-        if self.text_logits_mask or self.text_mask_policy != "none":
-            raise _not_ported("text-mask policies")
         if self.ensemble:
             check_policy(self.ens.mask_policy)  # at construction, not the first step
+        self.text_policy = "logits" if self.text_logits_mask else self.text_mask_policy
+        if self.text_policy not in TEXT_POLICIES:
+            raise ValueError(f"unknown text-mask policy: {self.text_policy}")
+        # fused epis_kl reads the previous step's unmasked logits (lagged)
+        self._lag_kl = self.ensemble and self.ens.fused_step and self.ens.mask_policy == "epis_kl"
         embed = self.params.lm["embed_tokens"]
         self.device, self.dtype = embed.device, embed.dtype
         if self.uniform is None:
             self.uniform = PhiloxUniform(self.seed, self.device)
+        if self.text_uniform is None:
+            self.text_uniform = PhiloxTextUniform(self.seed, self.device)
+        if self.gumbel is None:
+            self.gumbel = PhiloxGumbel(self.seed, self.device)
 
     @property
     def n_visual(self) -> int:
@@ -118,7 +216,10 @@ class LlavaEngine:
     # prefill
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, input_ids, pixel_values) -> PrefillState:
+    def prefill(self, input_ids, pixel_values, text_lens=None) -> PrefillState:
+        """``text_lens``: optional [B] real lengths of right-padded rows;
+        their pads sit after every real token, so only the first token's
+        position and the fill need them."""
         cfg, lm = self.cfg, self.params.lm
         ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
         pix = torch.as_tensor(pixel_values, device=self.device)
@@ -132,21 +233,27 @@ class LlavaEngine:
         S = merged.shape[1]
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         hidden, kv = llama_mod.prefill(lm, cfg.text, merged, positions)
-        cur_len = torch.full((B,), S, dtype=torch.long, device=self.device)
-        return self._assemble_state(hidden, kv, image_pos, cur_len)
+        if text_lens is None:
+            cur_len = torch.full((B,), S, dtype=torch.long, device=self.device)
+        else:
+            text_lens = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
+            cur_len = text_lens + self.n_visual - 1  # the merged length
+        return self._assemble_state(ids, hidden, kv, image_pos, cur_len, text_lens)
 
     def _assemble_state(
-        self, hidden, kv, image_pos, cur_len, visual_mask=None
+        self, input_ids, hidden, kv, image_pos, cur_len, text_lens=None, visual_mask=None
     ) -> PrefillState:
         """PrefillState from the LM prefill's outputs; LLaVA-NeXT shares it.
 
         Args:
+          input_ids: [B, S_text] the prompt ids (the "vqa" probe words).
           hidden: [B, S, D] final-norm hidden states; kv: the prefill K/V.
           image_pos: [B] start of each row's visual span of ``n_visual``
             slots.
           cur_len: [B] each row's real merged length: the first token comes
             from the hidden row at ``cur_len - 1``, and decoding appends
             there.
+          text_lens: optional [B] real text lengths of right-padded rows.
           visual_mask: optional [B, N] real visual tokens of a padded span
             (the uncertainty's mean and the mask policies use only them);
             None means all N are real.
@@ -179,8 +286,11 @@ class LlavaEngine:
             first_token=first_token,
             epis=uncert["epis_uncert_per_token"],
             topk_ids=topk_ids,
+            image_logits=kl_logits_or_stub(img_logits, self.ens.mask_policy),
             image_pos=image_pos,
             visual_mask=visual_mask,
+            probe_ids=extract_probe_ids(input_ids, text_lens=text_lens),
+            rng_id=torch.arange(B),
             uncertainty=uncert,
         )
         if self.on_prefill is not None:
@@ -190,20 +300,38 @@ class LlavaEngine:
     # ------------------------------------------------------------------
     # decode
     # ------------------------------------------------------------------
-    def _member_drop_slots(self, state: PrefillState, argmax0: torch.Tensor, step: int):
-        """The K members' cache-slot drop masks [B, K, Smax] at ``step``;
-        only real visual tokens (``state.visual_mask``) are ever dropped."""
+    def _rows(self, source, state, step, *rest, n):
+        """[B, n] draws of ``source`` at ``step`` (and ``rest``, the member)
+        for every row's ``rng_id``, on the engine's device."""
+        draws = [source(step, row, *rest, n) for row in state.rng_id.tolist()]
+        return torch.stack(draws).to(self.device)
+
+    def _member_drop_slots(
+        self, state: PrefillState, argmax_src, step: int, logits_for_kl=None, cur_len=None,
+        tm: TextMaskState | None = None,
+    ):
+        """The K members' cache-slot drop masks [B, K, Smax] at ``step``,
+        from an argmax source (this step's unmasked argmax in exact mode,
+        the previous step's in fused mode); ``logits_for_kl`` [B, V] feed
+        "epis_kl", ``cur_len`` and ``tm`` the text policy.  Only real visual
+        tokens (``state.visual_mask``) are ever dropped as visual tokens."""
         ens = self.ens
         B, N = state.epis.shape
         valid = state.visual_mask
-        overlap = overlap_keep_mask(argmax0, state.topk_ids)  # [B, N]
+        if ens.mask_policy == "vqa":
+            overlap = overlap_keep_mask_multi(state.probe_ids, state.topk_ids)  # [B, N]
+        else:
+            overlap = overlap_keep_mask(argmax_src, state.topk_ids)
+        kl_keep = None
+        if ens.mask_policy == "epis_kl":
+            kl_keep = lowest_percent_kl_indices_mask(state.image_logits, logits_for_kl)
         drops = []
         prev = torch.zeros((B, N), dtype=torch.bool, device=self.device)
         for m, cap in enumerate(ens.voting_probs):
-            u = torch.stack([self.uniform(step, row, m, N) for row in range(B)])
+            u = self._rows(self.uniform, state, step, m, n=N)
             prev = build_member_drop_mask(
-                u.to(self.device), ens.mask_policy, state.epis, cap, overlap, prev,
-                ens.mask_accumulate, floor=ens.prob_floor, valid=valid,
+                u, ens.mask_policy, state.epis, cap, overlap, prev,
+                ens.mask_accumulate, kl_keep=kl_keep, floor=ens.prob_floor, valid=valid,
             )
             drops.append(prev)
         drops = torch.stack(drops, dim=1) & valid[:, None, :]  # [B, K, N]
@@ -215,48 +343,106 @@ class LlavaEngine:
         tok_idx = (slots - p).clamp(0, N - 1)
         K = drops.shape[1]
         drop_slots = drops.gather(2, tok_idx[:, None, :].expand(B, K, self.max_len))
-        return drop_slots & in_span[:, None, :]
+        drop_slots = drop_slots & in_span[:, None, :]
+        if self.text_policy == "none":
+            return drop_slots
+        # generated positions, by the statistics of the step that emitted
+        # each; the last 3 are always attended
+        gen_start = state.cur_len[:, None]  # the prompt's length
+        gidx = (slots - gen_start).clamp(0, tm.prob.shape[1] - 1)
+        gprob = tm.prob.gather(1, gidx)  # [B, Smax]
+        u = self._rows(self.text_uniform, state, step, n=self.max_len)
+        if self.text_policy == "logits":
+            tdrop = u < gprob  # drop with probability 1 / max logit
+        else:  # "entropy"
+            ent, vent = tm.ent.gather(1, gidx), tm.vent.gather(1, gidx)
+            low = (ent < 0.1) & (vent < 0.1)  # confident: always attended
+            high = (ent > 5.0) & (vent > 5.0)  # chaotic: a coin flip
+            tdrop = ~low & torch.where(high, u <= 0.5, u < gprob)
+        in_gen = (slots >= gen_start) & (slots < cur_len[:, None] - 3)
+        return drop_slots | (tdrop & in_gen)[:, None, :]
 
-    def _one_step(self, state, step, token, cur_len, done, tokens):
+    def _sample_rows(self, state: PrefillState, step: int, logits: torch.Tensor) -> torch.Tensor:
+        """Each row's token [B] drawn from ``logits`` [B, V] (HF's warpers,
+        then the categorical draw) with the row's noise at ``step``."""
+        noise = self._rows(self.gumbel, state, step, n=logits.shape[-1])
+        return sample_token(logits, noise, self.gen)
+
+    def _aggregate(self, logits_k: torch.Tensor):
+        """(winner [B], token [B], the logits sampling and the text stats
+        read [B, V]) of the members' logits [B, K, V]: the winner's, or
+        under ``use_avg`` the fp32 member average."""
+        if self.ens.use_avg:
+            winner, token = select_by_average(logits_k)
+            return winner, token, logits_k.float().mean(dim=1)
+        winner, token = select_by_vote(logits_k)
+        rows = torch.arange(logits_k.shape[0], device=self.device)
+        return winner, token, logits_k[rows, winner]
+
+    def _one_step(self, state, step, token, cur_len, done, tokens, carry: _Carry):
         """One decode step at generation index ``step``; writes
         ``tokens[:, step]`` and appends to the cache in place.  Returns
-        (next_token, cur_len, done)."""
+        (next_token, cur_len, done, carry)."""
         cfg, lm = self.cfg, self.params.lm
         cache = state.cache
         B = token.shape[0]
         x = llama_mod.embed(lm, token)  # [B, D]
         slots = torch.arange(self.max_len, device=self.device)
         base_mask = slots[None, :] < cur_len[:, None]  # [B, Smax]
+        tm = carry.tm
 
-        h0, k0, v0 = llama_mod.decode_step(
-            lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None]
-        )
-        logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
-        argmax0 = logits0.argmax(dim=-1)
-        if not self.ensemble:
-            next_token = argmax0
-            kw, vw = k0[:, :, 0], v0[:, :, 0]
-        else:
-            drop_slots = self._member_drop_slots(state, argmax0, step)
-            member_mask = base_mask[:, None, :] & ~drop_slots  # [B, K, Smax]
-            K = member_mask.shape[1]
-            xk = x[:, None].expand(B, K, x.shape[-1])
-            hk, kk, vk = llama_mod.decode_step(
-                lm, cfg.text, xk, cur_len, cache, member_mask
+        if self.ensemble and self.ens.fused_step:
+            # one M=K+1 forward: member 0 unmasked, members 1..K masked from
+            # the previous step's argmax (and lagged logits for epis_kl)
+            drop_slots = self._member_drop_slots(
+                state, carry.prev_argmax0, step, carry.prev_logits0, cur_len, tm
             )
-            logits_k = llama_mod.lm_head(lm, hk)  # [B, K, V]
-            agg = select_by_average if self.ens.use_avg else select_by_vote
-            winner, next_token = agg(logits_k)
+            masks = torch.cat([base_mask[:, None], base_mask[:, None] & ~drop_slots], dim=1)
+            M = masks.shape[1]
+            ha, ka, va = llama_mod.decode_step(
+                lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks
+            )
+            logits_all = llama_mod.lm_head(lm, ha)  # [B, K+1, V]
+            logits0 = logits_all[:, 0]
+            argmax0 = logits0.argmax(dim=-1)
+            winner, next_token, winner_logits = self._aggregate(logits_all[:, 1:])
             rows = torch.arange(B, device=self.device)
-            kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, KH, D]
+            kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, KH, D]
+        else:
+            h0, k0, v0 = llama_mod.decode_step(
+                lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None]
+            )
+            logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
+            argmax0 = logits0.argmax(dim=-1)
+            if not self.ensemble:
+                next_token, winner_logits = argmax0, logits0
+                kw, vw = k0[:, :, 0], v0[:, :, 0]
+            else:
+                drop_slots = self._member_drop_slots(state, argmax0, step, logits0, cur_len, tm)
+                member_mask = base_mask[:, None, :] & ~drop_slots  # [B, K, Smax]
+                K = member_mask.shape[1]
+                xk = x[:, None].expand(B, K, x.shape[-1])
+                hk, kk, vk = llama_mod.decode_step(
+                    lm, cfg.text, xk, cur_len, cache, member_mask
+                )
+                winner, next_token, winner_logits = self._aggregate(llama_mod.lm_head(lm, hk))
+                rows = torch.arange(B, device=self.device)
+                kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, KH, D]
+        if self.gen.do_sample:
+            # HF samples the forward's returned (vote winner's) logits
+            next_token = self._sample_rows(state, step, winner_logits)
+        if tm is not None:
+            _record_text_stats(tm, step, winner_logits)
 
         llama_mod.cache_set_rows(cache, cur_len, kw, vw)
         next_token = torch.where(done, self.gen.pad_token_id, next_token)
         tokens[:, step] = next_token  # pad for rows already done
+        carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None)
         return (
             next_token,
             cur_len + (~done).long(),
             done | (next_token == self.gen.eos_token_id),
+            carry,
         )
 
     @torch.no_grad()
@@ -265,18 +451,29 @@ class LlavaEngine:
         Updates ``state.cache`` in place."""
         B = state.first_token.shape[0]
         T = self.gen.max_new_tokens
-        token = state.first_token
+        if self.gen.do_sample:  # every token is sampled: the first at step 0
+            token = self._sample_rows(state, 0, state.last_logits)
+        else:
+            token = state.first_token
         tokens = torch.full(
             (B, T), self.gen.pad_token_id, dtype=torch.long, device=self.device
         )
         tokens[:, 0] = token
         done = token == self.gen.eos_token_id
         cur_len = state.cur_len.clone()
+        tm = None
+        if self.ensemble and self.text_policy != "none":
+            zeros = [torch.zeros((B, T), device=self.device) for _ in range(3)]
+            # entry 0: the stats of the prefill, which emitted token 0
+            tm = _record_text_stats(TextMaskState(*zeros), 0, state.last_logits)
+        # fused mode's first overlap source is the prefill's argmax, also
+        # when token 0 was sampled; lagged epis_kl starts from its logits
+        carry = _Carry(tm, state.first_token, state.last_logits if self._lag_kl else None)
         for step in range(1, T):  # decode steps start at 1, like the JAX loop
             if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break  # the only host sync in the loop
-            token, cur_len, done = self._one_step(
-                state, step, token, cur_len, done, tokens
+            token, cur_len, done, carry = self._one_step(
+                state, step, token, cur_len, done, tokens, carry
             )
         return tokens
 

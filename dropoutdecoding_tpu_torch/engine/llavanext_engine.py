@@ -1,8 +1,9 @@
 """LLaVA-NeXT dropout-decoding engine (port of
 ``dropoutdecoding_tpu/engine/llavanext_engine.py``).
 
-It reuses ``LlavaEngine``'s decode loop and state assembly; the prefill
-differs:
+It reuses ``LlavaEngine``'s decode loop and state assembly, and with them
+every decoding arm (fused mode, sampling, the text-mask and mask
+policies); the prefill differs:
 
 - the host turns each image's anyres geometry into a gather plan and a
   validity mask over ``max_image_tokens`` slots (``models/llavanext.py``),
@@ -14,7 +15,9 @@ differs:
 
 At LLaVA-v1.6 widths the merged prompt is about 2.95k tokens, so the LM
 prefill runs K5 (``ops/cuda_flash_prefill.py``) in every layer, and the
-visual span's uncertainty is K2 over [B, 2928, V] with ``valid``.
+visual span's uncertainty is K2 over [B, 2928, V] with ``valid``.  Under
+"epis_kl" the state keeps those logits, [1, 2928, 32064] fp32 (375 MB) a
+row, and every step reads them for the KL keep set.
 
 The reference's LLaVA-NeXT defaults are the caller's: ``EnsembleConfig(
 mask_accumulate=False, topk=10)``, seed 506, and ``mask_policy=
@@ -111,7 +114,7 @@ class LlavaNextEngine(LlavaEngine):
         B, S, _ = merged.shape
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         hidden, kv = llama_mod.prefill(lm, cfg.text, merged, positions, key_mask=key_mask)
-        return self._assemble_state(hidden, kv, image_pos, real_len, visual_mask=valid)
+        return self._assemble_state(ids, hidden, kv, image_pos, real_len, text_lens, valid)
 
     def generate(self, input_ids, tile_pixels, original_size) -> GenerationResult:
         return self._generate(input_ids, tile_pixels, original_size)

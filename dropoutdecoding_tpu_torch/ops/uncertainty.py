@@ -87,13 +87,13 @@ def kl_to_current(image_logits: torch.Tensor, logits: torch.Tensor) -> torch.Ten
     token logits)).
 
     Args:
-      image_logits: [L, V] visual-token logits (prefill projection).
-      logits: [V] current-step logits.
+      image_logits: [..., L, V] visual-token logits (prefill projection).
+      logits: [..., V] current-step logits.
     Returns:
-      [L] KL divergences; terms with p = 0 count as 0.
+      [..., L] KL divergences; terms with p = 0 count as 0.
     """
     log_q = torch.log_softmax(image_logits.float(), dim=-1)
-    p = torch.softmax(logits.float(), dim=-1)
+    p = torch.softmax(logits.float(), dim=-1)[..., None, :]
     terms = torch.where(p > 0, p * (torch.log(p) - log_q), torch.zeros_like(log_q))
     return terms.sum(dim=-1)
 
@@ -101,12 +101,13 @@ def kl_to_current(image_logits: torch.Tensor, logits: torch.Tensor) -> torch.Ten
 def lowest_percent_kl_indices_mask(
     image_logits: torch.Tensor, logits: torch.Tensor, percent: float = 0.1
 ) -> torch.Tensor:
-    """Boolean [L] mask of the lowest-``percent`` KL visual tokens (the
-    ``epis_kl`` policy); the lower index first among equal KLs."""
+    """Boolean [..., L] mask of the lowest-``percent`` KL visual tokens (the
+    ``epis_kl`` policy's keep set); the lower index first among equal KLs.
+    ``image_logits`` [..., L, V], ``logits`` [..., V]."""
     kl = kl_to_current(image_logits, logits)
-    num = int(percent * kl.shape[0])
+    num = int(percent * kl.shape[-1])
     mask = torch.zeros(kl.shape, dtype=torch.bool, device=kl.device)
     if num == 0:
         return mask
-    mask[torch.sort(kl, stable=True).indices[:num]] = True  # one launch, ties in index order
-    return mask
+    lowest = torch.sort(kl, dim=-1, stable=True).indices[..., :num]  # ties in index order
+    return mask.scatter_(-1, lowest, True)

@@ -167,9 +167,8 @@ class EnsembleConfig:
     """Dropout-decoding ensemble parameters (see the JAX package's
     ``EnsembleConfig`` docstring for what each field reproduces).
 
-    The port runs the exact mode (``fused_step=False``) with the "epis",
-    "epis_no_overlap", "random_image" and "none" mask policies; the engine
-    rejects the rest.
+    The port runs both modes (``fused_step``) with every mask policy
+    (``decoding/masks.py`` ``POLICIES``).
     """
 
     voting_probs: Tuple[float, ...] = (0.3, 0.5, 0.7)
@@ -200,8 +199,9 @@ class EnsembleConfig:
 
 @dataclass(frozen=True)
 class GenerationConfig:
-    """Decode-loop parameters.  The port decodes greedily; ``do_sample``
-    and the beam and VCD fields are carried for config parity only."""
+    """Decode-loop parameters.  The port decodes greedily, or samples under
+    ``do_sample`` with ``temperature`` / ``top_p`` / ``top_k``; the beam
+    and VCD fields are carried for config parity only."""
 
     max_new_tokens: int = 512
     eos_token_id: int = 2

@@ -3,13 +3,14 @@
 NVIDIA GPU.
 
     python3 profile_decode.py [--tree DIR] [tokens] [bf16] [int8] [int4] [next] [kernels] [k2k4]
+                              [modes]
                               (default: the three LLaVA-1.5-7B tiers)
 
 For each tier it builds the synthetic full-width model ``chip_smoke.py``
 drives (same seeds, prompt and image; "next" is LLaVA-v1.6-Mistral-7B on
 its 640 x 480 image), warms up, and runs ``torch.profiler`` over one
-``prefill`` and over 8 decode steps of the engine's ``decode``, greedy and
-exact K=3.  It sums the device time of
+``prefill`` and over 8 decode steps of the engine's ``decode``, greedy,
+exact K=3 and fused K=3.  It sums the device time of
 every CUDA kernel by name into the groups of PERF.md section 5 and prints
 one table per tier, then the heaviest kernel names.  The profiler slows the
 host, so the span is not the unprofiled step time; the device sums are what
@@ -22,7 +23,9 @@ the prefill shapes, tile by tile and beside the ``mma.sync`` kernels they
 replaced there, then K2 at ``chip_smoke.K2_CASES`` with the top-k table
 (in a tree whose K2 has no ``top_k``: K2 and ``exact_top_k_ids`` apart) and
 K4 beside its launch floor.
-``k2k4`` runs those last two alone.  ``tokens`` before the tiers prints each
+``k2k4`` runs those last two alone.  ``modes`` profiles the bf16 decode
+step in the other arms: exact and fused "epis_kl", exact sampling, the
+exact "entropy" text mask.  ``tokens`` before the tiers prints each
 tier's 32 greedy and exact K=3 tokens in place of a profile, so that two
 trees can be held token for token.  ``--tree DIR`` takes the package from DIR (say, a parent
 commit unpacked there by ``git archive``) and keeps this script's cases and
@@ -92,9 +95,12 @@ def grouped(by_name: dict) -> dict:
 
 
 def tier_engines(tier: str, gen):
-    """(make, args, params): ``make(ensemble)`` builds the tier's engine at
-    full width with ``chip_smoke.end_to_end``'s synthetic weights, prompt and
-    image, ``args`` are its ``generate`` arguments."""
+    """(make, args, params): ``make(ensemble, **changes)`` builds the tier's
+    engine at full width with ``chip_smoke.end_to_end``'s synthetic weights,
+    prompt and image, its ``EnsembleConfig`` with ``changes`` (say
+    ``fused_step=True``); ``args`` are its ``generate`` arguments."""
+    import dataclasses
+
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
     from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
     from dropoutdecoding_tpu_torch.models import llavanext
@@ -123,10 +129,10 @@ def tier_engines(tier: str, gen):
         params = synthetic_llavanext_params(cfg, "cuda", torch.bfloat16, seed=0)
         ens = EnsembleConfig(mask_accumulate=False, topk=10)  # the reference's NeXT settings
 
-        def make(ensemble):
+        def make(ensemble, **changes):
             return LlavaNextEngine(
-                cfg=cfg, params=params, ens=ens, gen=gen, seed=506, ensemble=ensemble,
-                max_len=llavanext.max_image_tokens(cfg) + 64 + 512,
+                cfg=cfg, params=params, ens=dataclasses.replace(ens, **changes), gen=gen,
+                seed=506, ensemble=ensemble, max_len=llavanext.max_image_tokens(cfg) + 64 + 512,
             )
     else:
         args = (ids, pixels)
@@ -139,10 +145,10 @@ def tier_engines(tier: str, gen):
             lm = synthetic_int8_lm if tier == "int8" else synthetic_int4_lm
             params = LlavaParams(vision, projector, lm(cfg.text, "cuda", seed=0))
 
-        def make(ensemble):
+        def make(ensemble, **changes):
             return LlavaEngine(
                 cfg=cfg, params=params, max_len=1152, ensemble=ensemble, int8_kv=tier != "bf16",
-                gen=gen,
+                gen=gen, ens=EnsembleConfig(**changes),
             )
     return make, args, params
 
@@ -161,19 +167,53 @@ def print_tokens(tier: str) -> None:
     torch.cuda.empty_cache()
 
 
+# the decode arms each tier profiles: (label, ensemble, EnsembleConfig
+# changes, GenerationConfig changes, engine fields); "modes" is the bf16
+# tier's other arms
+ARMS = {
+    "tier": (
+        ("greedy", False, {}, {}, {}),
+        ("exact", True, {}, {}, {}),
+        ("fused", True, {"fused_step": True}, {}, {}),
+    ),
+    "modes": (
+        ("exact epis_kl", True, {"mask_policy": "epis_kl"}, {}, {}),
+        ("fused epis_kl", True, {"mask_policy": "epis_kl", "fused_step": True}, {}, {}),
+        ("exact sampled", True, {}, {"do_sample": True, "temperature": 0.7, "top_p": 0.9}, {}),
+        ("exact entropy", True, {}, {}, {"text_mask_policy": "entropy"}),
+    ),
+}
+
+
 def profile_tier(tier: str) -> None:
+    """One prefill (greedy's) and 8 decode steps of each of the tier's arms
+    under the profiler; ``modes`` runs the bf16 model."""
+    import dataclasses
+
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
 
     gen = GenerationConfig(max_new_tokens=STEPS + 1, eos_token_id=-1, pad_token_id=0)
-    make, args, params = tier_engines(tier, gen)
+    make, args, params = tier_engines("bf16" if tier == "modes" else tier, gen)
     columns = {}
-    for label, ensemble in (("greedy", False), ("exact", True)):
-        eng = make(ensemble)
+    arms = ARMS["modes" if tier == "modes" else "tier"]
+    for label, ensemble, changes, gen_changes, fields in arms:
+        eng = dataclasses.replace(
+            make(ensemble, **changes), gen=dataclasses.replace(gen, **gen_changes), **fields
+        )
         eng.generate(*args)  # warm-up
-        if not ensemble:
+        if label == "greedy":
             columns["prefill"] = device_times(lambda: eng.prefill(*args))
         state = eng.prefill(*args)
         columns[f"{label} step"] = device_times(lambda: eng.decode(state))
+    print_columns("bf16 modes" if tier == "modes" else tier, columns)
+    del params, state, eng, make
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def print_columns(tier: str, columns: dict) -> None:
+    """PERF.md section 5's table of ``columns`` (label -> ``device_times``),
+    and the heaviest kernels of each."""
     print(f"\n{tier}: ms (prefill: one call; steps: per step, over {STEPS} steps)")
     names = list(columns)
     print("| " + " | ".join(["", *names]) + " |")
@@ -198,9 +238,6 @@ def profile_tier(tier: str) -> None:
         top = sorted(columns[n][0].items(), key=lambda kv: -kv[1])[:6]
         print(f"{tier} {n}, heaviest: " + "; ".join(
             f"{name[:60]} {ms / per[n]:.3f}" for name, ms in top))
-    del params, state, eng, make
-    gc.collect()
-    torch.cuda.empty_cache()
 
 
 def int4_rows() -> None:
@@ -393,7 +430,7 @@ def main() -> int:
     tokens = args[:1] == ["tokens"]
     tiers = args[1:] if tokens else args
     tiers = tiers or ["bf16", "int8", "int4"]
-    if any(t not in ("bf16", "int8", "int4", "next", "kernels", "k2k4") for t in tiers):
+    if any(t not in ("bf16", "int8", "int4", "next", "kernels", "k2k4", "modes") for t in tiers):
         print(__doc__, file=sys.stderr)
         return 2
     print(f"card: {chip_smoke._card_line()}")
@@ -409,7 +446,7 @@ def main() -> int:
         elif tier == "k2k4":  # the last two of ``kernels`` alone
             uncertainty_cases()
             cache_append_cases()
-        elif tokens:
+        elif tokens and tier != "modes":
             print_tokens(tier)
         else:
             profile_tier(tier)

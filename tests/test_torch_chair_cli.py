@@ -7,7 +7,9 @@ own tiny engine on one set of weights (carried across by
 ``utils/convert.py``; JAX's mask draws injected into the port), behind
 that file's ``_TinyProcessor``.  Both must write the same sample log,
 caption records, self-critical JSON, CHAIR results and THRONE scores, for
-``--original``, the default Dropout Decoding arm and its int8 tier.
+``--original``, the default Dropout Decoding arm, its int8 tier, and the
+fused arm with sampling and the text mask (all three of JAX's streams
+injected).
 """
 import dataclasses
 import json
@@ -24,6 +26,7 @@ from dropoutdecoding_tpu.engine.generate import LlavaEngine as JaxEngine
 from dropoutdecoding_tpu.utils import config as jax_config
 from dropoutdecoding_tpu.utils import quantize as jquant
 from dropoutdecoding_tpu_torch.cli import chair_test as tcli
+from dropoutdecoding_tpu_torch.decoding import masks as tmasks
 from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
 from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
 from dropoutdecoding_tpu_torch.models import llavanext as tnext
@@ -33,7 +36,7 @@ from dropoutdecoding_tpu_torch.utils.convert import (
     llavanext_params_from_numpy,
 )
 from test_chair_cli_end_to_end import _TinyProcessor, synthetic_coco  # noqa: F401 (fixture)
-from test_torch_engine import jax_uniform
+from test_torch_engine import jax_gumbel, jax_text_uniform, jax_uniform
 from test_torch_llavanext import narrow_config, narrow_tree
 from test_torch_models import tiny_config, tiny_tree
 
@@ -47,8 +50,13 @@ def weights():
     return jax.tree.map(jnp.asarray, tree), llava_params_from_numpy(tree)
 
 
-def _gen(C):
-    return C.GenerationConfig(max_new_tokens=4, eos_token_id=2, pad_token_id=2)
+def _gen(C, args=None):
+    """The tiny engines' generation config, with the CLI's sampling knobs."""
+    knobs = {} if args is None else dict(
+        do_sample=jcli.str2bool(args.do_sample), temperature=args.temperature,
+        top_p=args.top_p, top_k=args.top_k,
+    )
+    return C.GenerationConfig(max_new_tokens=4, eos_token_id=2, pad_token_id=2, **knobs)
 
 
 def _jax_make_engine(weights):
@@ -60,9 +68,10 @@ def _jax_make_engine(weights):
             params = jp._replace(lm=jquant.fuse_projections(jquant.quantize_llama_params(jp.lm)))
         eng = JaxEngine(
             cfg=tiny_config(jax_config), params=params,
-            ens=jcli.build_ensemble_config(args, args.model), gen=_gen(jax_config),
+            ens=jcli.build_ensemble_config(args, args.model), gen=_gen(jax_config, args),
             max_len=48, seed=args.seed, ensemble=not jcli.str2bool(args.original),
             int8_kv=jcli.str2bool(args.int8_kv),
+            text_logits_mask=jcli.str2bool(args.text_logit_mask),
         )
         eng.param_dtype = jnp.float32
         return eng, _TinyProcessor(eng.cfg)
@@ -78,9 +87,12 @@ def _port_make_engine(weights, engines=None):
         tcli.check_ported(args)
         eng = LlavaEngine(
             cfg=tiny_config(torch_config), params=tcli.maybe_quantize(args, tp),
-            ens=tcli.build_ensemble_config(args, args.model), gen=_gen(torch_config),
+            ens=tcli.build_ensemble_config(args, args.model), gen=_gen(torch_config, args),
             max_len=48, seed=args.seed, ensemble=not tcli.str2bool(args.original),
             int8_kv=tcli.str2bool(args.int8_kv), uniform=jax_uniform(args.seed),
+            text_logits_mask=tcli.str2bool(args.text_logit_mask),
+            # the JAX engine draws its text uniforms at max_len rounded up to 32
+            text_uniform=jax_text_uniform(args.seed, length=64), gumbel=jax_gumbel(args.seed),
         )
         if engines is not None:
             engines.append(eng)
@@ -126,8 +138,10 @@ def _run(cli, coco, workdir, extra, monkeypatch, n=4, **main_kw):
 
 @pytest.mark.parametrize(
     "extra",
-    [["--original", "True"], [], ["--quantize", "int8", "--int8-kv", "True"]],
-    ids=["original", "dropout-decoding", "dropout-decoding-int8"],
+    [["--original", "True"], [], ["--quantize", "int8", "--int8-kv", "True"],
+     ["--fused-step", "True", "--do-sample", "True", "--temperature", "0.7", "--top-p", "0.9",
+      "--top-k", "5", "--text-logit-mask", "True", "--mask-policy", "epis_kl"]],
+    ids=["original", "dropout-decoding", "dropout-decoding-int8", "fused-sampled-text-mask-epis_kl"],
 )
 def test_main_writes_what_the_jax_main_writes(synthetic_coco, tmp_path, monkeypatch, weights, extra):
     monkeypatch.setattr(jcli, "make_engine", _jax_make_engine(weights))
@@ -221,7 +235,8 @@ def test_parser_keeps_every_flag_name_and_default():
     "extra",
     [[], ["--use_random", "True"], ["--avg", "True", "--voting-numbers", "5"],
      ["--mask-policy", "epis_no_overlap"], ["--model", "llava-next"],
-     ["--model", "llava-next", "--use_random", "True"]],
+     ["--model", "llava-next", "--use_random", "True"], ["--fused-step", "True"],
+     ["--mask-policy", "epis_kl", "--model", "llava-next"]],
 )
 def test_build_ensemble_config_matches(extra):
     argv = ["--coco-data-dir", "d", "--model-path", "m"] + extra
@@ -236,9 +251,6 @@ NOT_PORTED = [
     (["--num-beams", "3"], 9),
     (["--opera", "True"], 13),
     (["--spec-gamma", "3"], 14),
-    (["--do-sample", "True"], 6),
-    (["--fused-step", "True"], 6),
-    (["--text-logit-mask", "True"], 6),
     (["--quantize", "w8a8"], 12),
     (["--w8a8-decode", "True"], 12),
     (["--consistency", "True"], 15),
@@ -314,9 +326,41 @@ def test_make_engine_int4(fake_load):
     assert set(eng.params.lm["lm_head"]) == {"q", "s"}  # int8 head
 
 
-def test_mask_policy_the_port_lacks_raises_at_construction(fake_load):
-    with pytest.raises(NotImplementedError):
-        _make(["--mask-policy", "epis_kl"])
+FLAGS = [  # (argv, the engine's value it sets, the value)
+    (["--do-sample", "True"], lambda e: e.gen.do_sample, True),
+    (["--temperature", "0.7"], lambda e: e.gen.temperature, 0.7),
+    (["--top-p", "0.9"], lambda e: e.gen.top_p, 0.9),
+    (["--top-k", "5"], lambda e: e.gen.top_k, 5),
+    (["--fused-step", "True"], lambda e: e.ens.fused_step, True),
+    (["--text-logit-mask", "True"], lambda e: (e.text_logits_mask, e.text_policy), (True, "logits")),
+]
+
+
+@pytest.mark.parametrize("extra,read,want", FLAGS, ids=[e[0] for e, _, _ in FLAGS])
+def test_decoding_flags_reach_the_engine(fake_load, extra, read, want):
+    """Each flag sets its engine field; without it the field keeps the
+    default arm's value."""
+    assert read(_make(extra)[0]) == want
+    assert read(_make([])[0]) != want
+
+
+@pytest.mark.parametrize("policy", tmasks.POLICIES)
+def test_every_mask_policy_builds_an_engine(fake_load, policy):
+    eng, _ = _make(["--mask-policy", policy])
+    assert eng.ens.mask_policy == policy and eng.ensemble
+
+
+def test_do_sample_with_beams_exits_as_the_jax_cli(tmp_path, monkeypatch):
+    """--do-sample with --num-beams 3 exits before any work, with the JAX
+    CLI's message."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "load_processor", lambda path: pytest.fail("tokenizer read"))
+    argv = _argv(tmp_path / "coco", tmp_path, ["--do-sample", "True", "--num-beams", "3"])
+    with pytest.raises(SystemExit, match="beam-sample"):
+        jcli.make_engine(jcli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit, match="beam-sample"):
+        tcli.main(tcli.build_parser().parse_args(argv), device="cpu")
+    assert os.listdir(tmp_path) == []
 
 
 def test_emit_caption_matches_the_jax_emit(tmp_path, capsys):

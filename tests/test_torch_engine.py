@@ -43,6 +43,32 @@ def jax_uniform(seed):
     return uniform
 
 
+def jax_text_uniform(seed, length=None):
+    """The JAX engine's text-mask draws (stream 7919), as the port's
+    ``text_uniform``.  The JAX engine draws ``max_len`` rounded up to 32
+    values; ``length`` is that count where the port's ``max_len`` differs,
+    and the port takes the first ``n``."""
+    base = jax.random.key(seed)
+
+    def text_uniform(step, row, n):
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.fold_in(base, step), 7919), row)
+        return torch.from_numpy(np.array(jax.random.uniform(key, (length or n,))))[:n]
+
+    return text_uniform
+
+
+def jax_gumbel(seed):
+    """The JAX engine's sampling noise (stream 104729): the Gumbel draw
+    ``jax.random.categorical`` adds to the logits, as the port's ``gumbel``."""
+    base = jax.random.fold_in(jax.random.key(seed), 104729)
+
+    def gumbel(step, row, n):
+        key = jax.random.fold_in(jax.random.fold_in(base, step), row)
+        return torch.from_numpy(np.array(jax.random.gumbel(key, (n,), jnp.float32)))
+
+    return gumbel
+
+
 @pytest.fixture(scope="module")
 def weights():
     tree, pixels = tiny_tree()
@@ -158,21 +184,6 @@ def test_kv_capacity_guard(weights):
         te.generate(INPUT_IDS, weights[2])
 
 
-@pytest.mark.parametrize(
-    "change",
-    [
-        {"ens": torch_config.EnsembleConfig(fused_step=True)},
-        {"ens": torch_config.EnsembleConfig(mask_policy="epis_kl")},
-        {"gen": torch_config.GenerationConfig(do_sample=True)},
-        {"text_mask_policy": "entropy"},
-    ],
-    ids=["fused", "epis_kl", "do_sample", "text-mask"],
-)
-def test_unported_modes_raise(weights, change):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        LlavaEngine(cfg=tiny_config(torch_config), params=weights[1], **change)
-
-
 def test_philox_draws_follow_the_key_tree():
     u = PhiloxUniform(SEED, "cpu")
     a = u(3, 0, 1, 16)
@@ -244,12 +255,15 @@ def test_member_drop_masks(rng, policy, accumulate):
 
 
 def test_unported_mask_policy_raises():
+    """An unknown policy's name raises ``ValueError``, when the mask is
+    built and when an ensemble engine is."""
     z = torch.zeros(4)
     b = torch.zeros(4, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
-        tmasks.build_member_drop_mask(z, "epis_quantile", z, 0.5, b, b, True)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown mask policy"):
         tmasks.build_member_drop_mask(z, "bogus", z, 0.5, b, b, True)
+    with pytest.raises(ValueError):
+        LlavaEngine(cfg=tiny_config(torch_config), params=None,
+                    ens=torch_config.EnsembleConfig(mask_policy="bogus"))
 
 
 def test_vote_and_average(rng):

@@ -283,6 +283,49 @@ def test_llama_prefill_logits_match_hf(rng, num_kv_heads):
     assert tuple(kv.k.shape) == (3, B, S, num_kv_heads, 8)
 
 
+def test_llama_decode_step_matches_hf_incremental(rng):
+    """The JAX package's HF golden (``tests/test_llama_parity.py:57``),
+    inherited: greedy decoding through the port's cache and
+    ``decode_step`` gives HF's cache-based incremental logits, step by
+    step."""
+    from transformers import LlamaConfig, LlamaForCausalLM
+
+    torch.manual_seed(0)
+    hf_cfg = LlamaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=128, num_hidden_layers=3,
+        num_attention_heads=8, num_key_value_heads=4, max_position_embeddings=256,
+        rms_norm_eps=1e-5, rope_theta=10000.0, attn_implementation="eager",
+    )
+    model = LlamaForCausalLM(hf_cfg).eval().float()
+    cfg = torch_config.LlamaConfig.from_hf_dict(hf_cfg.to_dict())
+    params = llama.params_from_hf(cfg, model.state_dict(), torch.float32, "cpu")
+    B, S, Smax = 1, 9, 32
+    ids = torch.from_numpy(rng.integers(0, 128, size=(B, S)))
+    with torch.no_grad():
+        out = model(ids, use_cache=True)
+        past, tok = out.past_key_values, out.logits[:, -1].argmax(-1)
+        ref = []
+        for _ in range(4):
+            out = model(tok[:, None], past_key_values=past, use_cache=True)
+            past = out.past_key_values
+            ref.append(out.logits[:, -1].numpy())
+            tok = out.logits[:, -1].argmax(-1)
+
+        hidden, kv = llama.prefill(params, cfg, llama.embed(params, ids), torch.arange(S)[None].expand(B, S))
+        cache = llama.cache_seed(llama.empty_cache(cfg, B, Smax, torch.float32, "cpu"), kv)
+        tok = llama.lm_head(params, hidden[:, -1]).argmax(-1)
+        for t in range(4):
+            cur = torch.full((B,), S + t)
+            mask = (torch.arange(Smax) < S + t)[None, None].expand(B, 1, Smax)
+            h, k_new, v_new = llama.decode_step(
+                params, cfg, llama.embed(params, tok)[:, None], cur, cache, mask
+            )
+            logits = llama.lm_head(params, h)[:, 0]
+            np.testing.assert_allclose(logits.numpy(), ref[t], rtol=2e-4, atol=2e-4)
+            llama.cache_set_rows(cache, cur, k_new[:, :, 0], v_new[:, :, 0])
+            tok = logits.argmax(-1)
+
+
 def test_tied_embeddings_make_the_head():
     cfg = torch_config.LlamaConfig(
         vocab_size=8, hidden_size=4, intermediate_size=8, num_hidden_layers=1,
