@@ -48,6 +48,11 @@ Phases, each fatal on failure:
    fp32 whose merged prompt (1320 tokens) runs K5; then the fp32 LLaVA in
    fused mode (K1 at M = 4) with lagged "epis_kl", the "entropy" text mask
    and sampling, all three draw streams injected: tokens must be equal.
+   Then the POPE path on the narrow LLaVA, its int4 tier and the narrow
+   NeXT (``small_pope``): ``probe`` with ``text_lens`` and ``image_index``,
+   ``probe_prefix`` + ``probe_extend`` over dense and int8 prefixes, first
+   tokens equal card against CPU and across the modes, last_logits within
+   ``POPE_NARROW_RTOL``, launch counts exact.
 5. End to end, greedy, exact K=3 and fused K=3 (one M = 4 forward a step),
    32 new tokens each, with every kernel's launch count checked exactly, and
    that the prefill's K5 and K6 launches took the wgmma kernels: ``LlavaEngine.generate`` at full
@@ -64,14 +69,23 @@ Phases, each fatal on failure:
    fused and exact "epis_kl", sampling at top-k 1 (tokens equal to the
    arm's unsampled ones) and at temperature 0.7 / top-p 0.9, and the
    "logits" and "entropy" text masks; then the per-step cost of the
-   "epis_kl" keep set and of the top-p sort.
+   "epis_kl" keep set and of the top-p sort.  On bf16, int4 and NeXT, POPE
+   (``pope_full``): twelve questions on two images through the batched
+   ``probe`` (B = 8, two unique images), ``probe`` a row at a time and
+   ``probe_prefix`` + ``probe_extend``, agreeing within ``POPE_MODES_RTOL``,
+   launch counts exact (no kernel on bf16, K2 none anywhere, K6 128 a
+   forward on int4, K5 32 a NeXT prefill and none in its extend), ms a
+   question and the device peak of each mode.
 6. The CHAIR CLI (``chair_cli``): LLaVA-1.5-7B at full width and depth,
    synthetic bf16 weights written as an HF checkpoint (published
    config.json, three .safetensors shards and their index), loaded by the
    CLI's ``build_engine`` with its load time, host peak RSS and device
    peak, leaves checked bit-equal; two images captioned through the CLI
    with the default Dropout Decoding arm and ``--original``, each caption
-   equal to ``generate`` called directly, K1 and K2 launches counted.
+   equal to ``generate`` called directly, K1 and K2 launches counted.  Then
+   the POPE CLI on the same engine (``pope_cli``): 12 vendored questions a
+   strategy, serial, ``--batch-size 8`` and ``--prefix-cache True``, each
+   answer archive equal to the same mode's engine calls made directly.
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -571,7 +585,7 @@ def check_flash_prefill() -> dict:
     """K5 against its twin: the LLaVA-NeXT prefill shape with a padded key
     tail, at G = 4 and G = 1 in bf16 and in fp32; on the wgmma kernel (bf16,
     D = 128) also S = 1024 and 1025, B = 2 with two different key-mask
-    tails, and rows with no attendable key (masked leading keys: the twin's
+    tails, B = 8 with eight (NeXT's batched POPE probe), and rows with no attendable key (masked leading keys: the twin's
     softmax is uniform over all S keys there); the same on the mma.sync
     kernel (D = 64) and the scalar one (fp32, D = 16).  Two more wgmma cases
     make single key tiles matter: "peaked" scales q by 8, so that a row's
@@ -606,6 +620,9 @@ def check_flash_prefill() -> dict:
         ("B=2 S=700 G=2 D=64 bf16, rows without keys", 2, 700, 8, 4, 64, bf16, [650, 650], 5,
          "mma"),
         ("S=1100 G=2 D=16 fp32, rows without keys", 1, 1100, 4, 2, 16, fp32, [1000], 5, "scalar"),
+        # NeXT's batched POPE probe: eight rows on two images, each its own key tail
+        ("B=8 S=2950 G=4 bf16, eight key tails", 8, 2950, 32, 8, 128, bf16,
+         [2357, 2360, 2362, 2358, 2161, 2164, 2166, 2160], 0, "wgmma"),
     ]
     for i, (label, B, S, H, KH, D, dtype, real, lead, kernel) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(400 + i)
@@ -673,15 +690,18 @@ def check_int4_matmul() -> dict:
     """K6 against its twin, with uniform bytes (every nibble value, -8
     included) and varied scales: the four projection shapes of a 7B layer
     at the row counts of the main path (1 and 3 in the decode forwards, 595
-    in the prefill) and at 16, the last of the whole-tile kernel, in bf16,
+    in the prefill), at 16, the last of the whole-tile kernel, and at 128,
+    POPE's extend (8 tails of 16 tokens), in bf16,
     every call made twice with equal bits and o made again after gate_up, a bf16 input with an fp32 output (also at an
     int4 head's shape, whose 32064 channels end inside a tile), fp32 inputs
     at the narrow model's shapes, a ragged shape (43 groups of 32 a half, E
     = 130) on every mma.sync tile shape, and K6': layer 17 of a stacked
     [32, D/2, E] weight passed as a view, which must be read in place.  The
-    prefill's cases must take the wgmma kernel: the four shapes at R = 595,
-    the o projection also at R = 17, 64, 128 and 600, a batched [2, 595,
-    4096] x, a layer's view and the head at R = 576.  Beside each 7B case the time of ``torch.matmul`` of x
+    cases over 16 rows must take the wgmma kernel: the four shapes at R =
+    128 and 595, the o projection also at R = 17, 64, 128 and 600, a batched
+    [2, 595, 4096] x and POPE's batched probe's [8, 616, 4096], a layer's
+    view and the head at R = 576.  Beside each 7B case the time of
+    ``torch.matmul`` of x
     with a bf16 matrix dequantized ahead of time (reference only; the port
     never makes that matrix).  Returns the record of the fused gate/up
     projection at 3 rows, the exact-mode decode's, with the same projection
@@ -729,10 +749,11 @@ def check_int4_matmul() -> dict:
     for name, D, E in shapes:
         q4, s4 = packed(D=D, E=E, group=128)
         dense = dequantize_matrix_int4({"q4": q4, "s4": s4}, torch.bfloat16)
-        # 4: fused mode's decode forward, B·(K+1) rows; 16: the whole-tile kernel's last
-        for R in (1, 3, 4, 16, 595):
+        # 4: fused mode's decode forward, B·(K+1) rows; 16: the whole-tile kernel's last;
+        # 128: POPE's extend, 8 tails of 16 tokens
+        for R in (1, 3, 4, 16, 128, 595):
             x = torch.randn(R, D, generator=g, device="cuda").to(torch.bfloat16)
-            route = "wgmma" if R == 595 else "tiles"
+            route = "wgmma" if R > 16 else "tiles"
             rec, got = compare(f"{name} [{R}, {D}] x [{D}, {E}] bf16 ({route})", x, q4, s4, None,
                                K6_TOL[torch.bfloat16], route=route)
             rec["library_ms"] = time_ms(lambda: torch.matmul(x, dense))
@@ -776,8 +797,9 @@ def check_int4_matmul() -> dict:
                 compare(f"o R={R} bf16 in, fp32 out ({route})", x, q4, s4, torch.float32,
                         K6_TOL["mma fp32"], timed=False, route=route)
             # row counts around the wgmma kernel's tiles: one short tile, a
-            # tile's edge, a ragged last tile, whole tiles, and a batched x
-            for lead in ((17,), (64,), (128,), (600,), (2, 595)):
+            # tile's edge, a ragged last tile, whole tiles, and batched x (the
+            # second at POPE's batched probe: 8 right-padded rows of about 600)
+            for lead in ((17,), (64,), (128,), (600,), (2, 595), (8, 616)):
                 x = torch.randn(*lead, D, generator=g, device="cuda").to(torch.bfloat16)
                 compare(f"o {list(lead)} rows bf16 (wgmma)", x, q4, s4, None,
                         K6_TOL[torch.bfloat16], timed=False, route="wgmma")
@@ -868,7 +890,10 @@ def small_reference(tier: str) -> None:
     "epis_kl", the "entropy" text mask and sampling (temperature 0.7, top-k
     5, top-p 0.9), its greedy run sampled too, with the text-mask draws and
     the Gumbel noise injected from tables as well.  A CPU prefill in fp64
-    anchors the epis of both sides, so a miss shows which side moved."""
+    anchors the epis of both sides, so a miss shows which side moved.
+    "pope" is the POPE path on the narrow models (``small_pope``)."""
+    if tier == "pope":
+        return small_pope()
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
@@ -981,6 +1006,158 @@ def small_reference(tier: str) -> None:
             raise AssertionError(f"narrow {tier} {label}: card tokens differ from the CPU twins'")
         if not err <= bound:
             raise AssertionError(f"narrow {tier} {label}: epis differs by {err} > {bound}")
+
+
+# small_pope: card against CPU, each mode's last_logits within this share of
+# their largest value.  fp32: summation order only, but a single position's
+# logits average nothing (the narrow epis checks above hold 1e-4 of theirs, and
+# have read 5.3e-4 once); the first card run read 9.1e-5.  A quantized head
+# (the int4 tier's is int8) rounds its input to bf16 on each device, so a
+# hidden value on a rounding boundary may round apart and move a logit by up to
+# a bf16 step of its size: 2^-8.
+POPE_NARROW_RTOL = {"fp32": 5e-4, "bf16-rounded head": 2.0**-8}
+
+
+def _probe_modes(eng, rows, lens, index, images, whole, prefix_len, tails, tail_lens,
+                 prefix_only=False):
+    """The POPE path's calls on one engine: ``probe`` of right-padded
+    ``rows`` (``text_lens`` ``lens``) over the unique ``images`` (a tuple of
+    the engine's image arguments, lists or arrays, image 0 first) by
+    ``index``; ``probe`` of the ``whole`` rows (ids, lens) on image 0; and
+    ``probe_prefix`` of their first ``prefix_len`` ids + ``probe_extend`` of
+    their ``tails`` (with ``prefix_only``, these two alone).  Returns
+    ({mode: result}, {mode: launches by kernel})."""
+    wrappers = _wrappers()
+    first = tuple(a[:1] for a in images)
+    out, counts = {}, {}
+
+    def run(mode, fn):
+        for w in wrappers.values():
+            w.launches = 0
+        out[mode] = fn()
+        counts[mode] = {k: w.launches for k, w in wrappers.items()}
+
+    if not prefix_only:
+        run("probe", lambda: eng.probe(rows, *images, text_lens=lens, image_index=index))
+        run("probe whole", lambda: eng.probe(whole[0], *first, text_lens=whole[1],
+                                             image_index=[0] * len(whole[0])))
+    run("prefix", lambda: eng.probe_prefix(whole[0][:1, :prefix_len], *first))
+    run("extend", lambda: eng.probe_extend(out["prefix"], tails, tail_lens))
+    return out, counts
+
+
+def small_pope() -> None:
+    """The POPE path on the narrow fp32 LLaVA, its int4 tier (K6, fp32
+    kernel) and the narrow LLaVA-NeXT (merged prompts of 1316-1323 tokens,
+    so K5 runs), on the card (kernels) and on the CPU (plain twins), with
+    dense and int8 prefix handles: ``probe`` of four right-padded rows over
+    two unique images, ``probe`` of three whole rows on one image, and
+    ``probe_prefix`` + ``probe_extend`` of their tails (``_probe_modes``).
+    First tokens equal card against CPU in every mode, and the whole rows'
+    equal to their tails' over the prefix on each device, dense or int8;
+    ``last_logits`` card against CPU within ``POPE_NARROW_RTOL`` of their
+    scale, by the head's input (over an int8 prefix, the card reads the
+    CPU's handle, so both extend over the same bytes).  Launches on the card, exact: K2 none; K5
+    once a layer in each NeXT ``probe`` and ``probe_prefix``, none in its
+    extend; K6 four a layer in each int4 forward."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
+    from dropoutdecoding_tpu_torch.models import llavanext
+    from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL, KVCache
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_llava_params,
+        synthetic_llavanext_params,
+    )
+    from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params_int4
+
+    rng = np.random.default_rng(7)
+
+    def sharpen(part, factor):  # as small_reference: logits sharp enough for argmax
+        if isinstance(part, dict):
+            return {k: sharpen(v, factor) for k, v in part.items()}
+        return part * factor if part.dim() >= 2 else part
+
+    cfg, ncfg = _narrow_config(), _narrow_next_config()
+    base = LlavaParams(*(sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3)))
+    nparams = llavanext.LlavaNextParams(
+        *(sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, 3)))
+    sizes = [(150, 220), (100, 230)]  # 5 and 3 tiles
+    tiles = [rng.normal(size=(llavanext.image_geometry(s, ncfg)["n_tiles"], 3, 112, 112))
+             .astype(np.float32) for s in sizes]
+    pixels = rng.normal(size=(2, 3, 112, 112)).astype(np.float32)
+    int4 = base._replace(lm=fuse_projections(quantize_llama_params_int4(base.lm)))
+    models = {  # name: (engine class, params, config, max_len, unique images)
+        "llava": (LlavaEngine, base, cfg, 128, (pixels,)),
+        "llava int4": (LlavaEngine, int4, cfg, 128, (pixels,)),
+        "next": (LlavaNextEngine, nparams, ncfg, 1344, (tiles, sizes)),
+    }
+    for name, (Engine, params, mcfg, max_len, images) in models.items():
+        t0 = time.perf_counter()
+        L, image = mcfg.text.num_hidden_layers, mcfg.image_token_index
+        low, high = 2, min(mcfg.text.vocab_size, image)  # ids that are not the image's
+        rows = rng.integers(low, high, size=(4, 12))
+        rows[:, 0], rows[:, 3] = 1, image
+        lens = np.array([12, 7, 9, 10])
+        rows[np.arange(12)[None] >= lens[:, None]] = 0
+        prefix_len, tail_lens = 5, np.array([8, 3, 6])
+        tails = rng.integers(low, high, size=(3, 8))
+        tails[np.arange(8)[None] >= tail_lens[:, None]] = 0
+        whole = np.zeros((3, prefix_len + 8), np.int64)
+        whole[:, :prefix_len], whole[:, prefix_len:] = rows[0, :prefix_len], tails
+        whole = (whole, prefix_len + tail_lens)
+        res = {}
+        for device in ("cuda", "cpu"):
+            p = type(params)(*(_to(part, device) for part in params))
+            for int8_prefix in (False, True):
+                eng = Engine(cfg=mcfg, params=p, max_len=max_len, int8_prefix_cache=int8_prefix)
+                res[device, int8_prefix], counts = _probe_modes(
+                    eng, rows, lens, np.array([0, 1, 1, 0]), images, whole, prefix_len, tails,
+                    tail_lens, prefix_only=int8_prefix)
+                if device == "cpu":
+                    continue
+                # the text ids of each prefill (the extend runs none)
+                text = {"probe": rows.shape[1], "probe whole": whole[0].shape[1],
+                        "prefix": prefix_len}
+                for mode, got in counts.items():
+                    long = mode in text and text[mode] - 1 + eng.n_visual >= LONG_PREFILL
+                    want = dict.fromkeys(got, 0)
+                    want["K5"] = L if long else 0
+                    want["K6"] = 4 * L if "int4" in name else 0
+                    _check_counts(f"small pope {name} {mode}", got, want)
+            if device == "cuda":  # the card's extend over the CPU's int8 handle, below
+                card = eng
+        handle = res["cpu", True]["prefix"]
+        if name == "next":
+            handle = (KVCache(*(_to(leaf, "cuda") for leaf in handle[0])),
+                      *(t.cuda() for t in handle[1:]))
+        else:
+            handle = KVCache(*(_to(leaf, "cuda") for leaf in handle))
+        same_bytes = card.probe_extend(handle, tails, tail_lens)
+        pairs = [(mode, res["cuda", False][mode], res["cpu", False][mode])
+                 for mode in ("probe", "probe whole", "extend")]
+        pairs.append(("extend over the CPU's int8 prefix", same_bytes, res["cpu", True]["extend"]))
+        rtol = POPE_NARROW_RTOL["bf16-rounded head" if "int4" in name else "fp32"]
+        for mode, on_card, on_cpu in pairs:
+            d = (on_card.last_logits.cpu() - on_cpu.last_logits).abs()
+            err, scale = d.max().item(), on_cpu.last_logits.abs().max().item()
+            bound = rtol * scale
+            print(f"small pope {name} {mode}: card {on_card.first_token.tolist()} cpu "
+                  f"{on_cpu.first_token.tolist()}, last_logits err {err:.2e} = {err / scale:.1e} of "
+                  f"their scale, by row {[f'{e:.1e}' for e in d.amax(dim=-1).tolist()]} (bound "
+                  f"{bound:.2e})")
+            if not torch.equal(on_card.first_token.cpu(), on_cpu.first_token) or not err <= bound:
+                raise AssertionError(f"small pope {name} {mode}: the card differs from the CPU")
+        tokens = {(device, int8, mode): res[device, int8][mode].first_token.tolist()
+                  for device in ("cuda", "cpu") for int8 in (False, True)
+                  for mode in ("probe whole", "extend") if mode in res[device, int8]}
+        if len({tuple(t) for t in tokens.values()}) != 1:
+            raise AssertionError(f"small pope {name}: first tokens differ across modes {tokens}")
+        print(f"small pope {name}: the whole rows' first tokens equal their tails' over the "
+              f"prefix, dense and int8, on both devices: {next(iter(tokens.values()))}; "
+              f"{time.perf_counter() - t0:.1f} s")
 
 
 def _to(tree, device, float_dtype=None):
@@ -1245,14 +1422,259 @@ def batch_of_two(cfg, params, tier: str, int8_kv: bool) -> None:
         raise AssertionError(f"{tier} B=2: launch counts {counts} != {want}")
 
 
-def end_to_end() -> dict:
+# pope_full: the largest |last_logits| difference between two modes of the
+# POPE path at full width, as a share of the largest |logit|.  The modes sum
+# in other orders: the prefix cache's fp32 attention over the cached keys
+# against the prefill's, and over NeXT's padded prefix against the same
+# prefix cut to its real length only the key count differs.  A bf16 output
+# then rounds to its neighbour now and then, and 32 layers of synthetic
+# weights grow those one-step differences: the card read 2.6% (LLaVA-1.5)
+# and 3.3% (NeXT) between the prefix cache and the row at a time, 2.8% between
+# NeXT's padded and cut prefixes, while the faults this bound is there for
+# read 35% (the tails' positions from NeXT's padded length) and 63% (its
+# pad slots unmasked; ``next_pad_check`` plants both on every run).  The
+# projections are not where the modes part: a bf16 row reads the same from
+# a call of 128 rows as from one of 595 (``matmul_row_rounding``; not from
+# one of 16), and batched and row at a time agree to the bit.  On int4,
+# fewer one-step differences arise (0.07%): 2^-8.
+POPE_MODES_RTOL = {"bf16": 2.0**-4, "int4": 2.0**-8, "next": 2.0**-4}
+
+
+def time_extend_attention(cfg, key_mask: torch.Tensor, B: int = 8, T: int = 16) -> float:
+    """One layer's plain-torch extend attention (``ops.attention.
+    extend_attention``; no kernel: it is plain XLA in the JAX package) at the
+    prefix-cached POPE shape: B tails of T tokens over one shared prefix
+    whose pad slots ``key_mask`` [1, P] masks, bf16; its time beside its
+    bound."""
+    from dropoutdecoding_tpu_torch.ops.attention import extend_attention
+
+    H, KH, D = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    P = key_mask.shape[1]
+    q, kn, vn, kp, vp = rnd(B, T, H, D), rnd(B, T, KH, D), rnd(B, T, KH, D), rnd(1, P, KH, D), rnd(1, P, KH, D)
+    mask = key_mask.cuda()
+    ms = time_ms(lambda: extend_attention(q, kn, vn, kp, vp, mask))
+    ops = 2 * 2 * B * T * H * (P + T) * D  # QK^T and PV
+    bound = least_time(_nbytes(q, kn, vn, kp, vp, mask, q), ops, "bf16")
+    L = cfg.num_hidden_layers
+    print(f"extend attention, plain torch, one layer: B={B} T={T} over P={P}, {int(mask.sum())} real "
+          f"(H={H}, KH={KH}, D={D}, bf16): {ms * 1e3:.1f} us (bound {bound['bound_ms'] * 1e3:.1f} us "
+          f"by {bound['bound_by']}; {L * ms:.2f} ms over {L} layers)")
+    return ms
+
+
+def matmul_row_rounding() -> dict:
+    """Whether a bf16 ``torch.matmul`` row depends on how many rows share its
+    call: the first 16 rows of x [595, 4096] @ w [4096, 4096] (a prefill's
+    row count) against the same rows from a call of R = 16 and of R = 128
+    (POPE's extend).  Returns, by R, the share of outputs that differ and
+    the largest difference as a share of the largest |output|."""
+    g = torch.Generator(device="cuda").manual_seed(37)
+    x = torch.randn(595, 4096, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(4096, 4096, generator=g, device="cuda") / 64).to(torch.bfloat16)
+    whole = torch.matmul(x, w)[:16].float()
+    out = {}
+    for R in (16, 128):
+        part = torch.matmul(x[:R], w)[:16].float()
+        out[R] = {"share_differing": (part != whole).float().mean().item(),
+                  "max_diff_of_max": ((part - whole).abs().max() / whole.abs().max()).item()}
+    print(f"bf16 torch.matmul, 16 rows of a 595-row call against the same rows in a call of R "
+          f"rows: {out}")
+    return out
+
+
+def pope_questions(image_token: int, vocab: int, seed: int = 19):
+    """Twelve POPE prompts as ids, six on each of two images: a template of
+    7 ids with the image at 5, a question of 6-11 ids, a suffix of 3 (as
+    "USER: <image>\n{question} ASSISTANT:" tokenizes), and the template's
+    two probes with one-id questions ("aaaa", "zzzz").  Returns (rows,
+    image of each row, the two probes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    template = [1, *rng.integers(2, image_token, size=4), image_token, 13]
+    suffix = list(rng.integers(2, image_token, size=3))
+    rows = [np.array(template + list(rng.integers(2, min(vocab, image_token), size=n)) + suffix)
+            for n in (6, 9, 11, 7, 8, 10, 11, 6, 9, 8, 10, 7)]
+    probes = [np.array(template + [q] + suffix) for q in (300, 301)]
+    return rows, [i // 6 for i in range(12)], probes
+
+
+def pope_direct(eng, rows: list, owner: list, pick, template_len: int | None = None,
+                tamper=None) -> tuple:
+    """The POPE CLI's grouped modes as direct engine calls, through
+    ``cli.pope_test``'s grouping helpers: ``rows`` of ids, ``owner`` the
+    image of each row, ``pick(unique)`` the engine's image arguments (a
+    tuple) for a list of images.  Without ``template_len``, ``probe`` over
+    groups of 8 right-padded rows with their unique images, a short group
+    filled from its last row.  With it, ``probe_prefix`` of each image's
+    run's shared prefix (the template's, shrunk until every row of the run
+    shares it) and one ``probe_extend`` of the run's tails, bucketed to 8
+    rows; ``tamper`` maps each prefix handle before its extend (a planted
+    fault).  Returns (ProbeResult with one row a question, the prefix
+    handles)."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.cli import pope_test as pope
+    from dropoutdecoding_tpu_torch.engine.generate import ProbeResult
+
+    parts, handles = [], []
+    if template_len is None:
+        for start in range(0, len(rows), 8):
+            index, unique = pope.image_slots(owner[start : start + 8])
+            group = pope.fill_rows(rows[start : start + 8], 8)
+            res = eng.probe(pope.pad_rows(group)[0], *pick(unique),
+                            text_lens=np.array([len(r) for r in group], np.int32),
+                            image_index=np.asarray(pope.fill_rows(index, 8), np.int32))
+            parts.append((res, len(rows[start : start + 8])))
+    else:
+        for name, start, stop in pope.image_runs(owner):
+            run = rows[start:stop]
+            k = pope.group_prefix_len(run, template_len)
+            handles.append(eng.probe_prefix(run[0][None, :k], *pick([name])))
+            handle = handles[-1] if tamper is None else tamper(handles[-1])
+            res = eng.probe_extend(handle, *pope.pad_tails([r[k:] for r in run]))
+            parts.append((res, stop - start))
+    return ProbeResult(torch.cat([r.first_token[:n] for r, n in parts]),
+                       torch.cat([r.last_logits[:n] for r, n in parts])), handles
+
+
+def next_pad_check(eng, rows, owner, pick, template, padded, per_row, bound) -> dict:
+    """What is NeXT's own in the prefix cache: its prefix is padded past
+    its real length, so the tails' positions must start at the real length
+    and the pad slots must be masked.  The extend over each image's padded
+    handle (``padded``, the prefix-cache mode's last_logits) against the
+    extend over the same handle cut to its real length must stay within
+    ``bound`` (the modes' bound: only the attention's key count differs);
+    then two faults planted in the handles, the positions started at the
+    padded length and the pad slots unmasked, must each read over ``bound``
+    against the row-at-a-time probe (``per_row``).  Returns the readings."""
+
+    def cut(handle):  # no pad slots: the padded length is the real length
+        kv, real_len, key_mask = handle
+        n = int(real_len[0])
+        if not key_mask[:, :n].all() or key_mask[:, n:].any():
+            raise AssertionError("pope next: the prefix's pad slots are not its last")
+        return type(kv)(kv.k[:, :, :n], kv.v[:, :, :n]), real_len, key_mask[:, :n]
+
+    faults = {
+        "positions from the padded length":
+            lambda h: (h[0], torch.full_like(h[1], h[2].shape[1]), h[2]),
+        "pad slots unmasked": lambda h: (h[0], h[1], torch.ones_like(h[2])),
+    }
+    short = pope_direct(eng, rows, owner, pick, template, cut)[0].last_logits.float()
+    err = (padded - short).abs().max().item()
+    record = {"padded against cut": err}
+    print(f"pope next: extend over the padded prefix against the prefix cut to its real length: "
+          f"max |d last_logits| {err:.4f} (bound {bound:.4f})")
+    if not err <= bound:
+        raise AssertionError("pope next: the prefix's pad changes what the tails read")
+    for fault, tamper in faults.items():
+        bad = pope_direct(eng, rows, owner, pick, template, tamper)[0].last_logits.float()
+        err = (bad - per_row).abs().max().item()
+        record[fault] = err
+        print(f"pope next, planted fault ({fault}): max |d last_logits| {err:.4f} against "
+              f"per-row, {err / bound:.2f}x the bound; first tokens equal "
+              f"{int((bad.argmax(-1) == per_row.argmax(-1)).sum())} of 12")
+        if not err > bound:
+            raise AssertionError(f"pope next: the bound cannot tell '{fault}' from rounding")
+    return record
+
+
+def pope_full(eng, images: tuple, tier: str, want_per_forward: dict) -> dict:
+    """POPE at full width and depth on a built engine: the twelve prompts of
+    ``pope_questions`` over two ``images`` (a tuple of the engine's image
+    arguments for both, lists or arrays), through each mode of the CLI with
+    its grouping and padding (``pope_direct``): the batched ``probe`` (B =
+    8 right-padded rows, U = 2 unique images, then the short group filled
+    to 8 from its last row), ``probe`` a row at a time, and ``probe_prefix``
+    of each image's template + one ``probe_extend`` of its six tails
+    (bucketed to 8 rows).  Checks: the largest |last_logits| difference
+    from the row-at-a-time probe within ``POPE_MODES_RTOL`` of the largest
+    |logit|; first tokens equal wherever the top-2 margin exceeds that
+    bound; each mode's launches exactly ``want_per_forward`` times its
+    prefills (K5) or its forwards (the rest).  On NeXT, ``next_pad_check``.
+    Each mode runs once to warm up, then timed.  Returns ms a question by
+    mode and the device peak of each."""
+    from dropoutdecoding_tpu_torch.cli import pope_test as pope
+
+    wrappers = _wrappers()
+    rows, owner, probes = pope_questions(eng.cfg.image_token_index, eng.cfg.text.vocab_size)
+    template = pope.template_prefix_len(*probes)
+    V = eng.cfg.text.vocab_size
+
+    def pick(unique):  # the engine's image arguments of the unique images
+        return tuple([a[u] for u in unique] if isinstance(a, list) else a[unique] for a in images)
+
+    handles = []
+
+    def batched():
+        return pope_direct(eng, rows, owner, pick)[0].last_logits, 2, 2
+
+    def per_row():
+        out = [eng.probe(r[None], *pick([o])).last_logits for r, o in zip(rows, owner)]
+        return torch.cat(out), 12, 12
+
+    def prefix():
+        res, handles[:] = pope_direct(eng, rows, owner, pick, template)
+        return res.last_logits, 2, 4  # 2 prefills, 4 forwards
+
+    logits, record, t0 = {}, {}, time.perf_counter()
+    for mode, fn in (("batched probe", batched), ("per-row probe", per_row), ("prefix + extend", prefix)):
+        fn()  # warm-up
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (out, prefills, forwards), secs = _sync_time(fn)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        want = {k: n * (prefills if k == "K5" else forwards) for k, n in want_per_forward.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logits[mode] = out.float()
+        record[mode] = {"ms_a_question": secs * 1e3 / 12, "launches": counts,
+                        "peak_gib": peak, "above_params_gib": peak - base / 2**30}
+        print(f"pope {tier} {mode}: {secs * 1e3 / 12:.2f} ms a question ({secs * 1e3:.1f} ms for "
+              f"12), device peak {peak:.2f} GiB ({peak - base / 2**30:.2f} above what was "
+              f"allocated before), launches {counts} (want {want})")
+        _check_counts(f"pope {tier} {mode}", counts, want)
+        if out.shape != (12, V) or not torch.isfinite(out).all():
+            raise AssertionError(f"pope {tier} {mode}: last_logits {tuple(out.shape)}, not finite")
+    if tier == "next":
+        record["extend_attention_ms"] = time_extend_attention(eng.cfg.text, handles[0][2])
+    if tier == "bf16":  # do the projections part the modes?
+        record["matmul row rounding"] = matmul_row_rounding()
+    ref = logits["per-row probe"]
+    bound = POPE_MODES_RTOL[tier] * ref.abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > bound  # rows whose first token no rounding can move
+    for mode in ("batched probe", "prefix + extend"):
+        err = (logits[mode] - ref).abs().max().item()
+        same = logits[mode].argmax(-1) == ref.argmax(-1)
+        print(f"pope {tier} {mode} against per-row: max |d last_logits| {err:.4f} (bound "
+              f"{bound:.4f}); first tokens equal {int(same.sum())} of 12, {int(sure.sum())} rows "
+              f"with a top-2 margin over the bound, all equal there: {bool(same[sure].all())}")
+        if not err <= bound or not same[sure].all():
+            raise AssertionError(f"pope {tier} {mode}: modes disagree beyond the bound")
+    if tier == "next":
+        record["pad"] = next_pad_check(eng, rows, owner, pick, template,
+                                       logits["prefix + extend"], ref, bound)
+    record["seconds"] = time.perf_counter() - t0
+    return record
+
+
+def end_to_end() -> tuple:
     """The main paths at full width and depth: LlavaEngine.generate at
     LLaVA-1.5-7B with synthetic bf16 weights and a bf16 cache, then with
     synthetic int8 fused weights and an int8 cache, then with synthetic
     packed int4 fused weights, an int8 head and an int8 cache;
     LlavaNextEngine.generate at LLaVA-v1.6-Mistral-7B with synthetic bf16
-    weights.  Returns each
-    kernel's launch count from the exact K=3 run of the path that runs it."""
+    weights; on bf16, int4 and NeXT, POPE (``pope_full``).  Returns each
+    kernel's launch count from the exact K=3 run of the path that runs it,
+    and ``pope_full``'s records by tier."""
     import gc
 
     import numpy as np
@@ -1261,7 +1683,12 @@ def end_to_end() -> dict:
     from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
     from dropoutdecoding_tpu_torch.models import llavanext
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
-    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, LlavaConfig, LlavaNextConfig
+    from dropoutdecoding_tpu_torch.utils.config import (
+        EnsembleConfig,
+        GenerationConfig,
+        LlavaConfig,
+        LlavaNextConfig,
+    )
     from dropoutdecoding_tpu_torch.utils.convert import (
         synthetic_int4_lm,
         synthetic_int8_lm,
@@ -1290,6 +1717,13 @@ def end_to_end() -> dict:
     drive(llava(params, False), (ids, pixels), "bf16", LLAVA_RUNS, EnsembleConfig())
     step_costs(cfg.vision.num_patches, cfg.text.vocab_size)
     batch_of_two(cfg, params, "bf16", int8_kv=False)
+    # POPE (one token a question): two images of their own
+    prng = np.random.default_rng(23)
+    pope_pixels = prng.normal(size=(2, 3, 336, 336)).astype(np.float32)
+    no_kernel = dict.fromkeys(KERNELS, 0)
+    L = cfg.text.num_hidden_layers
+    pope = {"bf16": pope_full(llava(params, False)(True, GenerationConfig()), (pope_pixels,), "bf16",
+                              no_kernel)}
 
     # free the bf16 tower before the int8 one exists; keep vision + projector
     vision, projector = params.vision, params.projector
@@ -1308,6 +1742,8 @@ def end_to_end() -> dict:
     print(f"synthetic int4 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     int4 = drive(llava(params, True), (ids, pixels), "int4", [GREEDY, EXACT, FUSED],
                  EnsembleConfig(), int8_kv=True, int4=True)["exact K=3"]
+    pope["int4"] = pope_full(llava(params, True)(True, GenerationConfig()), (pope_pixels,), "int4",
+                             {**no_kernel, "K6": 4 * L})  # the head is int8: 4 K6 launches a layer
     del params, vision, projector, lm
     free()
 
@@ -1330,12 +1766,18 @@ def end_to_end() -> dict:
 
     nxt = drive(make_next, (ids, tiles, size), "next", [GREEDY, EXACT, FUSED], ens)["exact K=3"]
     step_costs(llavanext.max_image_tokens(ncfg), ncfg.text.vocab_size)
+    sizes = [(480, 640), (427, 640)]  # 5 tiles each; 2340 and 2144 of 2928 slots real
+    pope_tiles = [prng.normal(size=(llavanext.image_geometry(s, ncfg)["n_tiles"], 3, 336, 336))
+                  .astype(np.float32) for s in sizes]
+    pope["next"] = pope_full(make_next(True, GenerationConfig()), (pope_tiles, sizes), "next",
+                             {**no_kernel, "K5": ncfg.text.num_hidden_layers})  # each prefill's layers
     del params
     free()
-    return {
+    launches = {
         "K1": nxt["K1"], "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"],
         "K6": int4["K6"],
     }
+    return launches, pope
 
 
 # llava-hf/llava-1.5-7b-hf's config.json as published (the core dims of its
@@ -1504,7 +1946,7 @@ class _StandInTokenizer:
     LLaVA's image token, and an id decodes to a word of ``WORDS``."""
 
     WORDS = ("a", "dog", "sits", "on", "the", "chair", "next", "to", "table", "with", "cat",
-             "and", "person", "car", "near", "bed", "in", "room.")
+             "and", "person", "car", "near", "bed", "in", "room.", "no")
     eos_token_id = 2
 
     def __init__(self, image_token_index: int, vocab: int):
@@ -1714,11 +2156,130 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
                 raise AssertionError(f"chair_cli {arm}: CLI captions differ from generate's")
             (check_counts or _check_counts)(f"chair_cli {arm}", counts, want)
             record[arm] = {"captions_s": cli_s, "launches": counts}
+        record["pope_cli"] = pope_cli(engine, processor, ckpt, device, check_counts)
         record.update(write_s=write_s, load_s=load_s, host_peak_gib=host_peak,
                       device_peak_gib=dev_peak, whole_main=whole)
         return record
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_counts=None) -> dict:
+    """The port's POPE CLI on the engine ``chair_cli`` loaded from its HF
+    checkpoint: ``pope_test.main(..., device)`` with ``--number 12`` over
+    the vendored question sets (two images a set, six questions each), with
+    synthetic 640 x 480 JPEGs under the names they read, three times:
+    serial, ``--batch-size 8`` and ``--prefix-cache True``.  Each answer
+    archive must equal what the same mode's engine calls give when made
+    directly (``generate`` of one token a question; ``probe`` over groups of
+    8 right-padded rows with their unique images; ``probe_prefix`` of each
+    image's shared template + ``probe_extend`` of its tails).  Launches: K2
+    once a question serially (``generate``'s prefill; one new token runs no
+    decode step), nothing else in any mode.  Answers carry their token ids
+    (``vlm_processor``'s word, then the id), so the archives compare tokens.
+    ``main`` prints the confusion matrices; this prints the s a question of
+    each mode."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from dropoutdecoding_tpu_torch.cli import chair_test as cli
+    from dropoutdecoding_tpu_torch.cli import pope_test as pope
+    from dropoutdecoding_tpu_torch.evalsuite.pope import parse_question_file, vendored_question_dir
+
+    n = 12
+    questions = {s: parse_question_file(os.path.join(vendored_question_dir(), f"coco_pope_{s}.json"))[:n]
+                 for s in pope.STRATEGIES}
+    coco = os.path.join(root, "pope_coco")
+    os.makedirs(os.path.join(coco, "val2014"), exist_ok=True)
+    rng = np.random.default_rng(29)
+    for name in sorted({q["image"] for qs in questions.values() for q in qs}):
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(
+            os.path.join(coco, "val2014", name), "JPEG")
+
+    def load(name):
+        return Image.open(os.path.join(coco, "val2014", name)).convert("RGB")
+
+    class Answers:  # the processor, its answers carrying their token ids: archives compare tokens
+        def __call__(self, *args):
+            return vlm_processor(*args)
+
+        def decode(self, token_ids):
+            return f"{vlm_processor.decode(token_ids)} {[int(t) for t in token_ids]}"
+
+    processor = Answers()
+    eng = dataclasses.replace(engine)  # main sets its one-token budget on its own copy
+    direct = dataclasses.replace(engine, gen=dataclasses.replace(engine.gen, max_new_tokens=1))
+    prompt = pope.POPE_PROMPTS["llava"]
+
+    def ids(p):
+        return np.asarray(processor(p)["input_ids"])[0]
+
+    def pixels(name):  # the pixels do not depend on the prompt
+        return processor(prompt, load(name))["pixel_values"]
+
+    def serial(prompts, names):
+        out = []
+        for p, name in zip(prompts, names):
+            inputs = processor(p, load(name))
+            r = direct.generate(inputs["input_ids"], inputs["pixel_values"])
+            out.append(processor.decode(r.tokens[0][: r.num_tokens[0]]).strip())
+        return out
+
+    def pick(unique):
+        return (np.concatenate([pixels(u) for u in unique]),)
+
+    def tokens(res):
+        return [processor.decode([t]).strip() for t in res.first_token.tolist()]
+
+    def batched(prompts, names):
+        return tokens(pope_direct(direct, [ids(p) for p in prompts], names, pick)[0])
+
+    def prefixed(prompts, names):
+        template = pope.template_prefix_len(ids(prompt.format("aaaa")), ids(prompt.format("zzzz")))
+        return tokens(pope_direct(direct, [ids(p) for p in prompts], names, pick, template)[0])
+
+    wrappers = _wrappers()
+    make_engine, record, start = cli.make_engine, {}, time.perf_counter()
+    for mode, extra, calls in (("serial", [], serial), ("--batch-size 8", ["--batch-size", "8"], batched),
+                               ("--prefix-cache", ["--prefix-cache", "True"], prefixed)):
+        pope_dir = os.path.join(root, "pope_run")
+        shutil.rmtree(pope_dir, ignore_errors=True)
+        args = pope.build_parser().parse_args(
+            ["--model", "llava", "--model-path", root, "--coco-data-dir", coco, "--pope-dir", pope_dir,
+             "--number", str(n), "--seed", "0"] + extra)
+        for w in wrappers.values():
+            w.launches = 0
+        cli.make_engine = lambda a, device="cuda": (eng, processor)
+        try:
+            t0 = time.perf_counter()
+            pope.main(args, device=device)
+            secs = time.perf_counter() - t0
+        finally:
+            cli.make_engine = make_engine
+        counts = {k: w.launches for k, w in wrappers.items()}
+        archives = {}
+        for f in os.listdir(os.path.join(pope_dir, "answer")):
+            if f.endswith("_ans.json"):
+                with open(os.path.join(pope_dir, "answer", f)) as fh:
+                    archives[f.split("_")[-2]] = [json.loads(line)["answer"] for line in fh]
+        want = {s: calls([prompt.format(q["text"]) for q in qs], [q["image"] for q in qs])
+                for s, qs in questions.items()}
+        total = sum(len(qs) for qs in questions.values())
+        want_counts = {**dict.fromkeys(wrappers, 0), "K2": total if mode == "serial" else 0}
+        print(f"pope_cli {mode}: {total} questions in {secs:.2f} s through the CLI, "
+              f"{secs / total:.4f} s a question; archives equal to the engine calls made directly: "
+              f"{archives == want}; answers {sorted(set(a for v in archives.values() for a in v))}; "
+              f"launches {counts} (want {want_counts})")
+        if archives != want:
+            raise AssertionError(f"pope_cli {mode}: archives {archives} != direct calls' {want}")
+        (check_counts or _check_counts)(f"pope_cli {mode}", counts, want_counts)
+        record[mode] = {"s_a_question": secs / total, "launches": counts}
+    shutil.rmtree(os.path.join(root, "pope_run"), ignore_errors=True)
+    record["seconds"] = time.perf_counter() - start
+    return record
 
 
 def _check_counts(label: str, counts: dict, want: dict) -> None:
@@ -1802,9 +2363,15 @@ def main() -> int:
     small_reference("int4")
     small_reference("next")
     small_reference("modes")
-    launches = end_to_end()
+    t_pope = time.perf_counter()
+    small_reference("pope")
+    t_pope = time.perf_counter() - t_pope
+    launches, pope = end_to_end()
     cli_record = chair_cli()
     print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")
+    pope_s = {"small": t_pope, **{k: v["seconds"] for k, v in pope.items()},
+              "cli": cli_record["pope_cli"]["seconds"]}
+    print(f"POPE phases: {json.dumps(pope_s)}, {sum(pope_s.values()):.1f} s added")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -60,7 +60,6 @@ NOT_PORTED = (
     ("--spec-gamma", lambda a: bool(getattr(a, "spec_gamma", None)), 14),
     ("--quantize w8a8", lambda a: getattr(a, "quantize", None) == "w8a8", 12),
     ("--w8a8-decode", lambda a: str2bool(getattr(a, "w8a8_decode", False)), 12),
-    ("--int8-prefix-cache", lambda a: str2bool(getattr(a, "int8_prefix_cache", False)), 12),
     ("--consistency", lambda a: str2bool(getattr(a, "consistency", False)), 15),
     ("--consistency-im", lambda a: bool(getattr(a, "consistency_im", None)), 15),
     ("--model instructblip", lambda a: a.model == "instructblip", 11),
@@ -163,6 +162,7 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
         seed=args.seed if args.seed is not None else REFERENCE_SEEDS[model],
         text_logits_mask=str2bool(getattr(args, "text_logit_mask", False)),
         int8_kv=str2bool(getattr(args, "int8_kv", False)),
+        int8_prefix_cache=str2bool(getattr(args, "int8_prefix_cache", False)),
     )
     if model == "llava-1.5":
         from ..engine.generate import LlavaEngine
@@ -292,8 +292,8 @@ def chair_eval(
     print("hallucinate_sum: ", halluc)
 
 
-def _progress(done: int, total: int) -> None:
-    print(f"captioned {done}/{total}", file=sys.stderr)
+def _progress(done: int, total: int, what: str = "captioned") -> None:
+    print(f"{what} {done}/{total}", file=sys.stderr)
 
 
 def main(args, device="cuda"):

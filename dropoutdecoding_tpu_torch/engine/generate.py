@@ -43,8 +43,19 @@ has no field for it.
 
 The loop makes no host sync per token: it reads ``done`` back only every
 ``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.  The JAX engine's
-w8a8 and int8-prefix-cache options have no counterpart yet (ROADMAP Queue
-1 item 12).
+w8a8 options have no counterpart yet (ROADMAP Queue 1 item 12).
+
+A one-token workload (POPE) reads only the first token, which no mask can
+change, so it skips everything after the prompt's last logits:
+
+- ``probe``: the prefill with no visual-span logits, no K2, no cache and no
+  K/V kept (``llama.prefill_hidden``); with ``image_index`` the vision
+  tower runs once per unique image and rows gather their features;
+- ``probe_prefix`` / ``probe_extend``: the prefix cache.  A prompt prefix
+  shared by several questions (the image and the template) is prefilled
+  once and its K/V handed back, int8 in the cache's reader layout under
+  ``int8_prefix_cache``; each batch of question tails then runs
+  ``llama.prefill_extend`` over it.
 """
 from __future__ import annotations
 
@@ -134,6 +145,13 @@ class GenerationResult(NamedTuple):
     num_tokens: np.ndarray  # [B]
 
 
+class ProbeResult(NamedTuple):
+    """What a one-token workload reads of a prefill."""
+
+    first_token: torch.Tensor  # [B] greedy token at each row's last real position
+    last_logits: torch.Tensor  # [B, V] fp32 logits there
+
+
 def kl_logits_or_stub(img_logits: torch.Tensor, mask_policy: str) -> torch.Tensor:
     """The visual-token logits for "epis_kl", the only policy that reads
     them after the prefill; a [B, N, 1] zero stub for every other, so that
@@ -184,6 +202,9 @@ class LlavaEngine:
     text_logits_mask: bool = False  # the "+ logit text-mask" variant: policy "logits"
     text_mask_policy: str = "none"  # "none" | "logits" | "entropy"
     int8_kv: bool = False  # int8 KV cache (K3 reads it, K4 appends to it)
+    # probe_prefix hands back int8 handles (kv_int8_reader_layout): half the
+    # bytes of a cached prefix dense, read by extend_attention_int8prefix
+    int8_prefix_cache: bool = False
     uniform: UniformSource | None = None
     text_uniform: RowSource | None = None
     gumbel: RowSource | None = None
@@ -215,30 +236,51 @@ class LlavaEngine:
     # ------------------------------------------------------------------
     # prefill
     # ------------------------------------------------------------------
+    def _merge_inputs(self, input_ids, pixel_values, image_index=None):
+        """(ids [B, S_text] long, merged embeddings [B, S, D], image_pos [B])
+        of the prompt ids and the images.  ``image_index`` [B]: row -> image
+        when ``pixel_values`` holds only the batch's unique images, so the
+        vision tower runs once an image."""
+        cfg, lm = self.cfg, self.params.lm
+        ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
+        pix = torch.as_tensor(pixel_values, device=self.device)
+        image_pos = llava_mod.find_image_pos(ids, cfg.image_token_index).long()
+        feats = llava_mod.image_features(cfg, self.params, pix)
+        if image_index is not None:
+            feats = feats[torch.as_tensor(image_index, dtype=torch.long, device=self.device)]
+        text_embeds = llama_mod.embed(lm, torch.where(ids == cfg.image_token_index, 0, ids))
+        return ids, llava_mod.merge_image_features(text_embeds, feats, image_pos), image_pos
+
+    def _positions(self, B: int, S: int) -> torch.Tensor:
+        return torch.arange(S, device=self.device)[None].expand(B, S)
+
+    def _fill(self, B: int, S: int, text_lens):
+        """(cur_len [B], text_lens or None) of a merged prompt of S tokens:
+        each right-padded row's real merged length is its text length +
+        N - 1."""
+        if text_lens is None:
+            return torch.full((B,), S, dtype=torch.long, device=self.device), None
+        text_lens = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
+        return text_lens + self.n_visual - 1, text_lens
+
     @torch.no_grad()
     def prefill(self, input_ids, pixel_values, text_lens=None) -> PrefillState:
         """``text_lens``: optional [B] real lengths of right-padded rows;
         their pads sit after every real token, so only the first token's
         position and the fill need them."""
-        cfg, lm = self.cfg, self.params.lm
-        ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
-        pix = torch.as_tensor(pixel_values, device=self.device)
-        B = ids.shape[0]
-        image_pos = llava_mod.find_image_pos(ids, cfg.image_token_index).long()
-        feats = llava_mod.image_features(cfg, self.params, pix)
-        text_embeds = llama_mod.embed(
-            lm, torch.where(ids == cfg.image_token_index, 0, ids)
-        )
-        merged = llava_mod.merge_image_features(text_embeds, feats, image_pos)
-        S = merged.shape[1]
-        positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        hidden, kv = llama_mod.prefill(lm, cfg.text, merged, positions)
-        if text_lens is None:
-            cur_len = torch.full((B,), S, dtype=torch.long, device=self.device)
-        else:
-            text_lens = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
-            cur_len = text_lens + self.n_visual - 1  # the merged length
+        ids, merged, image_pos = self._merge_inputs(input_ids, pixel_values)
+        B, S, _ = merged.shape
+        hidden, kv = llama_mod.prefill(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        cur_len, text_lens = self._fill(B, S, text_lens)
         return self._assemble_state(ids, hidden, kv, image_pos, cur_len, text_lens)
+
+    def _head(self, hidden: torch.Tensor, cur_len: torch.Tensor) -> ProbeResult:
+        """The logits [B, V] at each row's last real position ``cur_len - 1``
+        of ``hidden`` [B, S, D], and their argmax."""
+        B, S, _ = hidden.shape
+        rows = torch.arange(B, device=self.device)
+        last_logits = llama_mod.lm_head(self.params.lm, hidden[rows, (cur_len - 1).clamp(0, S - 1)])
+        return ProbeResult(last_logits.argmax(dim=-1), last_logits)
 
     def _assemble_state(
         self, input_ids, hidden, kv, image_pos, cur_len, text_lens=None, visual_mask=None
@@ -261,9 +303,7 @@ class LlavaEngine:
         lm = self.params.lm
         B, S, E = hidden.shape
         N = self.n_visual
-        rows = torch.arange(B, device=self.device)
-        last_logits = llama_mod.lm_head(lm, hidden[rows, cur_len - 1])  # [B, V]
-        first_token = last_logits.argmax(dim=-1)
+        first_token, last_logits = self._head(hidden, cur_len)
         # visual-span logits -> uncertainty + top-k projection table
         start = image_pos.clamp(0, S - N)
         idx = start[:, None] + torch.arange(N, device=self.device)[None]
@@ -482,6 +522,58 @@ class LlavaEngine:
     # ------------------------------------------------------------------
     def generate(self, input_ids, pixel_values) -> GenerationResult:
         return self._generate(input_ids, pixel_values)
+
+    @torch.no_grad()
+    def probe(self, input_ids, pixel_values, text_lens=None, image_index=None) -> ProbeResult:
+        """The first token and its logits of each prompt: ``prefill``
+        without the visual-span logits, the uncertainty and the cache.
+        ``pixel_values`` may hold only the batch's unique images, with
+        ``image_index`` [B] mapping rows to them; ``text_lens`` as
+        ``prefill``'s."""
+        _, merged, _ = self._merge_inputs(input_ids, pixel_values, image_index)
+        B, S, _ = merged.shape
+        hidden = llama_mod.prefill_hidden(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        return self._head(hidden, self._fill(B, S, text_lens)[0])
+
+    def _prefix_handle(self, kv: KVCache) -> KVCache:
+        if not self.int8_prefix_cache:
+            return kv
+        return KVCache(llama_mod.kv_int8_reader_layout(kv.k), llama_mod.kv_int8_reader_layout(kv.v))
+
+    @torch.no_grad()
+    def probe_prefix(self, prefix_ids, pixel_values) -> KVCache:
+        """The K/V [L, 1, P, KH, Dh] of a prompt prefix shared by several
+        questions (its image included), for ``probe_extend``; int8 reader
+        leaves under ``int8_prefix_cache``."""
+        _, merged, _ = self._merge_inputs(prefix_ids, pixel_values)
+        B, S, _ = merged.shape
+        _, kv = llama_mod.prefill(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        return self._prefix_handle(kv)
+
+    @torch.no_grad()
+    def probe_extend(self, prefix_kv: KVCache, tail_ids, text_lens=None) -> ProbeResult:
+        """``probe`` of [prefix + tail] for a batch of question tails [B, T]
+        (plain text, right-padded; ``text_lens`` their real lengths) over a
+        ``probe_prefix`` handle: the prefix is not run again."""
+        leaf = prefix_kv.k["q"] if llama_mod.cache_is_quantized(prefix_kv) else prefix_kv.k
+        P = torch.full((1,), leaf.shape[2], dtype=torch.long, device=self.device)
+        return self._extend(prefix_kv, P, None, tail_ids, text_lens)
+
+    def _extend(self, prefix_kv, prefix_len, prefix_mask, tail_ids, text_lens) -> ProbeResult:
+        """The tails' first tokens over a prefix of real length
+        ``prefix_len`` [Bp]: their rope positions start there."""
+        ids = torch.as_tensor(tail_ids, dtype=torch.long, device=self.device)
+        B, T = ids.shape
+        positions = (prefix_len[:, None] + torch.arange(T, device=self.device)[None]).expand(B, T)
+        hidden, _ = llama_mod.prefill_extend(
+            self.params.lm, self.cfg.text, llama_mod.embed(self.params.lm, ids), positions,
+            prefix_kv, prefix_mask=prefix_mask,
+        )
+        if text_lens is None:
+            last = torch.full((B,), T, dtype=torch.long, device=self.device)
+        else:
+            last = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
+        return self._head(hidden, last)
 
     def _generate(self, input_ids, *images) -> GenerationResult:
         """``prefill(input_ids, *images)``, then the decode loop."""

@@ -23,10 +23,16 @@ The reference's LLaVA-NeXT defaults are the caller's: ``EnsembleConfig(
 mask_accumulate=False, topk=10)``, seed 506, and ``mask_policy=
 "epis_no_overlap"`` under ``use_random``.
 
-Not ported yet (each raises ``NotImplementedError``): ``probe``,
-``probe_prefix`` / ``probe_extend`` (ROADMAP Queue 1 item 8) and
-``prefill_chunked`` (item 14).  The JAX engine's ``int8_prefix_cache``
-option (item 12) has no counterpart: passing it fails at construction.
+The POPE path (``probe``, ``probe_prefix`` / ``probe_extend``) runs as on
+LLaVA-1.5, with two differences: ``image_index`` selects the packed
+features and the validity masks by row, and a prefix comes back as
+``(kv, real_len, key_mask)``: it is padded past its real length, so the
+tails' rope positions start at ``real_len`` and its pad slots are masked
+out of their attention.  At LLaVA-v1.6 widths the prefix and the batched
+probe are ~2.95k-token prefills, so both run K5; the extend does not.
+
+Not ported yet (raises ``NotImplementedError``): ``prefill_chunked``
+(ROADMAP Queue 1 item 14).
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 
 from ..models import llama as llama_mod
 from ..models import llavanext as next_mod
-from .generate import GenerationResult, LlavaEngine, PrefillState
+from .generate import GenerationResult, LlavaEngine, PrefillState, ProbeResult
 
 
 def _later(what: str, item: int) -> NotImplementedError:
@@ -92,6 +98,29 @@ class LlavaNextEngine(LlavaEngine):
         pos = [int(np.argmax(row == self.cfg.image_token_index)) for row in input_ids]
         return torch.tensor(pos, dtype=torch.long, device=self.device)
 
+    def _merge_next(self, input_ids, tile_pixels, original_size, text_lens=None, image_index=None):
+        """(ids [B, S_text] long, merged [B, S, D] padded past each row's
+        real length, key_mask [B, S], real_len [B], image_pos [B], valid
+        [B, N_max]).  With ``image_index`` [B], ``tile_pixels`` and
+        ``original_size`` hold only the batch's unique images: the tower and
+        the packing run once an image, and rows gather the packed features
+        and the validity masks."""
+        cfg = self.cfg
+        ids = np.asarray(input_ids)
+        n_images = ids.shape[0] if image_index is None else len(tile_pixels)
+        tiles, gathers, valid = self._prep_images(tile_pixels, original_size, n_images)
+        image_pos = self._image_positions(ids)
+        ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        packed = next_mod.pack_image_features_batched(cfg, self.params, tiles, gathers)
+        if image_index is not None:
+            rows = torch.as_tensor(image_index, dtype=torch.long, device=self.device)
+            packed, valid = packed[rows], valid[rows]
+        text_embeds = llama_mod.embed(self.params.lm, torch.where(ids == cfg.image_token_index, 0, ids))
+        merged, key_mask, real_len = next_mod.merge_with_text_batched(
+            text_embeds, packed, valid, image_pos, text_lens
+        )
+        return ids, merged, key_mask, real_len, image_pos, valid
+
     @torch.no_grad()
     def prefill(self, input_ids, tile_pixels, original_size, text_lens=None) -> PrefillState:
         """Args:
@@ -101,32 +130,52 @@ class LlavaNextEngine(LlavaEngine):
             stacks (tile counts may differ).
           original_size: (h, w) for B = 1, or a list of B pairs.
         """
-        cfg, lm = self.cfg, self.params.lm
-        ids = np.asarray(input_ids)
-        tiles, gathers, valid = self._prep_images(tile_pixels, original_size, ids.shape[0])
-        image_pos = self._image_positions(ids)
-        ids = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        packed = next_mod.pack_image_features_batched(cfg, self.params, tiles, gathers)
-        text_embeds = llama_mod.embed(lm, torch.where(ids == cfg.image_token_index, 0, ids))
-        merged, key_mask, real_len = next_mod.merge_with_text_batched(
-            text_embeds, packed, valid, image_pos, text_lens
+        ids, merged, key_mask, real_len, image_pos, valid = self._merge_next(
+            input_ids, tile_pixels, original_size, text_lens
         )
         B, S, _ = merged.shape
-        positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        hidden, kv = llama_mod.prefill(lm, cfg.text, merged, positions, key_mask=key_mask)
+        hidden, kv = llama_mod.prefill(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask
+        )
         return self._assemble_state(ids, hidden, kv, image_pos, real_len, text_lens, valid)
 
     def generate(self, input_ids, tile_pixels, original_size) -> GenerationResult:
         return self._generate(input_ids, tile_pixels, original_size)
 
-    def probe(self, *args, **kwargs):
-        raise _later("probe (the POPE path)", 8)
+    @torch.no_grad()
+    def probe(self, input_ids, tile_pixels, original_size, text_lens=None, image_index=None) -> ProbeResult:
+        """First tokens and their logits, as ``LlavaEngine.probe``; with
+        ``image_index`` [B], ``tile_pixels`` / ``original_size`` are lists
+        of the batch's unique images."""
+        _, merged, key_mask, real_len, _, _ = self._merge_next(
+            input_ids, tile_pixels, original_size, text_lens, image_index
+        )
+        B, S, _ = merged.shape
+        hidden = llama_mod.prefill_hidden(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask
+        )
+        return self._head(hidden, real_len)
 
-    def probe_prefix(self, *args, **kwargs):
-        raise _later("probe_prefix (the prefix cache)", 8)
+    @torch.no_grad()
+    def probe_prefix(self, prefix_ids, tile_pixels, original_size):
+        """The prefix handle ``(kv [L, 1, S, KH, Dh], real_len [1],
+        key_mask [1, S])`` of one image's shared prompt prefix for
+        ``probe_extend``; ``kv`` in int8 reader leaves under
+        ``int8_prefix_cache``."""
+        _, merged, key_mask, real_len, _, _ = self._merge_next(prefix_ids, tile_pixels, original_size)
+        B, S, _ = merged.shape
+        _, kv = llama_mod.prefill(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask
+        )
+        return self._prefix_handle(kv), real_len, key_mask
 
-    def probe_extend(self, *args, **kwargs):
-        raise _later("probe_extend (the prefix cache)", 8)
+    @torch.no_grad()
+    def probe_extend(self, prefix, tail_ids, text_lens=None) -> ProbeResult:
+        """First tokens of question tails over a ``probe_prefix`` handle:
+        their positions start at the prefix's real length, its pad slots
+        masked."""
+        kv, real_len, key_mask = prefix
+        return self._extend(kv, real_len, key_mask, tail_ids, text_lens)
 
     def prefill_chunked(self, *args, **kwargs):
         raise _later("prefill_chunked", 14)

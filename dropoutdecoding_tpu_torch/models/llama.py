@@ -3,7 +3,12 @@ dict; port of ``dropoutdecoding_tpu/models/llama.py``.
 
 - ``prefill``: full-sequence causal forward; returns the final-norm hidden
   states and every layer's K/V to seed the cache.  From 1024 tokens on its
-  attention is K5 (``ops/cuda_flash_prefill.py``).
+  attention is K5 (``ops/cuda_flash_prefill.py``).  ``prefill_hidden`` is
+  the same forward for callers that read no cache (the probe): it keeps no
+  layer's K/V.
+- ``prefill_extend``: T new tokens over a cached prefix, dense or in the
+  int8 reader layout of ``kv_int8_reader_layout`` (the POPE path's prefix
+  cache; ``ops/attention.extend_attention``).
 - ``decode_step``: one token for M ensemble members sharing the cache.  Each
   layer's attention reads the layer's view of the cache in place: K1 over a
   dense cache, K3 over an int8 one (``ops/cuda_decode_attention.py``).
@@ -31,7 +36,11 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import prefill_attention
+from ..ops.attention import (
+    extend_attention,
+    extend_attention_int8prefix,
+    prefill_attention,
+)
 from ..ops.basic import apply_rope, rms_norm, rotary_embedding
 from ..ops.cuda_cache_append import cache_append_int8
 from ..ops.cuda_decode_attention import (
@@ -248,6 +257,52 @@ def _layer(layers: dict, i: int) -> dict:
     }
 
 
+def _forward(params: dict, cfg: LlamaConfig, x: torch.Tensor, cos, sin, attend, keep_kv=True):
+    """The decoder's layer loop over activations ``x`` [B, R, D] with rope
+    tables ``cos`` / ``sin`` that broadcast against [B, R, heads, Dh];
+    ``attend(i, q, k, v)`` is layer ``i``'s attention.  Returns (final-norm
+    hidden, every layer's k and v stacked [L, B, R, KH, Dh]), or with
+    ``keep_kv`` off (hidden, None): each layer's K/V is then dropped once its
+    attention has read it."""
+    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    layers = params["layers"]
+    B, R, _ = x.shape
+    ks, vs = [], []
+    for i in range(layers["input_ln"].shape[0]):
+        lp = _layer(layers, i)
+        h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
+        q, k, v = _qkv(lp, h, H, KH, Dh)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        attn = attend(i, q, k, v)
+        x = x + _mm(attn.reshape(B, R, H * Dh), lp["o_proj"])
+        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps))
+        if keep_kv:
+            ks.append(k)
+            vs.append(v)
+    hidden = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return hidden, (KVCache(torch.stack(ks), torch.stack(vs)) if keep_kv else None)
+
+
+def _rope_tables(positions: torch.Tensor, cfg: LlamaConfig):
+    """cos / sin [B, S, 1, Dh] for positions [B, S]."""
+    cos, sin = rotary_embedding(positions, cfg.head_dim, cfg.rope_theta)
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv):
+    S = inputs_embeds.shape[1]
+
+    def attend(i, q, k, v):
+        if S >= LONG_PREFILL:
+            return flash_prefill_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), key_mask, causal=True
+            )
+        return prefill_attention(q, k, v, causal=True, key_mask=key_mask)
+
+    return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend, keep_kv)
+
+
 def prefill(
     params: dict,
     cfg: LlamaConfig,
@@ -273,31 +328,75 @@ def prefill(
     """
     if w8a8:
         raise NotImplementedError(_W8A8)
-    B, S, _ = inputs_embeds.shape
-    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    cos, sin = rotary_embedding(positions, Dh, cfg.rope_theta)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
-    layers = params["layers"]
-    x = inputs_embeds
-    ks, vs = [], []
-    for i in range(layers["input_ln"].shape[0]):
-        lp = _layer(layers, i)
-        h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, h, H, KH, Dh)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        if S >= LONG_PREFILL:
-            attn = flash_prefill_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), key_mask, causal=True
+    return _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv=True)
+
+
+def prefill_hidden(
+    params: dict,
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,
+    positions: torch.Tensor,
+    key_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``prefill``'s final-norm hidden states [B, S, D] alone, for callers
+    that read no cache (the probe): no layer's K/V outlives its attention,
+    where ``prefill`` would stack L x B x S x KH x Dh twice (3.1 GB at
+    LLaVA-NeXT's 8 x 2.95k tokens in bf16)."""
+    return _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv=False)[0]
+
+
+def prefill_extend(
+    params: dict,
+    cfg: LlamaConfig,
+    inputs_embeds: torch.Tensor,
+    positions: torch.Tensor,
+    prefix: KVCache,
+    w8a8: bool = False,
+    prefix_mask: torch.Tensor | None = None,
+):
+    """Continued causal prefill over a cached prefix (JAX
+    ``models/llama.py:728``): T new tokens attend the whole prefix and
+    causally themselves, which equals the tail rows of one prefill of
+    [prefix + tail] (causal attention factorizes).
+
+    Args:
+      inputs_embeds: [B, T, D] tail embeddings.
+      positions: [B, T] absolute rope positions (the prefix's real length
+        + arange(T)).
+      prefix: KVCache with dense leaves [L, Bp, P, KH, Dh], or int8 reader
+        leaves ``{"q": [L, Bp, P, KH*Dh], "s": [L, Bp, KH, P]}``
+        (``kv_int8_reader_layout``); Bp in {1, B}, Bp = 1 shared by every row
+        without a copy.
+      prefix_mask: optional [Bp, P] bool, False = a pad slot of the prefix.
+    Returns:
+      (hidden [B, T, D] final-norm output, the tail's KVCache [L, B, T, KH, Dh]).
+    """
+    if w8a8:
+        raise NotImplementedError(_W8A8)
+    KH, Dh = cfg.num_key_value_heads, cfg.head_dim
+    pk, pv = prefix
+    if cache_is_quantized(prefix):
+        Bp, P = pk["q"].shape[1:3]
+
+        def attend(i, q, k, v):
+            return extend_attention_int8prefix(
+                q, k, v, pk["q"][i].view(Bp, P, KH, Dh), pk["s"][i],
+                pv["q"][i].view(Bp, P, KH, Dh), pv["s"][i], prefix_mask,
             )
-        else:
-            attn = prefill_attention(q, k, v, causal=True, key_mask=key_mask)
-        x = x + _mm(attn.reshape(B, S, H * Dh), lp["o_proj"])
-        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps))
-        ks.append(k)
-        vs.append(v)
-    hidden = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return hidden, KVCache(torch.stack(ks), torch.stack(vs))
+    else:
+        def attend(i, q, k, v):
+            return extend_attention(q, k, v, pk[i], pv[i], prefix_mask)
+
+    return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend)
+
+
+def kv_int8_reader_layout(x: torch.Tensor) -> dict:
+    """A dense K or V span [..., S, KH, D] quantized per (token, head) into
+    the int8 cache's reader layout (JAX ``models/llama.py:136``):
+    ``{"q": int8 [..., S, KH*D], "s": f32 [..., KH, S]}`` with head-major
+    scales, what ``prefill_extend`` reads as an int8 prefix."""
+    d = quantize_kv(x)
+    return {"q": d["q"].flatten(-2), "s": d["s"][..., 0].transpose(-1, -2).contiguous()}
 
 
 def decode_step(
@@ -325,39 +424,25 @@ def decode_step(
         raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue 1 item 16)")
     if w8a8:
         raise NotImplementedError(_W8A8)
-    B, M, _ = x.shape
-    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    B = x.shape[0]
+    KH, Dh = cfg.num_key_value_heads, cfg.head_dim
     cos, sin = rotary_embedding(position, Dh, cfg.rope_theta)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
     key_mask = key_mask.contiguous()
-    layers = params["layers"]
     if cache_is_quantized(cache):  # K3 on the layer's views of the int8 leaves
-        L, _, Smax, _ = cache.k["q"].shape
+        Smax = cache.k["q"].shape[2]
 
         def attend(i, q, k, v):
             kc, vc = cache.k, cache.v
             return ensemble_decode_attention_int8kv_fused(
                 q, kc["q"][i].view(B, Smax, KH, Dh), kc["s"][i],
-                vc["q"][i].view(B, Smax, KH, Dh), vc["s"][i], k, v, key_mask,
+                vc["q"][i].view(B, Smax, KH, Dh), vc["s"][i], k, v.contiguous(), key_mask,
             )
     else:  # K1 on the layer's views of the dense cache
-        L = cache.k.shape[0]
-
         def attend(i, q, k, v):
-            return ensemble_decode_attention_fused(q, cache.k[i], cache.v[i], k, v, key_mask)
+            return ensemble_decode_attention_fused(
+                q, cache.k[i], cache.v[i], k, v.contiguous(), key_mask
+            )
 
-    ks, vs = [], []
-    for i in range(L):
-        lp = _layer(layers, i)
-        h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, h, H, KH, Dh)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        v = v.contiguous()
-        attn = attend(i, q, k, v)
-        x = x + _mm(attn.reshape(B, M, H * Dh), lp["o_proj"])
-        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps))
-        ks.append(k)
-        vs.append(v)
-    hidden = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return hidden, torch.stack(ks), torch.stack(vs)
+    hidden, kv = _forward(params, cfg, x, cos, sin, attend)
+    return hidden, kv.k, kv.v

@@ -12,6 +12,10 @@
   it for CPU tensors, and ``chip_smoke.py`` holds the kernel against it.
 - ``ensemble_decode_attention_int8kv``: the same over an int8 cache with
   per-(token, head) scales; the plain twin of K3.
+- ``extend_attention``: T new queries over a fully visible prefix of P
+  cached keys plus causally over themselves (the prefix cache of the POPE
+  path); ``extend_attention_int8prefix``: the same over an int8 prefix.
+  Plain torch, as they are plain XLA in the JAX package.
 
 Operands in a reduced type are upcast to fp32 for the dots, which is what
 the JAX package's ``preferred_element_type=float32`` einsums compute (exact
@@ -200,3 +204,107 @@ def ensemble_decode_attention_int8kv(
     out = torch.einsum("bmhs,bshd->bmhd", cache_probs, vc.float())
     out = out + probs[..., -1:] * vn
     return out.to(q.dtype)
+
+
+def _extend(qg, sp, k_new, v_new, prefix_mask, prefix_pv):
+    """The part ``extend_attention`` and its int8 variant share: the prefix
+    scores ``sp`` [B, T, KH, n, P] masked by ``prefix_mask``, the tail's
+    causal scores, one fp32 softmax over [P + T], then ``prefix_pv(pp)`` of
+    the prefix probabilities plus the tail's PV.  Returns [B, T, H, D] fp32."""
+    B, T, KH, n, D = qg.shape
+    if prefix_mask is not None:  # [Bp, P]; Bp = 1 broadcasts over B
+        sp = sp.masked_fill(~prefix_mask.bool()[:, None, None, None, :], _NEG_INF)
+    st = torch.einsum("btknd,bskd->btkns", qg, k_new.float())
+    idx = torch.arange(T, device=qg.device)
+    st = st.masked_fill(~(idx[None, :] <= idx[:, None])[None, :, None, None, :], _NEG_INF)
+    probs = torch.softmax(torch.cat([sp, st], dim=-1) * (1.0 / math.sqrt(D)), dim=-1)
+    P = sp.shape[-1]
+    pp, pt = probs[..., :P], probs[..., P:]
+    out = prefix_pv(pp)
+    out = out + torch.einsum("btkns,bskd->btknd", pt.to(v_new.dtype).float(), v_new.float())
+    return out.reshape(B, T, KH * n, D)
+
+
+def _contract(qg, prefix):
+    """Scores [B, T, KH, n, P] of the grouped queries against a prefix
+    [Bp, P, KH, D] (fp32 operands); Bp = 1 contracts the un-batched prefix,
+    so no [B, P, ...] copy is made."""
+    if prefix.shape[0] == 1:
+        return torch.einsum("btknd,pkd->btknp", qg, prefix[0])
+    return torch.einsum("btknd,bpkd->btknp", qg, prefix)
+
+
+def _apply(probs, prefix):
+    """PV of the prefix probabilities [B, T, KH, n, P] over [Bp, P, KH, D]."""
+    if prefix.shape[0] == 1:
+        return torch.einsum("btknp,pkd->btknd", probs, prefix[0])
+    return torch.einsum("btknp,bpkd->btknd", probs, prefix)
+
+
+def extend_attention(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_prefix: torch.Tensor,
+    v_prefix: torch.Tensor,
+    prefix_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Continued-prefill attention: T new queries attend a fully visible
+    shared prefix plus causally themselves; equal to the tail rows of one
+    causal prefill of [prefix + tail] (``dropoutdecoding_tpu/ops/
+    attention.py:248``).
+
+    Args:
+      q: [B, T, H, D], rope applied at absolute positions.
+      k_new, v_new: [B, T, KH, D].
+      k_prefix, v_prefix: [Bp, P, KH, D] with Bp in {1, B}; Bp = 1 shares one
+        prefix across every row without a copy.
+      prefix_mask: optional [Bp, P] bool, False = a pad slot of the prefix
+        (LLaVA-NeXT's prefixes are padded past their real length).
+    Returns:
+      [B, T, H, D] in q's dtype.
+    """
+    B, T, H, D = q.shape
+    KH = k_new.shape[2]
+    qg = q.reshape(B, T, KH, H // KH, D).float()
+    sp = _contract(qg, k_prefix.float())
+    out = _extend(
+        qg, sp, k_new, v_new, prefix_mask,
+        lambda pp: _apply(pp.to(v_prefix.dtype).float(), v_prefix.float()),
+    )
+    return out.to(q.dtype)
+
+
+def extend_attention_int8prefix(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kq: torch.Tensor,
+    ks: torch.Tensor,
+    vq: torch.Tensor,
+    vs: torch.Tensor,
+    prefix_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``extend_attention`` over an int8 prefix in the cache's layout
+    (``dropoutdecoding_tpu/ops/attention.py:321``): the per-key scales fold
+    into the scores after the dot and before the mask, the per-value scales
+    into the probabilities before PV, which then run in q's dtype, as K3
+    does.
+
+    Args:
+      q: [B, T, H, D]; k_new, v_new: [B, T, KH, D] (the unquantized tail);
+      kq, vq: [Bp, P, KH, D] int8; ks, vs: [Bp, KH, P] f32 (head-major);
+      prefix_mask: optional [Bp, P] bool.
+    Returns:
+      [B, T, H, D] in q's dtype.
+    """
+    B, T, H, D = q.shape
+    KH = k_new.shape[2]
+    qg = q.reshape(B, T, KH, H // KH, D).float()
+    sp = _contract(qg, kq.to(q.dtype).float()) * ks[:, None, :, None, :]
+
+    def prefix_pv(pp):
+        ppv = (pp * vs[:, None, :, None, :]).to(q.dtype).float()
+        return _apply(ppv, vq.to(q.dtype).float())
+
+    return _extend(qg, sp, k_new, v_new, prefix_mask, prefix_pv).to(q.dtype)

@@ -269,13 +269,6 @@ def test_not_ported_flag_raises_before_any_work(tmp_path, monkeypatch, extra, it
     assert os.listdir(tmp_path) == []  # nothing sampled, read or written
 
 
-def test_int8_prefix_cache_raises():
-    args = tcli.build_parser().parse_args(["--coco-data-dir", "d", "--model-path", "m"])
-    args.int8_prefix_cache = True  # the JAX make_engine reads it; the parser has no flag
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcli.build_engine(args, "cpu")
-
-
 @pytest.fixture
 def fake_load(monkeypatch, weights):
     """``llava.load`` and ``load_processor`` replaced by the tiny model and
@@ -318,6 +311,32 @@ def test_make_engine_flag_plumbing(fake_load):
     eng, _ = _make(["--fuse-proj", "False", "--use_random", "True"])
     assert isinstance(eng.params.lm["layers"]["q_proj"], torch.Tensor)
     assert eng.ens.mask_policy == "random_image"
+
+
+def test_int8_prefix_cache_reaches_the_engine(fake_load):
+    """The field the POPE CLI's ``--int8-prefix-cache`` sets (the CHAIR
+    parser has no such flag; JAX's ``make_engine`` reads it with a
+    default)."""
+    args = tcli.build_parser().parse_args(["--coco-data-dir", "d", "--model-path", "/ckpt"])
+    assert not tcli.build_engine(args, "cpu").int8_prefix_cache
+    args.int8_prefix_cache = True
+    assert tcli.build_engine(args, "cpu").int8_prefix_cache
+
+
+@pytest.mark.parametrize("extra", [[], ["--int8-prefix-cache", "True", "--quantize", "int8",
+                                        "--original", "True", "--seed", "3"]])
+def test_make_engine_takes_the_pope_clis_arguments(fake_load, extra):
+    """``make_engine`` on the reduced arguments the POPE CLI builds (the JAX
+    POPE CLI's field set), the fields it lacks at their defaults."""
+    from dropoutdecoding_tpu_torch.cli import pope_test
+
+    args = pope_test.build_parser().parse_args(
+        ["--model-path", "/ckpt", "--coco-data-dir", "d"] + extra)
+    eng, _ = tcli.make_engine(pope_test.engine_args(args, "llava-1.5"), device="cpu")
+    assert eng.int8_prefix_cache == bool(extra) and eng.ensemble != bool(extra)
+    assert eng.seed == (3 if extra else 24) and not eng.int8_kv and not eng.gen.do_sample
+    assert isinstance(eng.params.lm["lm_head"], dict) == bool(extra)  # --quantize int8
+    assert eng.ens.mask_policy == "epis" and not eng.ens.fused_step
 
 
 def test_make_engine_int4(fake_load):

@@ -337,7 +337,7 @@ def test_kv_capacity_guard_runs_before_any_work(weights):
         te.generate(INPUT_IDS, None, SIZE)  # no tiles: the guard fires first
 
 
-@pytest.mark.parametrize("method", ["probe", "probe_prefix", "probe_extend", "prefill_chunked"])
+@pytest.mark.parametrize("method", ["prefill_chunked"])
 def test_later_entry_points_raise(weights, method):
     _, te = _engines(weights)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
