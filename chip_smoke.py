@@ -52,7 +52,11 @@ Phases, each fatal on failure:
    NeXT (``small_pope``): ``probe`` with ``text_lens`` and ``image_index``,
    ``probe_prefix`` + ``probe_extend`` over dense and int8 prefixes, first
    tokens equal card against CPU and across the modes, last_logits within
-   ``POPE_NARROW_RTOL``, launch counts exact.
+   ``POPE_NARROW_RTOL``, launch counts exact.  Then the baselines on the
+   narrow LLaVA and NeXT (``small_baselines``): VCD, beam search (nb = 3,
+   ``early_stopping`` False and "never") and OPERA (nb = 3, nc = 2, rolling
+   back), with injected draws, tokens equal card against CPU, and on LLaVA
+   VCD and beam search at B = 2 equal to their rows' B = 1 calls.
 5. End to end, greedy, exact K=3 and fused K=3 (one M = 4 forward a step),
    32 new tokens each, with every kernel's launch count checked exactly, and
    that the prefill's K5 and K6 launches took the wgmma kernels: ``LlavaEngine.generate`` at full
@@ -65,6 +69,11 @@ Phases, each fatal on failure:
    LLaVA-v1.6-Mistral-7B width and depth with synthetic bf16 weights and
    one 640 x 480 image (5 tiles, 2340 of 2928 visual slots real), whose
    2947-token prefill runs K5 in every layer (K1 at G=4, K2 with ``valid``).
+   On LLaVA-1.5 bf16 and on LLaVA-NeXT, the paper's baselines
+   (``baselines_full``): VCD (K1 over 2 rows, two prefills), beam search at
+   3 beams (K1 over 3 rows) and OPERA at the CLI's defaults (plain
+   ``decode_step_attn``, no K1), launch counts exact, ms a step and device
+   peak, beam search's cache reorder and OPERA's attention beside K1.
    On bf16 the same runs go on through the other arms (``LLAVA_RUNS``):
    fused and exact "epis_kl", sampling at top-k 1 (tokens equal to the
    arm's unsampled ones) and at temperature 0.7 / top-p 0.9, and the
@@ -81,8 +90,9 @@ Phases, each fatal on failure:
    config.json, three .safetensors shards and their index), loaded by the
    CLI's ``build_engine`` with its load time, host peak RSS and device
    peak, leaves checked bit-equal; two images captioned through the CLI
-   with the default Dropout Decoding arm and ``--original``, each caption
-   equal to ``generate`` called directly, K1 and K2 launches counted.  Then
+   with the default Dropout Decoding arm, ``--original``, ``--vcd``,
+   ``--original --num-beams 3`` and ``--opera``, each caption equal to the
+   arm's engine call made directly, K1 and K2 launches counted.  Then
    the POPE CLI on the same engine (``pope_cli``): 12 vendored questions a
    strategy, serial, ``--batch-size 8`` and ``--prefix-cache True``, each
    answer archive equal to the same mode's engine calls made directly.
@@ -295,7 +305,8 @@ def check_decode_attention() -> dict:
     Every case is one launch and is made twice with equal bits, the second
     call on the scratch and the counters the first left.  Every case runs
     before the first failure is raised, so that a broken kernel shows each
-    case that catches it.  Returns the records of the first case of each."""
+    case that catches it.  Returns the records of the first case of each,
+    and of K1's VCD and beam-search cases ("K1 VCD", "K1 beam")."""
     from dropoutdecoding_tpu_torch.ops.attention import (
         ensemble_decode_attention,
         ensemble_decode_attention_int8kv,
@@ -330,7 +341,16 @@ def check_decode_attention() -> dict:
         ("M=3 G=2 D=64 S=65 bf16", 1, 3, 4, 2, 64, 65, 64, bf16, False, False),
         # fused mode's forward on LLaVA-NeXT: K+1 = 4 members over the ragged cache
         ("M=4 G=4 bf16 S=3504", 1, 4, 32, 8, 128, 3504, 2947, bf16, False, True),
+        # the baselines' decode, M = 1: VCD's clean and noised contexts (2 rows),
+        # beam search's 3 beams, on both models
+        ("B=2 M=1 G=1 bf16 (VCD)", 2, 1, 32, 32, 128, 1152, 620, bf16, False, True),
+        ("B=3 M=1 G=1 bf16 (beam search)", 3, 1, 32, 32, 128, 1152, 620, bf16, False, True),
+        ("B=2 M=1 G=4 bf16 S=3504 (VCD)", 2, 1, 32, 8, 128, 3504, 2947, bf16, False, False),
+        ("B=3 M=1 G=4 bf16 S=3504 (beam search)", 3, 1, 32, 8, 128, 3504, 2947, bf16, False,
+         False),
     ]
+    recorded = {"K1": {0: "K1", len(cases) - 4: "K1 VCD", len(cases) - 3: "K1 beam"},
+                "K3": {0: "K3"}}
     attention = (  # (kernel, wrapper, plain twin, int8 cache, seed base)
         ("K1", ensemble_decode_attention_fused, ensemble_decode_attention, False, 100),
         ("K3", ensemble_decode_attention_int8kv_fused, ensemble_decode_attention_int8kv, True,
@@ -368,8 +388,8 @@ def check_decode_attention() -> dict:
             print(line)
             if not torch.isfinite(got).all() or not within or not same:
                 failed.append(f"{name} {label}")
-            if i == 0:
-                records[name] = {
+            if i in recorded[name]:
+                records[recorded[name][i]] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
                 }
     if failed:
@@ -891,9 +911,12 @@ def small_reference(tier: str) -> None:
     5, top-p 0.9), its greedy run sampled too, with the text-mask draws and
     the Gumbel noise injected from tables as well.  A CPU prefill in fp64
     anchors the epis of both sides, so a miss shows which side moved.
-    "pope" is the POPE path on the narrow models (``small_pope``)."""
+    "pope" is the POPE path on the narrow models (``small_pope``);
+    "baselines" VCD, beam search and OPERA on them (``small_baselines``)."""
     if tier == "pope":
         return small_pope()
+    if tier == "baselines":
+        return small_baselines()
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
@@ -1006,6 +1029,112 @@ def small_reference(tier: str) -> None:
             raise AssertionError(f"narrow {tier} {label}: card tokens differ from the CPU twins'")
         if not err <= bound:
             raise AssertionError(f"narrow {tier} {label}: epis differs by {err} > {bound}")
+
+
+def small_baselines() -> None:
+    """The paper's baselines on the narrow fp32 LLaVA and the narrow NeXT, on
+    the card (kernels) and on the CPU (plain twins), with one table of
+    injected draws (VCD's pixel noise and Gumbel noise): VCD at B = 1, beam
+    search at nb = 3 with ``early_stopping`` False and "never", OPERA at nb =
+    3, nc = 2 (the candidate fan-out) with a threshold of 2, at which the
+    search rolls back at step 1; on LLaVA also VCD and beam search at B = 2,
+    each row equal to its own B = 1 call.  Tokens must be equal, card
+    against CPU; the card's launches are printed."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.decoding.vcd import diffusion_noise
+    from dropoutdecoding_tpu_torch.engine import baselines, opera
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
+    from dropoutdecoding_tpu_torch.models import llavanext
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_llava_params,
+        synthetic_llavanext_params,
+    )
+
+    rng = np.random.default_rng(9)
+    T = 12
+
+    def sharpen(part, factor):  # as small_reference: logits sharp enough for argmax
+        if isinstance(part, dict):
+            return {k: sharpen(v, factor) for k, v in part.items()}
+        return part * factor if part.dim() >= 2 else part
+
+    cfg, ncfg = _narrow_config(), _narrow_next_config()
+    models = {
+        "llava": (LlavaEngine, LlavaParams(*(
+            sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3))), cfg,
+            128, 500),
+        "next": (LlavaNextEngine, llavanext.LlavaNextParams(*(
+            sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, 3))),
+            ncfg, 1344, 120),
+    }
+    size = (150, 220)
+    tiles = rng.normal(size=(llavanext.image_geometry(size, ncfg)["n_tiles"], 3, 112, 112)) \
+        .astype(np.float32)
+    pixels = rng.normal(size=(2, 3, 112, 112)).astype(np.float32)
+    noise = torch.from_numpy(rng.normal(size=tiles.size).astype(np.float32))
+    gumbel = -torch.log(-torch.log(torch.from_numpy(
+        rng.random((T, 512), dtype=np.float32)).clamp(min=1e-38)))
+    opera_kw = dict(num_beams=3, num_attn_candidates=2, threshold=2, scale_factor=50.0,
+                    max_rollbacks=3)
+    wrappers = _wrappers()
+    for name, (Engine, params, mcfg, max_len, image) in models.items():
+        ids = np.array([[1, 17, 29, image, 41, 53, 67, 71, 83]])
+        out = {}
+        for device in ("cuda", "cpu"):
+            eng = Engine(
+                cfg=mcfg, params=type(params)(*(_to(part, device) for part in params)),
+                gen=GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0),
+                max_len=max_len, ensemble=False,
+                cd_noise=lambda px: diffusion_noise(
+                    noise[: px.numel()].reshape(px.shape).to(px.device), px, 500),
+                cd_gumbel=lambda step, n, device=device: gumbel[step, :n].to(device),
+            )
+            if name == "llava":
+                images = (pixels[:1],)
+                vcd = lambda: baselines.vcd_generate(eng, ids, *images)  # noqa: E731
+            else:
+                images = (tiles, size)
+                vcd = lambda: baselines.vcd_generate(eng, states=(  # noqa: E731
+                    eng.prefill(ids, *images),
+                    eng.prefill(ids, baselines.noised_pixels(eng, tiles), size)))
+            res, stats = {}, {}
+            for fn in wrappers.values():
+                fn.launches = 0
+            res["VCD"] = vcd().tokens
+            counts = {k: fn.launches for k, fn in wrappers.items() if fn.launches}
+            for es in (False, "never"):
+                res[f"beam es={es}"] = baselines.beam_generate(
+                    eng, state=eng.prefill(ids, *images), num_beams=3, early_stopping=es).tokens
+            res["OPERA"] = opera.opera_generate(eng, state=eng.prefill(ids, *images), stats=stats,
+                                                **opera_kw).tokens
+            if name == "llava":  # B = 2, each row against its own B = 1 call
+                ids2 = np.concatenate([ids, ids])
+                res["VCD B=2"] = baselines.vcd_generate(eng, ids2, pixels).tokens
+                res["beam B=2"] = baselines.beam_generate(
+                    eng, state=eng.prefill(ids2, pixels), num_beams=3).tokens
+                serial = {"VCD B=2": [baselines.vcd_generate(eng, ids, pixels[b:b + 1]).tokens[0]
+                                      for b in range(2)],
+                          "beam B=2": [baselines.beam_generate(eng, ids, pixels[b:b + 1],
+                                                               num_beams=3).tokens[0]
+                                       for b in range(2)]}
+                for key, rows in serial.items():
+                    if not np.array_equal(res[key], np.stack(rows)):
+                        raise AssertionError(f"narrow {name} {key} on {device}: {res[key]} differs "
+                                             f"from the rows' own B = 1 calls {rows}")
+            if stats["rollbacks"] < 1:
+                raise AssertionError(f"narrow {name} OPERA on {device}: no rollback {stats}")
+            out[device] = res
+            if device == "cuda":
+                print(f"narrow {name} baselines: the card's VCD launched {counts}; OPERA "
+                      f"{stats}")
+        for key, tok in out["cuda"].items():
+            print(f"narrow {name} {key}: card {tok[0].tolist()} cpu {out['cpu'][key][0].tolist()}")
+            if not np.array_equal(tok, out["cpu"][key]):
+                raise AssertionError(f"narrow {name} {key}: card tokens differ from the CPU twins'")
 
 
 # small_pope: card against CPU, each mode's last_logits within this share of
@@ -1666,6 +1795,123 @@ def pope_full(eng, images: tuple, tier: str, want_per_forward: dict) -> dict:
     return record
 
 
+# OPERA at the CLI's defaults (the reference's arm): 3 beams, one attention
+# candidate, scale 5, threshold 15, penalty weight 1
+OPERA_CLI = dict(num_beams=3, num_attn_candidates=1, scale_factor=5.0, threshold=15,
+                 penalty_weights=1.0)
+
+
+def _eager_ms(fn, reps: int = 20) -> float:
+    """Median wall time of ``fn()`` with the card synchronised before and
+    after, in ms: host work included (for calls a graph cannot capture)."""
+    return statistics.median(_sync_time(fn)[1] for _ in range(reps)) * 1e3
+
+
+def baselines_full(make, args, tier: str, noised=None) -> dict:
+    """The paper's baselines at full width and depth, 32 new tokens each, no
+    eos: VCD, beam search (nb = 3) and OPERA (``OPERA_CLI``), each through
+    its entry point with every kernel's launch count set to 0 just before and
+    checked exactly just after: K1 32 a decode forward of VCD (2 rows) and
+    beam search (3 rows), none in OPERA (``decode_step_attn`` is plain
+    torch); K2 one a prefill (two under VCD); K5 32 a prefill from 1024
+    tokens (LLaVA-NeXT); the others none.  ``make(ensemble, gen)`` builds the
+    engine; ``noised`` is LLaVA-NeXT's noised tile stack (VCD then runs
+    through ``states``).  Prints each run's ms a decode step, its device peak
+    and tokens; then beam search's cache reorder in ms a step (the rows it
+    moved, as the run moved them, against the JAX package's whole-cache
+    gather), and ``decode_step_attn``'s plain attention in us a layer beside
+    K1's at the same rows.  Returns each run's launch counts."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine import baselines, opera
+    from dropoutdecoding_tpu_torch.models import llama as llama_mod
+    from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL
+    from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import ensemble_decode_attention_fused
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    wrappers = _wrappers()
+    T = 32
+    eng = make(False, GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0))
+    text = eng.cfg.text
+    L, V = text.num_hidden_layers, text.vocab_size
+    S = args[0].shape[1] + eng.n_visual - 1  # the merged (padded) prompt
+    k5 = L if S >= LONG_PREFILL else 0
+    prefill_s = statistics.median(_sync_time(lambda: eng.prefill(*args))[1] for _ in range(2))
+    if noised is None:
+        vcd = lambda: baselines.vcd_generate(eng, *args)  # noqa: E731
+    else:
+        vcd = lambda: baselines.vcd_generate(eng, states=(  # noqa: E731
+            eng.prefill(*args), eng.prefill(args[0], noised, *args[2:])))
+    stats = {}
+    runs = {  # label: (call, prefills, decode forwards that run K1)
+        "VCD": (vcd, 2, T - 1),
+        "beam search nb=3": (lambda: baselines.beam_generate(
+            eng, state=eng.prefill(*args), num_beams=3), 1, T - 1),
+        "OPERA nb=3 nc=1": (lambda: opera.opera_generate(
+            eng, state=eng.prefill(*args), stats=stats, **OPERA_CLI), 1, 0),
+    }
+    reorder, moved = llama_mod.cache_reorder_rows, []
+
+    def counted_reorder(cache, src, n_live):
+        moved.append(int((src != np.arange(len(src))).sum()))
+        reorder(cache, src, n_live)
+
+    llama_mod.cache_reorder_rows = counted_reorder
+    counts_by_run = {}
+    try:
+        for label, (call, prefills, k1_forwards) in runs.items():
+            moved.clear()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in wrappers.values():
+                fn.launches = 0
+            result, secs = _sync_time(call)  # the main path
+            counts = counts_by_run[label] = {k: fn.launches for k, fn in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = dict.fromkeys(wrappers, 0)
+            want.update(K1=k1_forwards * L, K2=prefills, K5=prefills * k5)
+            tok = result.tokens
+            step_ms = (secs - prefills * prefill_s) / (T - 1) * 1e3
+            extra = f", reorders moving rows {sum(m > 0 for m in moved)} of {len(moved)} steps" \
+                if moved else ""
+            extra += f", OPERA {stats}" if label.startswith("OPERA") else ""
+            print(f"{tier} {label}: {T} tokens in {secs:.2f} s ({secs / T * 1e3:.1f} ms a token), "
+                  f"{prefills} prefill(s) of {prefill_s * 1e3:.1f} ms, {step_ms:.2f} ms a decode "
+                  f"step, peak {peak:.2f} GiB, launches {counts} (want {want}){extra}; tokens "
+                  f"{tok[0, :8].tolist()}...")
+            if tok.shape != (1, T) or not ((tok >= 0) & (tok < V)).all():
+                raise AssertionError(f"{tier} {label}: bad tokens {tok}")
+            _check_counts(f"{tier} {label}", counts, want)
+    finally:
+        llama_mod.cache_reorder_rows = reorder
+
+    # beam search's reorder at this model's 3-row cache, S + T slots filled
+    H, KH, Dh = text.num_attention_heads, text.num_key_value_heads, text.head_dim
+    cache = llama_mod.empty_cache(text, 3, eng.max_len, torch.bfloat16, "cuda")
+    n_live = S + T
+    ours = {n: _eager_ms(lambda: reorder(cache, np.array(src), n_live))
+            for n, src in ((0, [0, 1, 2]), (1, [0, 0, 2]), (2, [0, 0, 1]))}
+    idx = torch.tensor([0, 0, 1], device="cuda")
+    whole = time_ms(lambda: (cache.k[:, idx], cache.v[:, idx]))
+    print(f"{tier} beam-search reorder, ms a step at {n_live} of {eng.max_len} slots: rows moved "
+          f"0 / 1 / 2: {ours[0]:.3f} / {ours[1]:.3f} / {ours[2]:.3f} (host included); the JAX "
+          f"package's whole-cache gather {whole:.3f} (device)")
+    # decode_step_attn's attention against K1 at OPERA's 3 rows, one layer
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, kn, vn = (torch.randn(3, h, Dh, generator=g, device="cuda").to(torch.bfloat16)
+                 for h in (H, KH, KH))
+    kc, vc = cache.k[0].normal_(generator=g), cache.v[0].normal_(generator=g)
+    live = torch.arange(eng.max_len, device="cuda")[None, :] < S
+    plain = time_ms(lambda: llama_mod.attention_with_probs(
+        q, kn, vn, kc[:, :S], vc[:, :S], live[:, :S].expand(3, S)))
+    k1 = time_ms(lambda: ensemble_decode_attention_fused(
+        q[:, None], kc, vc, kn[:, None], vn[:, None],
+        live[:, None].expand(3, 1, eng.max_len).contiguous()))
+    print(f"{tier} decode_step_attn's attention at 3 rows over {S} slots: {plain * 1e3:.1f} us a "
+          f"layer (plain torch, with the probabilities); K1 at the same rows {k1 * 1e3:.1f} us")
+    del cache
+    return counts_by_run
+
+
 def end_to_end() -> tuple:
     """The main paths at full width and depth: LlavaEngine.generate at
     LLaVA-1.5-7B with synthetic bf16 weights and a bf16 cache, then with
@@ -1679,6 +1925,7 @@ def end_to_end() -> tuple:
 
     import numpy as np
 
+    from dropoutdecoding_tpu_torch.engine import baselines
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
     from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
     from dropoutdecoding_tpu_torch.models import llavanext
@@ -1717,10 +1964,11 @@ def end_to_end() -> tuple:
     drive(llava(params, False), (ids, pixels), "bf16", LLAVA_RUNS, EnsembleConfig())
     step_costs(cfg.vision.num_patches, cfg.text.vocab_size)
     batch_of_two(cfg, params, "bf16", int8_kv=False)
+    base = baselines_full(llava(params, False), (ids, pixels), "bf16")
     # POPE (one token a question): two images of their own
     prng = np.random.default_rng(23)
     pope_pixels = prng.normal(size=(2, 3, 336, 336)).astype(np.float32)
-    no_kernel = dict.fromkeys(KERNELS, 0)
+    no_kernel = dict.fromkeys(_wrappers(), 0)
     L = cfg.text.num_hidden_layers
     pope = {"bf16": pope_full(llava(params, False)(True, GenerationConfig()), (pope_pixels,), "bf16",
                               no_kernel)}
@@ -1765,6 +2013,8 @@ def end_to_end() -> tuple:
         )
 
     nxt = drive(make_next, (ids, tiles, size), "next", [GREEDY, EXACT, FUSED], ens)["exact K=3"]
+    noised = baselines.noised_pixels(make_next(False, GenerationConfig()), tiles)
+    baselines_full(make_next, (ids, tiles, size), "next", noised=noised)
     step_costs(llavanext.max_image_tokens(ncfg), ncfg.text.vocab_size)
     sizes = [(480, 640), (427, 640)]  # 5 tiles each; 2340 and 2144 of 2928 slots real
     pope_tiles = [prng.normal(size=(llavanext.image_geometry(s, ncfg)["n_tiles"], 3, 336, 336))
@@ -1774,8 +2024,8 @@ def end_to_end() -> tuple:
     del params
     free()
     launches = {
-        "K1": nxt["K1"], "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"],
-        "K6": int4["K6"],
+        "K1": nxt["K1"], "K1 VCD": base["VCD"]["K1"], "K1 beam": base["beam search nb=3"]["K1"],
+        "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"], "K6": int4["K6"],
     }
     return launches, pope
 
@@ -2008,13 +2258,16 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
     index) under ``.smoke_ckpt/``, loaded through the CLI's own
     ``build_engine`` (no cache), leaves checked bit-equal to what was
     written; then the CLI captions two images with the default Dropout
-    Decoding arm and with ``--original`` (``max_new`` tokens, no eos), a
-    stand-in tokenizer inside the real ``VlmProcessor`` and
-    ``ClipImagePreprocessor``: ``main`` whole where PIL and nltk are
-    importable, else ``run_engine`` + ``emit_caption`` per image.  Every
-    caption must equal the same engine's ``generate`` called directly, and
-    the CLI's run launches K1 32 times a step on ``--original`` and 64 on the
-    default arm, K2 once a caption.  ``cfg`` / ``config`` / ``device`` make a
+    Decoding arm, ``--original``, ``--vcd``, ``--original --num-beams 3``
+    and ``--opera`` (``max_new`` tokens, no eos), a stand-in tokenizer
+    inside the real ``VlmProcessor`` and ``ClipImagePreprocessor``: ``main``
+    whole where PIL and nltk are importable, else ``run_engine`` +
+    ``emit_caption`` per image.  Every caption must equal the arm's engine
+    call made directly (``generate``, ``vcd_generate``, ``beam_generate``,
+    ``opera_generate``), and the CLI's run launches K1 32 times a step on
+    ``--original``, VCD (over 2 rows) and beam search (over 3), 64 on the
+    default arm and none under OPERA, K2 once a prefill (twice a caption
+    under VCD).  ``cfg`` / ``config`` / ``device`` make a
     narrow rehearsal on the CPU possible.  Returns the phase's numbers."""
     import dataclasses
     import importlib.util
@@ -2106,7 +2359,18 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
         gen = GenerationConfig(max_new_tokens=max_new, eos_token_id=-1, pad_token_id=0)
         wrappers = _wrappers()
         make_engine = cli.make_engine
-        for arm, extra in (("dropout decoding", []), ("--original", ["--original", "True"])):
+        from dropoutdecoding_tpu_torch.engine import baselines, opera
+
+        arms = (  # (arm, flags, the engine call the CLI must make, K1 forwards a step, K2 a caption)
+            ("dropout decoding", [], lambda e, i, p: e.generate(i, p), 2, 1),
+            ("--original", ["--original", "True"], lambda e, i, p: e.generate(i, p), 1, 1),
+            ("--vcd", ["--vcd", "True"], lambda e, i, p: baselines.vcd_generate(e, i, p), 1, 2),
+            ("--num-beams 3", ["--original", "True", "--num-beams", "3"],
+             lambda e, i, p: baselines.beam_generate(e, i, p, num_beams=3), 1, 1),
+            ("--opera", ["--opera", "True"],
+             lambda e, i, p: opera.opera_generate(e, i, p, **OPERA_CLI), 0, 1),
+        )
+        for arm, extra, direct_call, forwards, prefills in arms:
             work = os.path.join(ckpt, "run")
             shutil.rmtree(work, ignore_errors=True)
             os.makedirs(work)
@@ -2114,7 +2378,15 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
                 ["--coco-data-dir", coco, "--model-path", ckpt, "--image-numbers", "2",
                  "--seed", "0", "--method", "smoke", "--output-dir", os.path.join(work, "out"),
                  "--sample-save-name", os.path.join(work, "sample.log")] + extra)
-            eng = dataclasses.replace(engine, gen=gen, ensemble=not cli.str2bool(arm_args.original))
+            opera_arm, vcd_arm = cli.str2bool(arm_args.opera), cli.str2bool(arm_args.vcd)
+            eng = dataclasses.replace(  # the arm's engine as build_engine makes it
+                engine, gen=dataclasses.replace(gen, num_beams=cli.beam_count(arm_args),
+                                                use_cd=vcd_arm),
+                ensemble=not (cli.str2bool(arm_args.original) or vcd_arm or opera_arm))
+            if opera_arm:
+                eng._opera = cli.opera_knobs(arm_args, eng.gen.num_beams)
+                if eng._opera != {**OPERA_CLI, "length_penalty": 1.0}:
+                    raise AssertionError(f"chair_cli --opera: knobs {eng._opera}")
             for fn in wrappers.values():
                 fn.launches = 0
             t0 = time.perf_counter()
@@ -2141,19 +2413,19 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
             direct = os.path.join(work, "direct.jsonl")
             for img_file, image in zip(files, images):
                 inputs = processor(cli.PROMPTS["llava-1.5"], image)
-                result = eng.generate(inputs["input_ids"], inputs["pixel_values"])
+                result = direct_call(eng, inputs["input_ids"], inputs["pixel_values"])
                 cli.emit_caption(direct, "llava-1.5", img_file,
                                  processor.decode(result.tokens[0][: result.num_tokens[0]]))
             recs = sorted((json.loads(line) for line in open(captions)), key=lambda r: r["image_id"])
             same = recs == [json.loads(line) for line in open(direct)]  # files are in id order
             steps = len(files) * (max_new - 1)
-            want = {"K1": steps * L * (2 if eng.ensemble else 1), "K2": len(files),
+            want = {"K1": steps * L * forwards, "K2": len(files) * prefills,
                     "K3": 0, "K4": 0, "K5": 0, "K6": 0}
             print(f"chair_cli {arm}: {len(recs)} captions in {cli_s:.2f} s through the CLI, equal to "
-                  f"generate called directly: {same}; launches {counts} (want {want}); "
+                  f"the engine call made directly: {same}; launches {counts} (want {want}); "
                   f"first caption: {recs[0]['caption']!r}")
             if not same or len(recs) != len(files):
-                raise AssertionError(f"chair_cli {arm}: CLI captions differ from generate's")
+                raise AssertionError(f"chair_cli {arm}: CLI captions differ from the engine call's")
             (check_counts or _check_counts)(f"chair_cli {arm}", counts, want)
             record[arm] = {"captions_s": cli_s, "launches": counts}
         record["pope_cli"] = pope_cli(engine, processor, ckpt, device, check_counts)
@@ -2314,6 +2586,18 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
     },
+    "K1 VCD": {
+        "name": "ensemble_decode_attention (VCD: M = 1 over 2 rows, the clean and noised contexts)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 beam": {
+        "name": "ensemble_decode_attention (beam search: M = 1 over 3 beam rows)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
     "K2": {
         "name": "vision_uncertainty",
         "route": "cuda",
@@ -2366,6 +2650,9 @@ def main() -> int:
     t_pope = time.perf_counter()
     small_reference("pope")
     t_pope = time.perf_counter() - t_pope
+    t_base = time.perf_counter()
+    small_reference("baselines")
+    print(f"small_reference('baselines') {time.perf_counter() - t_base:.1f} s")
     launches, pope = end_to_end()
     cli_record = chair_cli()
     print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")

@@ -12,9 +12,13 @@ the CPU (the kernels' plain twins).  The parser is the JAX CLI's, flag for
 flag.  Every Dropout Decoding arm runs: exact and fused mode
 (``--fused-step``), every ``--mask-policy``, sampling (``--do-sample`` with
 ``--temperature`` / ``--top-p`` / ``--top-k``) and the text mask
-(``--text-logit-mask``).  Flags whose engine is not ported yet raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item when the engine
-is built, before any image is read (``NOT_PORTED``).
+(``--text-logit-mask``); so do the paper's baselines: greedy
+(``--original``), beam search (``--original --num-beams N`` with
+``--length-penalty`` / ``--early-stopping``), VCD (``--vcd``) and OPERA
+(``--opera``, one image at a time), each serial and, but OPERA, batched.
+Flags whose engine is not ported yet raise ``NotImplementedError`` naming
+their ROADMAP Queue 1 item when the engine is built, before any image is
+read (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -54,9 +58,6 @@ def str2bool(v) -> bool:
 
 # (flag, whether args ask for it, ROADMAP Queue 1 item that ports its engine)
 NOT_PORTED = (
-    ("--vcd", lambda a: str2bool(a.vcd), 9),
-    ("--num-beams > 1", lambda a: (a.num_beams or 1) > 1, 9),
-    ("--opera", lambda a: str2bool(a.opera), 13),
     ("--spec-gamma", lambda a: bool(getattr(a, "spec_gamma", None)), 14),
     ("--quantize w8a8", lambda a: getattr(a, "quantize", None) == "w8a8", 12),
     ("--w8a8-decode", lambda a: str2bool(getattr(a, "w8a8_decode", False)), 12),
@@ -66,17 +67,32 @@ NOT_PORTED = (
 )
 
 
+def beam_count(args) -> int:
+    """The JAX CLI's beam count: --opera defaults to 3 beams (the
+    reference's OPERA arm)."""
+    if args.num_beams is not None:
+        return args.num_beams
+    return 3 if str2bool(args.opera) else 1
+
+
 def check_ported(args) -> None:
-    """Exit, as the JAX CLI does, on ``--do-sample`` with beams; then raise
+    """Exit, as the JAX CLI does, on ``--do-sample`` with beams and on
+    ``--opera`` with ``--original``, ``--vcd`` or a batch; then raise
     ``NotImplementedError`` for the first flag in ``args`` whose engine the
     port does not have yet."""
-    # the JAX CLI's beam count: --opera defaults to 3 beams
-    num_beams = args.num_beams if args.num_beams is not None else (3 if str2bool(args.opera) else 1)
-    if str2bool(getattr(args, "do_sample", False)) and num_beams > 1:
+    if str2bool(getattr(args, "do_sample", False)) and beam_count(args) > 1:
         raise SystemExit(
             "--do-sample with --num-beams > 1 (beam-sample) is not "
             "implemented; drop one of the two flags."
         )
+    if str2bool(args.opera):
+        if str2bool(args.original) or str2bool(args.vcd):
+            raise SystemExit("--opera excludes --original/--vcd")
+        if (getattr(args, "batch_size", 1) or 1) > 1:
+            raise SystemExit(
+                "--opera rollback makes per-image steps diverge; it runs "
+                "one image per program (drop --batch-size)"
+            )
     for flag, asked, item in NOT_PORTED:
         if asked(args):
             raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
@@ -144,21 +160,27 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
     weights; ``eos_token_id`` is the tokenizer's, 2 for LLaVA's Llama and
     Mistral tokenizers).  ``cache`` keeps the converted weights between
     runs (``utils/cache.py``)."""
-    check_ported(args)  # beams raise, so their knobs stay unread
+    check_ported(args)
     model = args.model
+    use_opera = str2bool(args.opera)
+    es = getattr(args, "early_stopping", "false")
     gen = GenerationConfig(
         max_new_tokens=512,
         eos_token_id=eos_token_id,
         pad_token_id=eos_token_id,
+        num_beams=beam_count(args),
+        length_penalty=getattr(args, "length_penalty", 1.0),
+        early_stopping="never" if str(es).lower() == "never" else str2bool(es),
         do_sample=str2bool(getattr(args, "do_sample", False)),
         temperature=getattr(args, "temperature", 1.0),
         top_p=getattr(args, "top_p", 1.0),
         top_k=getattr(args, "top_k", None),
+        use_cd=str2bool(args.vcd),
     )
     common = dict(
         ens=build_ensemble_config(args, model),
         gen=gen,
-        ensemble=not str2bool(args.original),
+        ensemble=not (str2bool(args.original) or str2bool(args.vcd) or use_opera),
         seed=args.seed if args.seed is not None else REFERENCE_SEEDS[model],
         text_logits_mask=str2bool(getattr(args, "text_logit_mask", False)),
         int8_kv=str2bool(getattr(args, "int8_kv", False)),
@@ -169,24 +191,42 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
         from ..models import llava as llava_mod
 
         cfg, params = llava_mod.load(args.model_path, torch.bfloat16, device, cache)
-        return LlavaEngine(
+        engine = LlavaEngine(
             cfg=cfg,
             params=maybe_quantize(args, params),
             max_len=cfg.vision.num_patches + 64 + 512,
             **common,
         )
-    if model == "llava-next":
+    elif model == "llava-next":
         from ..engine.llavanext_engine import LlavaNextEngine
         from ..models import llavanext as next_mod
 
         cfg, params = next_mod.load(args.model_path, torch.bfloat16, device, cache)
-        return LlavaNextEngine(
+        engine = LlavaNextEngine(
             cfg=cfg,
             params=maybe_quantize(args, params),
             max_len=next_mod.max_image_tokens(cfg) + 64 + 512,
             **common,
         )
-    raise SystemExit(f"unknown model {model!r}")
+    else:
+        raise SystemExit(f"unknown model {model!r}")
+    if use_opera:
+        engine._opera = opera_knobs(args, gen.num_beams)
+    return engine
+
+
+def opera_knobs(args, num_beams: int) -> dict:
+    """``opera_generate``'s keywords from the flags: the reference's OPERA
+    arm runs scale 5, threshold 15, one attention candidate and penalty
+    weight 1 over 3 beams (the parser's defaults)."""
+    return dict(
+        num_beams=num_beams,
+        scale_factor=getattr(args, "scale_factor", 5.0),
+        threshold=int(getattr(args, "threshold", 15)),
+        num_attn_candidates=int(getattr(args, "num_attn_candidates", 1)),
+        penalty_weights=getattr(args, "penalty_weights", 1.0),
+        length_penalty=getattr(args, "length_penalty", 1.0),
+    )
 
 
 def make_engine(args, device="cuda"):
@@ -211,14 +251,43 @@ def next_image_prep(engine):
     return engine._next_prep_cache
 
 
+def generate_arm(engine, model, input_ids, *images):
+    """The arm ``engine`` was built for, over a batch of prompts: VCD, OPERA
+    (one image), beam search (``--original`` with beams) or the engine's own
+    ``generate``.  ``images``: LLaVA-1.5's pixels, or LLaVA-NeXT's tile
+    stack and size (lists of them for a batch), whose VCD noise the CLI
+    makes per image, as the JAX CLI does."""
+    from ..engine import baselines
+
+    gen, opera = engine.gen, getattr(engine, "_opera", None)
+    if gen.use_cd:
+        if model != "llava-next":
+            return baselines.vcd_generate(engine, input_ids, *images)
+        tiles, sizes = images
+        noised = ([baselines.noised_pixels(engine, t) for t in tiles] if isinstance(tiles, list)
+                  else baselines.noised_pixels(engine, tiles))
+        return baselines.vcd_generate(engine, states=(
+            engine.prefill(input_ids, tiles, sizes), engine.prefill(input_ids, noised, sizes)))
+    if opera is not None:
+        from ..engine.opera import opera_generate
+
+        return opera_generate(engine, state=engine.prefill(input_ids, *images), **opera)
+    if not engine.ensemble and gen.num_beams > 1:
+        return baselines.beam_generate(
+            engine, state=engine.prefill(input_ids, *images), num_beams=gen.num_beams,
+            length_penalty=gen.length_penalty, early_stopping=gen.early_stopping,
+        )
+    return engine.generate(input_ids, *images)
+
+
 def run_engine(engine, processor, model, prompt, image):
-    """One caption: model-specific input prep + generate + decode."""
+    """One caption: model-specific input prep, ``generate_arm``, detokenize."""
     if model == "llava-next":
         tiles, orig = next_image_prep(engine)(image)
-        result = engine.generate(processor(prompt)["input_ids"], tiles, orig)
+        result = generate_arm(engine, model, processor(prompt)["input_ids"], tiles, orig)
     else:
         inputs = processor(prompt, image)
-        result = engine.generate(inputs["input_ids"], inputs["pixel_values"])
+        result = generate_arm(engine, model, inputs["input_ids"], inputs["pixel_values"])
     return processor.decode(result.tokens[0][: result.num_tokens[0]])
 
 
@@ -334,8 +403,8 @@ def main(args, device="cuda"):
     timer = StageTimer()
     batch = max(getattr(args, "batch_size", 1) or 1, 1)
     if batch > 1:
-        # batched path: dropout decoding and --original run one program
-        # over ``batch`` images (identical prompts, so identical merged
+        # batched path: dropout decoding, --original, beam search and VCD
+        # run over ``batch`` images (identical prompts, so identical merged
         # lengths); LLaVA-NeXT rows carry their own tile stacks and sizes
         import numpy as np
 
@@ -359,9 +428,9 @@ def main(args, device="cuda"):
                 if size_list:
                     size_list.append(size_list[-1])
             if model == "llava-next":
-                result = engine.generate(np.stack(ids_list), px_list, size_list)
+                result = generate_arm(engine, model, np.stack(ids_list), px_list, size_list)
             else:
-                result = engine.generate(np.stack(ids_list), np.stack(px_list))
+                result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list))
             for i, img_file in enumerate(group):
                 text = processor.decode(result.tokens[i][: result.num_tokens[i]])
                 emit_caption(captions_path, model, img_file, text)

@@ -87,6 +87,7 @@ from ..utils.prng import (
     PhiloxTextUniform,
     PhiloxUniform,
     RowSource,
+    StepSource,
     UniformSource,
 )
 
@@ -143,6 +144,13 @@ class PrefillState(NamedTuple):
 class GenerationResult(NamedTuple):
     tokens: np.ndarray  # [B, T] generated tokens (pad after eos)
     num_tokens: np.ndarray  # [B]
+
+
+def first_index(rows: np.ndarray, value: int, plus: int = 0) -> np.ndarray:
+    """Each row's first position of ``value`` + ``plus``, or its length: a
+    generation's token count (``plus=1`` counts the eos itself)."""
+    return np.array([np.flatnonzero(r == value)[0] + plus if (r == value).any() else len(r)
+                     for r in rows])
 
 
 class ProbeResult(NamedTuple):
@@ -208,6 +216,11 @@ class LlavaEngine:
     uniform: UniformSource | None = None
     text_uniform: RowSource | None = None
     gumbel: RowSource | None = None
+    # VCD's draws (engine/baselines.py): cd_noise(pixels) -> the pixels noised
+    # at gen.cd_noise_step, cd_gumbel(step, n) one step's noise for every row;
+    # None: torch Philox at the seed vcd_generate is given
+    cd_noise: Callable | None = None
+    cd_gumbel: StepSource | None = None
     # called as on_prefill(img_logits [B, N, V], state) at the end of every
     # prefill: a check's view of the logits the state was made from
     on_prefill: Callable | None = None
@@ -575,25 +588,35 @@ class LlavaEngine:
             last = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
         return self._head(hidden, last)
 
-    def _generate(self, input_ids, *images) -> GenerationResult:
-        """``prefill(input_ids, *images)``, then the decode loop."""
-        # KV-capacity guard: each of the T-1 decode steps appends one row
-        # at cur_len.  The merged prompt length follows from the shapes, so
-        # the check needs no device sync and runs before any work.
-        longest = np.shape(input_ids)[1] + self.n_visual - 1
+    def _prompt_lengths(self, input_ids, *images) -> tuple[int, int]:
+        """(the longest real merged prompt, the padded merged prompt) of a
+        ``generate`` call, in cache slots, from the shapes alone: LLaVA-1.5's
+        visual span is never padded, so the two are equal."""
+        S = np.shape(input_ids)[1] + self.n_visual - 1
+        return S, S
+
+    def _check_capacity(self, input_ids, *images) -> None:
+        """The KV-capacity guard of ``generate``, before any work and with no
+        device sync: the padded prompt must fit the cache for ``cache_seed``,
+        and each of the T-1 decode steps appends one row at a row's real
+        length, as the JAX engine counts it (``cur_len``)."""
+        longest, padded = self._prompt_lengths(input_ids, *images)
+        if padded > self.max_len:
+            raise ValueError(
+                f"the merged prompt ({padded} slots) exceeds the KV capacity "
+                f"max_len={self.max_len}"
+            )
         if longest + self.gen.max_new_tokens - 1 > self.max_len:
             raise ValueError(
                 f"prompt ({longest} tokens) + max_new_tokens "
                 f"({self.gen.max_new_tokens}) - 1 exceeds the KV capacity "
                 f"max_len={self.max_len}; raise max_len or lower the budget"
             )
+
+    def _generate(self, input_ids, *images) -> GenerationResult:
+        """``prefill(input_ids, *images)``, then the decode loop."""
+        self._check_capacity(input_ids, *images)
         state = self.prefill(input_ids, *images)
         tokens = self.decode(state).cpu().numpy().astype(np.int32)
-        eos = self.gen.eos_token_id
-        num = np.array(
-            [
-                (np.where(row == eos)[0][0] + 1) if (row == eos).any() else len(row)
-                for row in tokens
-            ]
-        )
+        num = first_index(tokens, self.gen.eos_token_id, 1)
         return GenerationResult(tokens=tokens, num_tokens=num)

@@ -63,19 +63,34 @@ class LlavaNextEngine(LlavaEngine):
     def n_visual(self) -> int:
         return self._n_max
 
+    def _sizes(self, original_size, n_images) -> list:
+        """The rows' (h, w): ``original_size`` is one pair for B = 1, else a
+        list of B pairs."""
+        if n_images == 1 and not isinstance(original_size, list):
+            return [tuple(original_size)]
+        if len(original_size) != n_images:
+            raise ValueError(f"{n_images} rows need as many sizes; got {len(original_size)}")
+        return list(original_size)
+
+    def _prompt_lengths(self, input_ids, tile_pixels, original_size) -> tuple[int, int]:
+        """(the longest real merged prompt, the padded one): a row's real
+        length counts only the visual tokens its anyres geometry keeps, as the
+        JAX engine's ``cur_len`` does; the padded span is ``max_image_tokens``.
+        Host arithmetic on the sizes: no tile is read."""
+        B, S_text = np.shape(input_ids)
+        n_real = max(next_mod.image_geometry(s, self.cfg)["n_tokens"]
+                     for s in self._sizes(original_size, B))
+        return S_text - 1 + n_real, S_text - 1 + self._n_max
+
     def _prep_images(self, tile_pixels, original_size, n_images):
         """Host-side anyres prep: the images' tile stacks padded to the
         largest tile count [B, T_pad, 3, s, s], and their gather plans and
         validity masks [B, N_max], on the engine's device."""
-        if n_images == 1 and not isinstance(original_size, list):
-            original_size = [tuple(original_size)]
+        original_size = self._sizes(original_size, n_images)
         if not isinstance(tile_pixels, (list, tuple)):
             tile_pixels = [tile_pixels] if n_images == 1 else list(tile_pixels)
-        if len(tile_pixels) != n_images or len(original_size) != n_images:
-            raise ValueError(
-                f"{n_images} rows need as many tile stacks and sizes; got "
-                f"{len(tile_pixels)} and {len(original_size)}"
-            )
+        if len(tile_pixels) != n_images:
+            raise ValueError(f"{n_images} rows need as many tile stacks; got {len(tile_pixels)}")
         geos = [next_mod.image_geometry(size, self.cfg) for size in original_size]
         t_pad = max(g["n_tiles"] for g in geos)
         tiles, gathers, valids = [], [], []

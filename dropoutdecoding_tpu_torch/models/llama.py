@@ -14,6 +14,9 @@ dict; port of ``dropoutdecoding_tpu/models/llama.py``.
   dense cache, K3 over an int8 one (``ops/cuda_decode_attention.py``).
   Returns each member's new-token K/V (unquantized) so the engine appends
   only the vote winner's.
+- ``decode_step_attn``: one token over B rows that also returns the last
+  layer's head-mean attention probabilities (OPERA's penalty reads them).
+  Plain torch, as the JAX function is plain XLA: K1 emits no probabilities.
 
 Weights are in the JAX layout: ``x @ W`` with W [in, out], layers stacked
 on a leading [L] axis; a projection may be dense, int8 {"q", "s"} or
@@ -22,17 +25,20 @@ be fused into one leaf each (``fuse_projections``).  An int4 projection
 runs K6 (``ops/cuda_int4_matmul.py``) on the layer's view of the stacked
 weight; no dequantized matrix is made.  Logits are fp32.
 
-Unlike the JAX package, the cache is updated in place: ``cache_seed`` and
-``cache_set_rows`` write into the KVCache's tensors and return it.  On an
-int8 cache ``cache_set_rows`` is K4 (``ops/cuda_cache_append.py``).
+Unlike the JAX package, the cache is updated in place: ``cache_seed``,
+``cache_set_rows`` and ``cache_reorder_rows`` (beam search's reorder) write
+into the KVCache's tensors.  On an int8 cache ``cache_set_rows`` is K4
+(``ops/cuda_cache_append.py``).
 
 Not ported yet (each raises ``NotImplementedError``): w8a8 projections
 (ROADMAP Queue 1 item 12) and tensor parallelism (Queue 1 item 16).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -177,6 +183,42 @@ def cache_set_rows(
     cache.k[:, rows, cur_len] = k_new.to(cache.k.dtype)
     cache.v[:, rows, cur_len] = v_new.to(cache.v.dtype)
     return cache
+
+
+def cache_map(cache: KVCache, fn) -> KVCache:
+    """``fn(leaf, slot_axis)`` over every tensor of the cache: dense leaves
+    and int8 "q" hold their slots on axis 2, int8 "s" on axis 3."""
+    def one(leaf):
+        if isinstance(leaf, dict):
+            return {"q": fn(leaf["q"], 2), "s": fn(leaf["s"], 3)}
+        return fn(leaf, 2)
+
+    return KVCache(one(cache.k), one(cache.v))
+
+
+def cache_live(cache: KVCache, n_live: int) -> KVCache:
+    """Views of the first ``n_live`` slots of every row: no copy."""
+    return cache_map(cache, lambda t, axis: t.narrow(axis, 0, n_live))
+
+
+def cache_reorder_rows(cache: KVCache, src: np.ndarray, n_live: int) -> None:
+    """Row r takes row ``src[r]``'s first ``n_live`` slots, in place (beam
+    search's reorder: the JAX package gathers every slot of every row).
+    Rows whose source is themselves are not touched, so an identity reorder
+    moves nothing; a moved row is one copy a leaf, of whole layer panels,
+    and a source that is overwritten too is saved first."""
+    moved = [int(r) for r in np.flatnonzero(src != np.arange(len(src)))]
+    if not moved:
+        return
+
+    def move(t, axis):
+        live = t.narrow(axis, 0, n_live)
+        saved = {int(src[r]): live[:, src[r]].clone() for r in moved if src[r] in moved}
+        for r in moved:
+            live[:, r].copy_(saved.get(int(src[r]), live[:, src[r]]))
+        return t
+
+    cache_map(cache, move)
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -446,3 +488,89 @@ def decode_step(
 
     hidden, kv = _forward(params, cfg, x, cos, sin, attend)
     return hidden, kv.k, kv.v
+
+
+def attention_with_probs(q, k_new, v_new, kc, vc, key_mask, ksc=None, vsc=None):
+    """One token's attention over a cache and its own key, with the
+    probabilities: ``decode_step_attn``'s, plain torch (K1 gives none).
+
+    Args:
+      q: [B, H, Dh]; k_new, v_new: [B, KH, Dh] the token's own K/V.
+      kc, vc: [B, S, KH, Dh] the cache (int8 values under ``ksc`` / ``vsc``,
+        the per-(slot, head) scales [B, KH, S]).
+      key_mask: [B, S] bool, True = attend.
+    Returns:
+      (out [B, H, Dh] in q's dtype, probs [B, KH, G, S] fp32 over the cache
+      slots; the own token's share is in the softmax, not in ``probs``).
+    """
+    B, H, Dh = q.shape
+    KH = kc.shape[2]
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(Dh)
+    qg = q.reshape(B, KH, H // KH, Dh).float()  # head h reads kv head h // G
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, kc.float()) * scale
+    if ksc is not None:
+        scores = scores * ksc[:, :, None, :]
+    scores = scores.masked_fill(~key_mask[:, None, None, :], -1e30)
+    self_s = torch.einsum("bkgd,bkd->bkg", qg, k_new.float()) * scale
+    m = torch.maximum(scores.amax(-1), self_s)
+    e = torch.exp(scores - m[..., None])
+    e_self = torch.exp(self_s - m)
+    denom = e.sum(-1) + e_self
+    probs = e / denom[..., None]
+    pv = probs.to(dt)
+    if vsc is not None:
+        pv = pv * vsc[:, :, None, :].to(dt)
+    out = torch.einsum("bkgs,bskd->bkgd", pv, vc.to(dt))
+    out = out + (e_self / denom).to(dt)[..., None] * v_new[:, :, None, :]
+    return out.reshape(B, H, Dh), probs
+
+
+def decode_step_attn(
+    params: dict,
+    cfg: LlamaConfig,
+    x: torch.Tensor,
+    position: torch.Tensor,
+    cache: KVCache,
+    key_mask: torch.Tensor,
+):
+    """One-token forward over B rows that also returns the token's
+    attention probabilities, OPERA's capture (JAX ``models/llama.py:1088``).
+
+    Plain torch, as the JAX function is plain XLA (``attention_with_probs``):
+    fp32 scores of the cache slots and of the token's own key in one
+    softmax, k-scales on the scores and v-scales on the probabilities of an
+    int8 cache.  Projections go through ``_mm`` (K6 on int4 weights).
+    ``params`` is an argument, never captured.
+
+    Args:
+      x: [B, D] current-token embeddings (B = beams x attention candidates).
+      position: [B] rope position of the current token.
+      cache: KVCache, dense [L, B, S, KH, Dh] or int8; read only.  S may be
+        a prefix of the allocation (``cache_live``).
+      key_mask: [B, S] bool, True = attend that slot.
+    Returns:
+      (hidden [B, D], k_new [L, B, KH, Dh], v_new [L, B, KH, Dh],
+       attn [B, S]): attn is the last layer's head-mean probabilities over
+      the cache slots (the self column is in the softmax, not in the row).
+    """
+    KH, Dh = cfg.num_key_value_heads, cfg.head_dim
+    L = params["layers"]["input_ln"].shape[0]
+    cos, sin = rotary_embedding(position, Dh, cfg.rope_theta)
+    cos, sin = cos[:, None, None, :], sin[:, None, None, :]
+    last = []
+
+    def attend(i, q, k, v):
+        if cache_is_quantized(cache):
+            kc, vc = (cache.k["q"][i].unflatten(-1, (KH, Dh)),
+                      cache.v["q"][i].unflatten(-1, (KH, Dh)))
+            scales = cache.k["s"][i], cache.v["s"][i]
+        else:
+            kc, vc, scales = cache.k[i], cache.v[i], (None, None)
+        out, probs = attention_with_probs(q[:, 0], k[:, 0], v[:, 0], kc, vc, key_mask, *scales)
+        if i == L - 1:
+            last.append(probs.mean(dim=(1, 2)))
+        return out[:, None]
+
+    hidden, kv = _forward(params, cfg, x[:, None], cos, sin, attend)
+    return hidden[:, 0], kv.k[:, :, 0], kv.v[:, :, 0], last[0]

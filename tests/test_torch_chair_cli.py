@@ -7,9 +7,10 @@ own tiny engine on one set of weights (carried across by
 ``utils/convert.py``; JAX's mask draws injected into the port), behind
 that file's ``_TinyProcessor``.  Both must write the same sample log,
 caption records, self-critical JSON, CHAIR results and THRONE scores, for
-``--original``, the default Dropout Decoding arm, its int8 tier, and the
+``--original``, the default Dropout Decoding arm, its int8 tier, the
 fused arm with sampling and the text mask (all three of JAX's streams
-injected).
+injected), and the baselines: VCD (JAX's noised pixels and draws injected),
+beam search and OPERA, serial and batched.
 """
 import dataclasses
 import json
@@ -27,6 +28,8 @@ from dropoutdecoding_tpu.utils import config as jax_config
 from dropoutdecoding_tpu.utils import quantize as jquant
 from dropoutdecoding_tpu_torch.cli import chair_test as tcli
 from dropoutdecoding_tpu_torch.decoding import masks as tmasks
+from dropoutdecoding_tpu_torch.engine import baselines as tbase
+from dropoutdecoding_tpu_torch.engine import opera as topera
 from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
 from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
 from dropoutdecoding_tpu_torch.models import llavanext as tnext
@@ -36,6 +39,7 @@ from dropoutdecoding_tpu_torch.utils.convert import (
     llavanext_params_from_numpy,
 )
 from test_chair_cli_end_to_end import _TinyProcessor, synthetic_coco  # noqa: F401 (fixture)
+from test_torch_baselines import jax_cd_gumbel, jax_cd_noise
 from test_torch_engine import jax_gumbel, jax_text_uniform, jax_uniform
 from test_torch_llavanext import narrow_config, narrow_tree
 from test_torch_models import tiny_config, tiny_tree
@@ -51,12 +55,31 @@ def weights():
 
 
 def _gen(C, args=None):
-    """The tiny engines' generation config, with the CLI's sampling knobs."""
+    """The tiny engines' generation config, with the CLI's sampling, beam
+    and VCD knobs (the JAX ``make_engine``'s rules)."""
     knobs = {} if args is None else dict(
         do_sample=jcli.str2bool(args.do_sample), temperature=args.temperature,
-        top_p=args.top_p, top_k=args.top_k,
+        top_p=args.top_p, top_k=args.top_k, num_beams=_beams(args),
+        length_penalty=args.length_penalty, use_cd=jcli.str2bool(args.vcd),
+        early_stopping="never" if args.early_stopping == "never"
+        else jcli.str2bool(args.early_stopping),
     )
     return C.GenerationConfig(max_new_tokens=4, eos_token_id=2, pad_token_id=2, **knobs)
+
+
+def _beams(args):
+    return args.num_beams if args.num_beams is not None else (3 if jcli.str2bool(args.opera) else 1)
+
+
+def _arm(args):
+    """(ensemble, the OPERA knobs or None) of the JAX ``make_engine``."""
+    opera = jcli.str2bool(args.opera)
+    knobs = dict(
+        num_beams=_beams(args), scale_factor=args.scale_factor, threshold=args.threshold,
+        num_attn_candidates=args.num_attn_candidates, penalty_weights=args.penalty_weights,
+        length_penalty=args.length_penalty,
+    ) if opera else None
+    return not (jcli.str2bool(args.original) or jcli.str2bool(args.vcd) or opera), knobs
 
 
 def _jax_make_engine(weights):
@@ -66,14 +89,17 @@ def _jax_make_engine(weights):
         params = jp
         if args.quantize == "int8":  # the JAX CLI's maybe_quantize on one device
             params = jp._replace(lm=jquant.fuse_projections(jquant.quantize_llama_params(jp.lm)))
+        ensemble, opera = _arm(args)
         eng = JaxEngine(
             cfg=tiny_config(jax_config), params=params,
             ens=jcli.build_ensemble_config(args, args.model), gen=_gen(jax_config, args),
-            max_len=48, seed=args.seed, ensemble=not jcli.str2bool(args.original),
+            max_len=48, seed=args.seed, ensemble=ensemble,
             int8_kv=jcli.str2bool(args.int8_kv),
             text_logits_mask=jcli.str2bool(args.text_logit_mask),
         )
         eng.param_dtype = jnp.float32
+        if opera is not None:
+            eng._opera = opera
         return eng, _TinyProcessor(eng.cfg)
 
     return make
@@ -85,15 +111,20 @@ def _port_make_engine(weights, engines=None):
     def make(args, device="cuda"):
         assert device == "cpu"
         tcli.check_ported(args)
+        ensemble, opera = _arm(args)
         eng = LlavaEngine(
             cfg=tiny_config(torch_config), params=tcli.maybe_quantize(args, tp),
             ens=tcli.build_ensemble_config(args, args.model), gen=_gen(torch_config, args),
-            max_len=48, seed=args.seed, ensemble=not tcli.str2bool(args.original),
+            max_len=48, seed=args.seed, ensemble=ensemble,
             int8_kv=tcli.str2bool(args.int8_kv), uniform=jax_uniform(args.seed),
             text_logits_mask=tcli.str2bool(args.text_logit_mask),
             # the JAX engine draws its text uniforms at max_len rounded up to 32
             text_uniform=jax_text_uniform(args.seed, length=64), gumbel=jax_gumbel(args.seed),
+            cd_noise=jax_cd_noise(), cd_gumbel=jax_cd_gumbel(),
         )
+        if opera is not None:
+            assert opera == tcli.opera_knobs(args, tcli.beam_count(args))
+            eng._opera = opera
         if engines is not None:
             engines.append(eng)
         return eng, _TinyProcessor(eng.cfg)
@@ -140,8 +171,14 @@ def _run(cli, coco, workdir, extra, monkeypatch, n=4, **main_kw):
     "extra",
     [["--original", "True"], [], ["--quantize", "int8", "--int8-kv", "True"],
      ["--fused-step", "True", "--do-sample", "True", "--temperature", "0.7", "--top-p", "0.9",
-      "--top-k", "5", "--text-logit-mask", "True", "--mask-policy", "epis_kl"]],
-    ids=["original", "dropout-decoding", "dropout-decoding-int8", "fused-sampled-text-mask-epis_kl"],
+      "--top-k", "5", "--text-logit-mask", "True", "--mask-policy", "epis_kl"],
+     ["--vcd", "True"], ["--vcd", "True", "--batch-size", "2"],
+     ["--original", "True", "--num-beams", "3"],
+     ["--original", "True", "--num-beams", "3", "--batch-size", "3", "--length-penalty", "2.0",
+      "--early-stopping", "never"],
+     ["--opera", "True"], ["--opera", "True", "--num_attn_candidates", "2", "--threshold", "2"]],
+    ids=["original", "dropout-decoding", "dropout-decoding-int8", "fused-sampled-text-mask-epis_kl",
+         "vcd", "vcd-batched", "beam", "beam-batched-knobs", "opera", "opera-fan-out-rollback"],
 )
 def test_main_writes_what_the_jax_main_writes(synthetic_coco, tmp_path, monkeypatch, weights, extra):
     monkeypatch.setattr(jcli, "make_engine", _jax_make_engine(weights))
@@ -178,20 +215,43 @@ def test_batched_original_matches_serial(synthetic_coco, tmp_path, monkeypatch, 
     assert len(engines) == 2
 
 
-@pytest.mark.parametrize("extra", [["--original", "True"], []], ids=["original", "dropout-decoding"])
-def test_llavanext_caption_equals_engine_generate(synthetic_coco, tmp_path, monkeypatch, extra):
+def _next_direct(eng, arm, ids, tiles, orig):
+    """The engine call each arm of the CLI makes on one LLaVA-NeXT image."""
+    if arm == "vcd":
+        noised = tbase.noised_pixels(eng, tiles)
+        return tbase.vcd_generate(eng, states=(eng.prefill(ids, tiles, orig),
+                                               eng.prefill(ids, noised, orig)))
+    if arm == "beam":
+        return tbase.beam_generate(eng, state=eng.prefill(ids, tiles, orig), num_beams=3)
+    if arm == "opera":
+        return topera.opera_generate(eng, state=eng.prefill(ids, tiles, orig), num_beams=3,
+                                     scale_factor=5.0, threshold=15, num_attn_candidates=1)
+    return eng.generate(ids, tiles, orig)
+
+
+NEXT_ARMS = {"original": ["--original", "True"], "dropout-decoding": [], "vcd": ["--vcd", "True"],
+             "beam": ["--original", "True", "--num-beams", "3"], "opera": ["--opera", "True"]}
+
+
+@pytest.mark.parametrize("arm", list(NEXT_ARMS))
+def test_llavanext_caption_equals_engine_generate(synthetic_coco, tmp_path, monkeypatch, arm):
     """--model llava-next on the narrow NeXT: each caption is what the port
-    engine's ``generate`` gives on the port's anyres tiles of that image."""
+    engine gives on the port's anyres tiles of that image, through the
+    arm's own call (VCD's noised tiles, beam search's and OPERA's state)."""
     cfg, params = narrow_config(torch_config), llavanext_params_from_numpy(narrow_tree())
     engines = []
+    extra = NEXT_ARMS[arm]
 
     def make(args, device="cuda"):
         tcli.check_ported(args)
+        ensemble, opera = _arm(args)
         eng = LlavaNextEngine(
             cfg=cfg, params=params, ens=tcli.build_ensemble_config(args, args.model),
-            gen=_gen(torch_config), max_len=tnext.max_image_tokens(cfg) + 16,
-            seed=args.seed, ensemble=not tcli.str2bool(args.original),
+            gen=_gen(torch_config, args), max_len=tnext.max_image_tokens(cfg) + 16,
+            seed=args.seed, ensemble=ensemble, cd_noise=jax_cd_noise(), cd_gumbel=jax_cd_gumbel(),
         )
+        if opera is not None:
+            eng._opera = opera
         engines.append(eng)
         return eng, _TinyProcessor(cfg)
 
@@ -206,7 +266,7 @@ def test_llavanext_caption_equals_engine_generate(synthetic_coco, tmp_path, monk
         name = f"COCO_val2014_{rec['image_id']:012d}.jpg"
         image = Image.open(synthetic_coco / "val2014" / name).convert("RGB")
         tiles, orig = prep(image)
-        result = eng.generate(proc(tcli.PROMPTS["llava-next"])["input_ids"], tiles, orig)
+        result = _next_direct(eng, arm, proc(tcli.PROMPTS["llava-next"])["input_ids"], tiles, orig)
         want = proc.decode(result.tokens[0][: result.num_tokens[0]]).strip()
         assert rec["caption"] == want
     assert len(out["captions"]) == 2
@@ -247,9 +307,6 @@ def test_build_ensemble_config_matches(extra):
 
 
 NOT_PORTED = [
-    (["--vcd", "True"], 9),
-    (["--num-beams", "3"], 9),
-    (["--opera", "True"], 13),
     (["--spec-gamma", "3"], 14),
     (["--quantize", "w8a8"], 12),
     (["--w8a8-decode", "True"], 12),
@@ -380,6 +437,44 @@ def test_do_sample_with_beams_exits_as_the_jax_cli(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="beam-sample"):
         tcli.main(tcli.build_parser().parse_args(argv), device="cpu")
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize(
+    "extra,message",
+    [(["--opera", "True", "--batch-size", "2"], "one image per program"),
+     (["--opera", "True", "--original", "True"], "excludes --original/--vcd"),
+     (["--opera", "True", "--vcd", "True"], "excludes --original/--vcd")],
+    ids=["batched", "with-original", "with-vcd"],
+)
+def test_opera_guards_exit_as_the_jax_cli(tmp_path, monkeypatch, extra, message):
+    """--opera with a batch, --original or --vcd exits before any image is
+    read, with the JAX CLI's message (which reads the tokenizer first)."""
+    from dropoutdecoding_tpu.utils import processor as jproc
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "load_processor", lambda path: pytest.fail("tokenizer read"))
+    monkeypatch.setattr(jproc.VlmProcessor, "from_checkpoint",
+                        classmethod(lambda cls, path: _TinyProcessor(tiny_config(jax_config))))
+    argv = _argv(tmp_path / "coco", tmp_path, extra)
+    with pytest.raises(SystemExit, match=message):
+        jcli.make_engine(jcli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit, match=message):
+        tcli.main(tcli.build_parser().parse_args(argv), device="cpu")
+    assert os.listdir(tmp_path) == []
+
+
+def test_baseline_flags_reach_the_engine(fake_load):
+    """The beam, VCD and OPERA flags set the engine's fields as the JAX
+    ``make_engine`` sets them."""
+    eng, _ = _make(["--num-beams", "4", "--length-penalty", "2.0", "--early-stopping", "never"])
+    assert (eng.gen.num_beams, eng.gen.length_penalty, eng.gen.early_stopping) == (4, 2.0, "never")
+    assert eng.ensemble and not hasattr(eng, "_opera")  # beams alone keep Dropout Decoding
+    eng, _ = _make(["--vcd", "True", "--early-stopping", "true"])
+    assert eng.gen.use_cd and not eng.ensemble and eng.gen.early_stopping is True
+    eng, _ = _make(["--opera", "True", "--scale_factor", "7", "--num-attn-candidates", "2"])
+    assert not eng.ensemble and eng.gen.num_beams == 3
+    assert eng._opera == dict(num_beams=3, scale_factor=7.0, threshold=15, num_attn_candidates=2,
+                              penalty_weights=1.0, length_penalty=1.0)
 
 
 def test_emit_caption_matches_the_jax_emit(tmp_path, capsys):

@@ -30,7 +30,7 @@ EXPECTED_MODULES = [
     "utils.native_image", "engine.trace", "evalsuite.chair", "evalsuite.coco",
     "evalsuite.text", "evalsuite.throne", "evalsuite.metrics.evalcap",
     "evalsuite.metrics.meteor", "evalsuite.metrics.spice_lite", "cli.chair_test",
-    "cli.chair2throne",
+    "cli.chair2throne", "decoding.vcd", "decoding.opera", "engine.baselines", "engine.opera",
 ]
 # an import statement of JAX or of the JAX package, in any source line
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|dropoutdecoding_tpu(\.|\s|$))", re.M)
@@ -48,7 +48,7 @@ def test_port_modules_import_no_jax():
     proc = _run(["-c", _IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     names, leaked = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert len(names) >= 47  # every module of the port was imported,
+    assert len(names) >= 51  # every module of the port was imported,
     missing = {f"dropoutdecoding_tpu_torch.{m}" for m in EXPECTED_MODULES} - set(names)
     assert not missing  # the new ones among them
     assert leaked == [], f"port modules pulled in {leaked}"
@@ -61,7 +61,7 @@ def test_no_source_line_imports_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(os.path.join(ROOT, "dropoutdecoding_tpu_torch")):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
-    assert len(files) >= 48
+    assert len(files) >= 52
     bad = [f for f in files if _FORBIDDEN.search(open(f).read())]
     assert bad == []
     assert _FORBIDDEN.search("    from dropoutdecoding_tpu.utils import hf_io")

@@ -332,9 +332,38 @@ def test_masks_stay_inside_the_real_span(weights):
 
 
 def test_kv_capacity_guard_runs_before_any_work(weights):
-    _, te = _engines(weights, max_new_tokens=40)  # 9 - 1 + 1312 + 40 - 1 > 1344
+    """The guard counts the real length (9 - 1 + 982 = 990), as the JAX
+    engine's ``cur_len``: 990 + 356 - 1 > 1344, a budget JAX refuses too."""
+    je, te = _engines(weights, max_new_tokens=356)
     with pytest.raises(ValueError, match="exceeds the KV capacity"):
         te.generate(INPUT_IDS, None, SIZE)  # no tiles: the guard fires first
+    with pytest.raises(ValueError, match="exceeds max_len"):
+        je.generate(INPUT_IDS, tiles_for(je.cfg, SIZE), SIZE)
+
+
+def test_kv_capacity_guard_keeps_the_padded_prompt_in_the_cache(weights):
+    """The padded prompt (9 - 1 + 1312 = 1320 slots) must fit the cache for
+    its seeding, whatever the budget."""
+    jp, tp = weights
+    te = LlavaNextEngine(
+        cfg=narrow_config(torch_config), params=tp, max_len=1300, ensemble=False,
+        gen=torch_config.GenerationConfig(max_new_tokens=1, eos_token_id=-1, pad_token_id=0),
+    )
+    with pytest.raises(ValueError, match="merged prompt \\(1320 slots\\) exceeds"):
+        te.generate(INPUT_IDS, None, SIZE)
+
+
+def test_generates_up_to_the_real_length_as_jax(weights):
+    """40 greedy tokens where the padded prompt would not leave room for
+    them (1320 + 39 > 1344) but the real one does (990 + 39): both packages
+    generate, token for token."""
+    je, te = _engines(weights, ensemble=False, max_new_tokens=40)
+    tiles = tiles_for(te.cfg, SIZE)
+    ref = je.generate(INPUT_IDS, tiles, SIZE)
+    got = te.generate(INPUT_IDS, tiles, SIZE)
+    assert got.tokens.shape == (1, 40)
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+    np.testing.assert_array_equal(got.num_tokens, ref.num_tokens)
 
 
 @pytest.mark.parametrize("method", ["prefill_chunked"])
