@@ -13,7 +13,9 @@ Phases, each fatal on failure:
 3. Kernel vs plain twin at the slice shapes: K1 (ensemble decode attention,
    M in {1, 3, 4}, H = 32, D = 128, S = 1152 with 620 slots filled, bf16, with
    mask holes that differ by member, at G = 1 and G = 4; the LLaVA-NeXT
-   cache, 2947 of 3504 slots, at M = 3 and 4; 16 and 24 query rows a kv group; B = 2 with
+   cache, 2947 of 3504 slots, at M = 3 and 4; InstructBLIP's 608-slot cache
+   filled to 84 at M = 3 and 4 and M = 1 over 2 and 3 rows, and filled
+   whole; 16 and 24 query rows a kv group; B = 2 with
    a fill a row; a member that attends only its own token; fp32; the FMA
    kernel at D = 64; every case one launch, and twice for equal bits), K3
    (the same over an int8 cache with scales in [0.01, 0.03]), K4 (the int8
@@ -56,7 +58,11 @@ Phases, each fatal on failure:
    narrow LLaVA and NeXT (``small_baselines``): VCD, beam search (nb = 3,
    ``early_stopping`` False and "never") and OPERA (nb = 3, nc = 2, rolling
    back), with injected draws, tokens equal card against CPU, and on LLaVA
-   VCD and beam search at B = 2 equal to their rows' B = 1 calls.
+   VCD and beam search at B = 2 equal to their rows' B = 1 calls.  Then a
+   narrow InstructBLIP (``small_instructblip``): greedy, exact and fused
+   K=3 under ``epis_quantile``, exact on an int8 cache (K3, K4), VCD, beam
+   search and OPERA (rolling back), and a padded ``probe`` with Q-Former
+   masks and ``image_index``, card against CPU, launch counts exact.
 5. End to end, greedy, exact K=3 and fused K=3 (one M = 4 forward a step),
    32 new tokens each, with every kernel's launch count checked exactly, and
    that the prefill's K5 and K6 launches took the wgmma kernels: ``LlavaEngine.generate`` at full
@@ -84,7 +90,13 @@ Phases, each fatal on failure:
    ``probe_prefix`` + ``probe_extend``, agreeing within ``POPE_MODES_RTOL``,
    launch counts exact (no kernel on bf16, K2 none anywhere, K6 128 a
    forward on int4, K5 32 a NeXT prefill and none in its extend), ms a
-   question and the device peak of each mode.
+   question and the device peak of each mode.  Then InstructBLIP-Vicuna-7B
+   at full width and depth with synthetic bf16 weights
+   (``instructblip_full``): greedy / exact / fused K=3 (K1 992 / 1984 /
+   992, K2 1, K5 0), a batch of two requests whose rows stop at different
+   steps, VCD, beam search and OPERA, the vision tower and the Q-Former on
+   their own, and POPE through the batched ``probe`` (B = 8, two unique
+   images: the ViT twice, the Q-Former on 8 rows) and a row at a time.
 6. The CHAIR CLI (``chair_cli``): LLaVA-1.5-7B at full width and depth,
    synthetic bf16 weights written as an HF checkpoint (published
    config.json, three .safetensors shards and their index), loaded by the
@@ -96,6 +108,10 @@ Phases, each fatal on failure:
    the POPE CLI on the same engine (``pope_cli``): 12 vendored questions a
    strategy, serial, ``--batch-size 8`` and ``--prefix-cache True``, each
    answer archive equal to the same mode's engine calls made directly.
+   Then the same for InstructBLIP-Vicuna-7B (``chair_cli(model=
+   "instructblip")``): its config.json and BlipImageProcessor config, a
+   stand-in tokenizer pair, the five arms, and the POPE CLI serial and
+   batched (its ``--prefix-cache`` must exit with the JAX CLI's message).
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -155,7 +171,8 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 # int8 gets a few times its measured gap: the int8 head rounds its input to
 # bf16, so a hidden value near a rounding boundary can round apart on the
 # two devices.  See CHANGES.md.
-NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "int4": 1e-3, "next": 1e-4, "modes": 1e-4}
+NARROW_EPIS_RTOL = {"fp32": 1e-4, "int8": 1e-3, "int4": 1e-3, "next": 1e-4, "modes": 1e-4,
+                    "instructblip": 1e-4}
 
 
 def _card_line() -> str:
@@ -306,7 +323,9 @@ def check_decode_attention() -> dict:
     call on the scratch and the counters the first left.  Every case runs
     before the first failure is raised, so that a broken kernel shows each
     case that catches it.  Returns the records of the first case of each,
-    and of K1's VCD and beam-search cases ("K1 VCD", "K1 beam")."""
+    of K1's VCD and beam-search cases ("K1 VCD", "K1 beam") and of its four
+    InstructBLIP cases ("K1 InstructBLIP", "... fused", "... VCD", "...
+    beam")."""
     from dropoutdecoding_tpu_torch.ops.attention import (
         ensemble_decode_attention,
         ensemble_decode_attention_int8kv,
@@ -348,9 +367,26 @@ def check_decode_attention() -> dict:
         ("B=2 M=1 G=4 bf16 S=3504 (VCD)", 2, 1, 32, 8, 128, 3504, 2947, bf16, False, False),
         ("B=3 M=1 G=4 bf16 S=3504 (beam search)", 3, 1, 32, 8, 128, 3504, 2947, bf16, False,
          False),
+        # InstructBLIP-Vicuna-7B: the CLI's 608-slot cache, filled to 84 (a 20-token
+        # instruction, 32 queries and 32 new tokens): exact, fused, VCD, beam search;
+        # then filled to its last slot
+        ("M=3 G=1 bf16 S=608 (InstructBLIP)", 1, 3, 32, 32, 128, 608, 84, bf16, False, True),
+        ("M=4 G=1 bf16 S=608 (InstructBLIP fused)", 1, 4, 32, 32, 128, 608, 84, bf16, False, True),
+        ("B=2 M=1 G=1 bf16 S=608 (InstructBLIP VCD)", 2, 1, 32, 32, 128, 608, 84, bf16, False,
+         True),
+        ("B=3 M=1 G=1 bf16 S=608 (InstructBLIP beam search)", 3, 1, 32, 32, 128, 608, 84, bf16,
+         False, True),
+        ("M=3 G=1 bf16 S=608, every slot filled", 1, 3, 32, 32, 128, 608, 608, bf16, True, False),
     ]
-    recorded = {"K1": {0: "K1", len(cases) - 4: "K1 VCD", len(cases) - 3: "K1 beam"},
-                "K3": {0: "K3"}}
+    recorded = {  # the cases whose records the kernels line carries, by label
+        "K1": {"M=3 G=1 bf16": "K1", "B=2 M=1 G=1 bf16 (VCD)": "K1 VCD",
+               "B=3 M=1 G=1 bf16 (beam search)": "K1 beam",
+               "M=3 G=1 bf16 S=608 (InstructBLIP)": "K1 InstructBLIP",
+               "M=4 G=1 bf16 S=608 (InstructBLIP fused)": "K1 InstructBLIP fused",
+               "B=2 M=1 G=1 bf16 S=608 (InstructBLIP VCD)": "K1 InstructBLIP VCD",
+               "B=3 M=1 G=1 bf16 S=608 (InstructBLIP beam search)": "K1 InstructBLIP beam"},
+        "K3": {"M=3 G=1 bf16": "K3"},
+    }
     attention = (  # (kernel, wrapper, plain twin, int8 cache, seed base)
         ("K1", ensemble_decode_attention_fused, ensemble_decode_attention, False, 100),
         ("K3", ensemble_decode_attention_int8kv_fused, ensemble_decode_attention_int8kv, True,
@@ -388,8 +424,8 @@ def check_decode_attention() -> dict:
             print(line)
             if not torch.isfinite(got).all() or not within or not same:
                 failed.append(f"{name} {label}")
-            if i in recorded[name]:
-                records[recorded[name][i]] = {
+            if label in recorded[name]:
+                records[recorded[name][label]] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
                 }
     if failed:
@@ -405,7 +441,7 @@ def check_kernels() -> dict:
     records["K5"] = check_flash_prefill()
     records["K6"] = check_int4_matmul()
 
-    records["K2"] = check_uncertainty()
+    records.update(check_uncertainty())
     return records
 
 
@@ -461,7 +497,8 @@ def check_uncertainty() -> dict:
     raised.  Beside the first and the LLaVA-NeXT case the time of
     ``exact_top_k_ids`` alone (the table as the main path made it before the
     kernel did) and of pass C after the first launch and after an L2 flush.
-    Returns the record of the first case."""
+    Returns the records of the first case ("K2") and of InstructBLIP's ("K2
+    InstructBLIP")."""
     from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
         exact_top_k_ids,
         launch_phases,
@@ -469,7 +506,7 @@ def check_uncertainty() -> dict:
         vision_uncertainty_twin,
     )
 
-    record, failed = None, []
+    records, failed = {}, []
     for i, (label, B, L, V, k, valid, route) in enumerate(K2_CASES):
         logits, v = uncertainty_inputs(B, L, V, valid, seed=7 + i)
         before = dict(vision_uncertainty_fused.route_launches)
@@ -525,17 +562,17 @@ def check_uncertainty() -> dict:
         print(line)
         if not (ids_equal and planted and same):
             failed.append(f"{label}: ids equal {ids_equal}, planted {planted}, same bits {same}")
-        if i == 0:
-            record = {
+        if i in (0, 4):
+            records["K2" if i == 0 else "K2 InstructBLIP"] = {
                 "kernel_route": route, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **bound, "two_reads_ms": two_reads_ms, "library_ms": None, **extra,
             }
         if i == 2:
-            record["next"] = {"ms": ms, "two_reads_ms": two_reads_ms, **extra}
+            records["K2"]["next"] = {"ms": ms, "two_reads_ms": two_reads_ms, **extra}
         del logits, got, again, ref
     if failed:
         raise AssertionError(f"K2: {failed}")
-    return record
+    return records
 
 
 def check_cache_append() -> dict:
@@ -894,6 +931,18 @@ def _narrow_next_config():
     )
 
 
+def _sharpen(part, factor: float):
+    """``part`` (a tensor, or dicts and lists of them) with every matrix
+    scaled by ``factor``, so that a narrow model's logits are sharp enough
+    for argmax to be stable against summation order; vectors (norms,
+    biases) kept."""
+    if isinstance(part, dict):
+        return {k: _sharpen(v, factor) for k, v in part.items()}
+    if isinstance(part, list):
+        return [_sharpen(v, factor) for v in part]
+    return part * factor if part.dim() >= 2 else part
+
+
 def small_reference(tier: str) -> None:
     """A narrow model in fp32 on the card (kernels) and on the CPU (plain
     twins) with one table of injected mask draws: equal tokens, close epis.
@@ -917,6 +966,8 @@ def small_reference(tier: str) -> None:
         return small_pope()
     if tier == "baselines":
         return small_baselines()
+    if tier == "instructblip":
+        return small_instructblip()
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
@@ -960,13 +1011,7 @@ def small_reference(tier: str) -> None:
     # epis lands 3.6e-3 from the fp64 one on the CPU (1.1e-3 of the scale),
     # at x5 1.6e-5 (3.1e-5 of the scale).
     factor = 5 if tier == "next" else 10
-
-    def sharpen(part):
-        if isinstance(part, dict):
-            return {k: sharpen(v) for k, v in part.items()}
-        return part * factor if part.dim() >= 2 else part
-
-    params = Params(*(sharpen(p) for p in params))
+    params = Params(*(_sharpen(p, factor) for p in params))
     if tier in ("int8", "int4"):
         quantize = quantize_llama_params if tier == "int8" else quantize_llama_params_int4
         params = params._replace(lm=fuse_projections(quantize(params.lm)))
@@ -1057,18 +1102,13 @@ def small_baselines() -> None:
     rng = np.random.default_rng(9)
     T = 12
 
-    def sharpen(part, factor):  # as small_reference: logits sharp enough for argmax
-        if isinstance(part, dict):
-            return {k: sharpen(v, factor) for k, v in part.items()}
-        return part * factor if part.dim() >= 2 else part
-
     cfg, ncfg = _narrow_config(), _narrow_next_config()
     models = {
         "llava": (LlavaEngine, LlavaParams(*(
-            sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3))), cfg,
+            _sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3))), cfg,
             128, 500),
         "next": (LlavaNextEngine, llavanext.LlavaNextParams(*(
-            sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, 3))),
+            _sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, 3))),
             ncfg, 1344, 120),
     }
     size = (150, 220)
@@ -1204,15 +1244,10 @@ def small_pope() -> None:
 
     rng = np.random.default_rng(7)
 
-    def sharpen(part, factor):  # as small_reference: logits sharp enough for argmax
-        if isinstance(part, dict):
-            return {k: sharpen(v, factor) for k, v in part.items()}
-        return part * factor if part.dim() >= 2 else part
-
     cfg, ncfg = _narrow_config(), _narrow_next_config()
-    base = LlavaParams(*(sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3)))
+    base = LlavaParams(*(_sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3)))
     nparams = llavanext.LlavaNextParams(
-        *(sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, 3)))
+        *(_sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, 3)))
     sizes = [(150, 220), (100, 230)]  # 5 and 3 tiles
     tiles = [rng.normal(size=(llavanext.image_geometry(s, ncfg)["n_tiles"], 3, 112, 112))
              .astype(np.float32) for s in sizes]
@@ -1289,14 +1324,191 @@ def small_pope() -> None:
               f"{time.perf_counter() - t0:.1f} s")
 
 
+def _narrow_ib_config():
+    from dropoutdecoding_tpu_torch.utils.config import (
+        BlipVisionConfig,
+        InstructBlipConfig,
+        LlamaConfig,
+        QFormerConfig,
+    )
+
+    return InstructBlipConfig(  # the LM of _narrow_config, 32 queries, 50 ViT tokens
+        text=LlamaConfig(
+            vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+            num_attention_heads=4, num_key_value_heads=4, head_dim=64,
+        ),
+        vision=BlipVisionConfig(
+            hidden_size=128, intermediate_size=256, num_hidden_layers=3, num_attention_heads=4,
+            image_size=98, patch_size=14,
+        ),
+        qformer=QFormerConfig(
+            vocab_size=300, hidden_size=64, num_hidden_layers=4, num_attention_heads=4,
+            intermediate_size=128, cross_attention_frequency=2, encoder_hidden_size=128,
+            max_position_embeddings=64,
+        ),
+    )
+
+
+# the reference's InstructBLIP arm: epis_quantile masks restored per member, top-10 table
+IB_ENS = dict(mask_policy="epis_quantile", mask_accumulate=False, topk=10)
+IB_SEED = 5217
+
+
+def small_instructblip() -> None:
+    """A narrow InstructBLIP in fp32 (``_narrow_ib_config``: ViT 3 x 128 on 98
+    px in 14 px patches, head dim 32; Q-Former 4 x 64, cross-attention in
+    layers 0 and 2; 32 queries; the narrow LLaVA's LM) on the card (kernels)
+    and on the CPU (plain twins), with one table of injected draws (the mask
+    uniforms, VCD's pixel noise and Gumbel noise): greedy, exact K=3 and
+    fused K=3 under ``epis_quantile``, the exact run again with
+    ``int8_kv=True`` (K3, K4), VCD, beam search (nb = 3) and OPERA (nb = 3,
+    nc = 2, threshold 2: it rolls back), 12 tokens each, tokens equal card
+    against CPU; epis within ``NARROW_EPIS_RTOL`` of its scale, an fp64 CPU
+    prefill anchoring both; a ``probe`` of four right-padded rows with their
+    Q-Former masks over two unique images (``image_index``), first tokens
+    equal and last_logits within ``POPE_NARROW_RTOL``.  Launches on the
+    card, exact: K1 a layer of every decode forward (none under OPERA, none
+    on an int8 cache, where K3 reads and K4 appends once a step), K2 once a
+    prefill, K5 and K6 none, nothing in the probe."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.decoding.vcd import diffusion_noise
+    from dropoutdecoding_tpu_torch.engine import baselines, opera
+    from dropoutdecoding_tpu_torch.engine.instructblip_engine import InstructBlipEngine
+    from dropoutdecoding_tpu_torch.models.instructblip import InstructBlipParams
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_instructblip_params
+
+    rng = np.random.default_rng(31)
+    cfg, T, max_len = _narrow_ib_config(), 12, 128
+    L, N, V = cfg.text.num_hidden_layers, cfg.num_query_tokens, cfg.text.vocab_size
+    # the LM x10, as the narrow LLaVA's; the towers x3: at x10 the ViT and the
+    # Q-Former make the visual tokens so large that one token's fp32 epis lands
+    # 3.3e-3 of the scale from the fp64 one on the CPU, at x3 1.2e-5
+    vision, qf, proj, lm = synthetic_instructblip_params(cfg, "cpu", torch.float32, 3)
+    params = InstructBlipParams(_sharpen(vision, 3), _sharpen(qf, 3), _sharpen(proj, 3),
+                                _sharpen(lm, 10))
+    ids, q_ids = np.array([[1, 17, 29, 41, 53, 67, 71, 83]]), np.array([[5, 19, 33, 47, 61]])
+    pixels = rng.normal(size=(2, 3, 98, 98)).astype(np.float32)
+    draws = torch.from_numpy(rng.random((T, 1, 3, N), dtype=np.float32))
+    noise = torch.from_numpy(rng.normal(size=pixels[0].size).astype(np.float32))
+    gumbel = -torch.log(-torch.log(torch.from_numpy(
+        rng.random((T, V), dtype=np.float32)).clamp(min=1e-38)))
+    S = ids.shape[1] + N  # the merged prompt
+    # the probe's rows: right-padded ids, their Q-Former ids and masks, two images
+    lens, q_lens = np.array([8, 5, 7, 3]), np.array([5, 2, 4, 3])
+    rows = np.where(np.arange(8)[None] < lens[:, None], rng.integers(2, V, size=(4, 8)), 0)
+    rows[:, 0] = 1
+    q_rows = np.where(np.arange(5)[None] < q_lens[:, None], rng.integers(1, 300, size=(4, 5)), 0)
+    q_mask = (np.arange(5)[None] < q_lens[:, None]).astype(np.int32)
+    image_index = np.array([0, 1, 1, 0])
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    runs = {  # label: (ensemble, EnsembleConfig fields, int8_kv)
+        "greedy": (False, {}, False), "exact K=3": (True, {}, False),
+        "fused K=3": (True, {"fused_step": True}, False), "exact K=3, int8 KV": (True, {}, True),
+    }
+    wrappers = _wrappers()
+    out, epis = {}, {}
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        res = fn()
+        return res, {k: w.launches for k, w in wrappers.items() if w.launches}
+
+    for device in ("cuda", "cpu"):
+        p = InstructBlipParams(*(_to(part, device) for part in params))
+
+        def make(ensemble, ens=None, int8_kv=False):
+            return InstructBlipEngine(
+                cfg=cfg, params=p, gen=gen, max_len=max_len, ensemble=ensemble, seed=IB_SEED,
+                ens=EnsembleConfig(**{**IB_ENS, **(ens or {})}), int8_kv=int8_kv,
+                uniform=lambda step, row, m, n: draws[step, row, m, :n],
+                cd_noise=lambda px: diffusion_noise(noise.reshape(px.shape).to(px.device), px, 500),
+                cd_gumbel=lambda step, n, device=device: gumbel[step, :n].to(device),
+            )
+
+        res, counts = {}, {}
+        for label, (ensemble, ens, int8_kv) in runs.items():
+            eng = make(ensemble, ens, int8_kv)
+            res[label], counts[label] = counted(lambda: eng.generate(ids, pixels[:1], q_ids).tokens)
+            epis[device, label] = eng.prefill(ids, pixels[:1], q_ids).epis.cpu()
+            want = want_counts(T, L, 2 if ensemble and not ens else 1, S, int8_kv, False)
+            want = {k: n for k, n in want.items() if n}
+            if device == "cuda":
+                _check_counts(f"narrow instructblip {label}", counts[label], want)
+        eng = make(False)
+        noised = baselines.noised_pixels(eng, pixels[0])[None]
+        calls = {
+            "VCD": lambda: baselines.vcd_generate(eng, states=(
+                eng.prefill(ids, pixels[:1], q_ids), eng.prefill(ids, noised, q_ids))).tokens,
+            "beam nb=3": lambda: baselines.beam_generate(
+                eng, state=eng.prefill(ids, pixels[:1], q_ids), num_beams=3).tokens,
+        }
+        for label, call in calls.items():
+            res[label], counts[label] = counted(call)
+        stats = {}
+        res["OPERA"], counts["OPERA"] = counted(lambda: opera.opera_generate(
+            eng, state=eng.prefill(ids, pixels[:1], q_ids), stats=stats, num_beams=3,
+            num_attn_candidates=2, threshold=2, scale_factor=50.0, max_rollbacks=3).tokens)
+        if stats["rollbacks"] < 1:
+            raise AssertionError(f"narrow instructblip OPERA on {device}: no rollback {stats}")
+        res["probe"], counts["probe"] = counted(lambda: eng.probe(
+            rows, pixels, q_rows, text_lens=lens, qformer_attention_mask=q_mask,
+            image_index=image_index))
+        if device == "cuda":
+            for label, want in (("VCD", {"K1": (T - 1) * L, "K2": 2}),
+                                ("beam nb=3", {"K1": (T - 1) * L, "K2": 1}),
+                                ("OPERA", {"K2": 1}), ("probe", {})):
+                _check_counts(f"narrow instructblip {label}", counts[label], want)
+            print(f"narrow instructblip: launches on the card {counts}; OPERA {stats}")
+        out[device] = res
+    wide = InstructBlipParams(*(_to(part, "cpu", torch.float64) for part in params))
+    epis64 = InstructBlipEngine(cfg=cfg, params=wide, gen=gen, max_len=max_len, seed=IB_SEED,
+                                ens=EnsembleConfig(**IB_ENS)).prefill(
+        ids, pixels[:1].astype(np.float64), q_ids).epis
+    for label in runs:
+        e_g, e_c = epis["cuda", label], epis["cpu", label]
+        err = (e_g - e_c).abs().max().item()
+        bound = NARROW_EPIS_RTOL["instructblip"] * e_c.abs().max().item()
+        print(f"narrow instructblip {label}: epis err {err:.2e} (bound {bound:.2e}); from the fp64 "
+              f"prefill: card {(e_g - epis64).abs().max().item():.2e}, cpu "
+              f"{(e_c - epis64).abs().max().item():.2e}")
+        if not err <= bound:
+            raise AssertionError(f"narrow instructblip {label}: epis differs by {err} > {bound}")
+    for label, tok in out["cuda"].items():
+        ref = out["cpu"][label]
+        if label == "probe":
+            d = (tok.last_logits.cpu() - ref.last_logits).abs().max().item()
+            bound = POPE_NARROW_RTOL["fp32"] * ref.last_logits.abs().max().item()
+            same = torch.equal(tok.first_token.cpu(), ref.first_token)
+            print(f"narrow instructblip probe: card {tok.first_token.tolist()} cpu "
+                  f"{ref.first_token.tolist()}, last_logits err {d:.2e} (bound {bound:.2e})")
+            if not same or not d <= bound:
+                raise AssertionError("narrow instructblip probe: the card differs from the CPU")
+            continue
+        print(f"narrow instructblip {label}: card {tok[0].tolist()} cpu {ref[0].tolist()}")
+        if not np.array_equal(tok, ref):
+            raise AssertionError(f"narrow instructblip {label}: card tokens differ from the CPU's")
+
+
 def _to(tree, device, float_dtype=None):
-    """``tree`` (a dict of tensors, nested, or one tensor) on ``device``;
-    with ``float_dtype``, its float leaves in it."""
+    """``tree`` (a dict or list of tensors, nested, or one tensor) on
+    ``device``; with ``float_dtype``, its float leaves in it."""
     if isinstance(tree, dict):
         return {k: _to(v, device, float_dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device, float_dtype) for v in tree]
     if float_dtype and tree.is_floating_point():
         return tree.to(device, float_dtype)
     return tree.to(device)
+
+
+def _wall(fn):
+    """(``fn()``, its wall time in s)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
 
 
 def _sync_time(fn):
@@ -1399,7 +1611,7 @@ def drive(make, args, tier: str, runs: list, ens, int8_kv: bool = False,
              **fields).generate(*args)
         eng = make(ensemble, gen, ens=run_ens, **fields)
         L, V = eng.cfg.text.num_hidden_layers, eng.cfg.text.vocab_size
-        S = args[0].shape[1] + eng.n_visual - 1  # the merged (padded) prompt
+        S = eng._prompt_lengths(*args)[1]  # the merged (padded) prompt
         prefill_s = statistics.median(_sync_time(lambda: eng.prefill(*args))[1] for _ in range(3))
         decode, decode_s = eng.decode, []
 
@@ -1487,9 +1699,22 @@ def step_costs(n_visual: int, V: int) -> None:
           f"{draw_ms * 1e3:.1f} us, greedy argmax {argmax_ms * 1e3:.1f} us")
 
 
-def batch_of_two(cfg, params, tier: str, int8_kv: bool) -> None:
+def llava_pair(cfg):
+    """Two LLaVA-1.5 requests' ``generate`` arguments (ids [2, 20] with the
+    image at 5, pixels [2, 3, 336, 336]) for ``batch_of_two``."""
+    import numpy as np
+
+    rng = np.random.default_rng(13)
+    ids = rng.integers(2, 32000, size=(2, 20))
+    ids[:, 0], ids[:, 5] = 1, cfg.image_token_index
+    return ids, rng.normal(size=(2, 3, 336, 336)).astype(np.float32)
+
+
+def batch_of_two(make, args: tuple, tier: str, int8_kv: bool, seed: int = 24) -> None:
     """Exact K=3 ``generate`` of 16 tokens for two requests in one batch
-    (two prompts, two images) whose rows stop at different steps:
+    (``args``, the two requests' ``generate`` arguments stacked on a
+    leading axis; ``make(gen, uniform)`` builds the engine) whose rows stop
+    at different steps:
     ``eos_token_id`` is a token that a first run without eos shows in one
     row earlier than in the other.  Each row's tokens must equal those of
     the row run without the other, with its own mask-draw streams, and the
@@ -1501,29 +1726,21 @@ def batch_of_two(cfg, params, tier: str, int8_kv: bool) -> None:
     steps)."""
     import numpy as np
 
-    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
     from dropoutdecoding_tpu_torch.utils.prng import PhiloxUniform
 
     wrappers = _wrappers()
-    rng = np.random.default_rng(13)
-    ids = rng.integers(2, 32000, size=(2, 20))
-    ids[:, 0], ids[:, 5] = 1, cfg.image_token_index
-    pixels = rng.normal(size=(2, 3, 336, 336)).astype(np.float32)
-    T, seed = 16, 24
+    T = 16
 
     def run(rows, eos):
         """(tokens, launch counts) of the rows' batch; row i of it draws the
         streams of request rows[i]."""
         draws = PhiloxUniform(seed, "cuda")
-        eng = LlavaEngine(
-            cfg=cfg, params=params, max_len=1152, ensemble=True, int8_kv=int8_kv,
-            gen=GenerationConfig(max_new_tokens=T, eos_token_id=eos, pad_token_id=0),
-            uniform=lambda step, row, m, n: draws(step, rows[row], m, n),
-        )
+        eng = make(GenerationConfig(max_new_tokens=T, eos_token_id=eos, pad_token_id=0),
+                   lambda step, row, m, n: draws(step, rows[row], m, n))
         for fn in wrappers.values():
             fn.launches = 0
-        tokens = eng.generate(ids[rows], pixels[rows]).tokens
+        tokens = eng.generate(*(a[rows] for a in args)).tokens
         return tokens, {k: fn.launches for k, fn in wrappers.items()}
 
     free_run, _ = run([0, 1], -1)
@@ -1566,7 +1783,7 @@ def batch_of_two(cfg, params, tier: str, int8_kv: bool) -> None:
 # a call of 128 rows as from one of 595 (``matmul_row_rounding``; not from
 # one of 16), and batched and row at a time agree to the bit.  On int4,
 # fewer one-step differences arise (0.07%): 2^-8.
-POPE_MODES_RTOL = {"bf16": 2.0**-4, "int4": 2.0**-8, "next": 2.0**-4}
+POPE_MODES_RTOL = {"bf16": 2.0**-4, "int4": 2.0**-8, "next": 2.0**-4, "instructblip": 2.0**-4}
 
 
 def time_extend_attention(cfg, key_mask: torch.Tensor, B: int = 8, T: int = 16) -> float:
@@ -1634,7 +1851,7 @@ def pope_questions(image_token: int, vocab: int, seed: int = 19):
 
 
 def pope_direct(eng, rows: list, owner: list, pick, template_len: int | None = None,
-                tamper=None) -> tuple:
+                tamper=None, q_rows: list | None = None) -> tuple:
     """The POPE CLI's grouped modes as direct engine calls, through
     ``cli.pope_test``'s grouping helpers: ``rows`` of ids, ``owner`` the
     image of each row, ``pick(unique)`` the engine's image arguments (a
@@ -1644,8 +1861,9 @@ def pope_direct(eng, rows: list, owner: list, pick, template_len: int | None = N
     run's shared prefix (the template's, shrunk until every row of the run
     shares it) and one ``probe_extend`` of the run's tails, bucketed to 8
     rows; ``tamper`` maps each prefix handle before its extend (a planted
-    fault).  Returns (ProbeResult with one row a question, the prefix
-    handles)."""
+    fault).  ``q_rows``: InstructBLIP's Q-Former ids of the rows, right-padded
+    by group with their mask as the CLI pads them.  Returns (ProbeResult
+    with one row a question, the prefix handles)."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.cli import pope_test as pope
@@ -1656,9 +1874,14 @@ def pope_direct(eng, rows: list, owner: list, pick, template_len: int | None = N
         for start in range(0, len(rows), 8):
             index, unique = pope.image_slots(owner[start : start + 8])
             group = pope.fill_rows(rows[start : start + 8], 8)
-            res = eng.probe(pope.pad_rows(group)[0], *pick(unique),
+            q_args, q_kw = (), {}
+            if q_rows is not None:
+                q_ids, q_kw["qformer_attention_mask"] = pope.pad_rows(
+                    pope.fill_rows(q_rows[start : start + 8], 8))
+                q_args = (q_ids,)
+            res = eng.probe(pope.pad_rows(group)[0], *pick(unique), *q_args,
                             text_lens=np.array([len(r) for r in group], np.int32),
-                            image_index=np.asarray(pope.fill_rows(index, 8), np.int32))
+                            image_index=np.asarray(pope.fill_rows(index, 8), np.int32), **q_kw)
             parts.append((res, len(rows[start : start + 8])))
     else:
         for name, start, stop in pope.image_runs(owner):
@@ -1834,7 +2057,7 @@ def baselines_full(make, args, tier: str, noised=None) -> dict:
     eng = make(False, GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0))
     text = eng.cfg.text
     L, V = text.num_hidden_layers, text.vocab_size
-    S = args[0].shape[1] + eng.n_visual - 1  # the merged (padded) prompt
+    S = eng._prompt_lengths(*args)[1]  # the merged (padded) prompt
     k5 = L if S >= LONG_PREFILL else 0
     prefill_s = statistics.median(_sync_time(lambda: eng.prefill(*args))[1] for _ in range(2))
     if noised is None:
@@ -1959,11 +2182,15 @@ def end_to_end() -> tuple:
             **fields,
         )  # 1152 = 576 + 64 + 512
 
+    def llava_pair_engine(params, int8_kv):  # batch_of_two's engine
+        return lambda gen, uniform: LlavaEngine(cfg=cfg, params=params, max_len=1152, ensemble=True,
+                                                int8_kv=int8_kv, gen=gen, uniform=uniform)
+
     params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
     print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     drive(llava(params, False), (ids, pixels), "bf16", LLAVA_RUNS, EnsembleConfig())
     step_costs(cfg.vision.num_patches, cfg.text.vocab_size)
-    batch_of_two(cfg, params, "bf16", int8_kv=False)
+    batch_of_two(llava_pair_engine(params, False), llava_pair(cfg), "bf16", int8_kv=False)
     base = baselines_full(llava(params, False), (ids, pixels), "bf16")
     # POPE (one token a question): two images of their own
     prng = np.random.default_rng(23)
@@ -1982,7 +2209,7 @@ def end_to_end() -> tuple:
     print(f"synthetic int8 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     int8 = drive(llava(params, True), (ids, pixels), "int8", [GREEDY, EXACT, FUSED],
                  EnsembleConfig(), int8_kv=True)["exact K=3"]
-    batch_of_two(cfg, params, "int8", int8_kv=True)
+    batch_of_two(llava_pair_engine(params, True), llava_pair(cfg), "int8", int8_kv=True)
     del params, lm
     free()
     lm, secs = _sync_time(lambda: synthetic_int4_lm(cfg.text, "cuda", seed=0))
@@ -2028,6 +2255,181 @@ def end_to_end() -> tuple:
         "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"], "K6": int4["K6"],
     }
     return launches, pope
+
+
+def vit_flops(vc, images: int) -> float:
+    """The EVA ViT's matmul operations (2 a multiply-add) over ``images``:
+    qkv, projection and MLP of every token, and the two attention products
+    over its 1 + P tokens."""
+    S, D, I = vc.num_positions, vc.hidden_size, vc.intermediate_size
+    return images * vc.num_hidden_layers * (2 * S * (4 * D * D + 2 * D * I) + 4 * S * S * D)
+
+
+def pope_instructblip(eng, pixels) -> dict:
+    """POPE at full width and depth on InstructBLIP: twelve questions, six on
+    each of two images (``pixels`` [2, 3, 224, 224]), each with its LM ids
+    and its Q-Former ids, through the batched ``probe`` the CLI makes (groups
+    of 8 right-padded rows, the Q-Former ids padded with their mask, the
+    unique images by ``image_index``, a short group filled from its last
+    row) and ``probe`` a row at a time.  The first group's vision tower must
+    run on 2 images and its Q-Former on 8 rows (counted at the models'
+    ``apply``); the modes must agree within ``POPE_MODES_RTOL`` of the
+    largest |logit|, first tokens equal wherever the top-2 margin exceeds
+    that bound; no kernel launches (a probe skips K2 and the cache, and 40
+    tokens are far below K5's switch).  Returns ms a question and the device
+    peak of each mode."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.models import blip_vit, qformer
+
+    rng = np.random.default_rng(43)
+    lengths = (6, 9, 11, 7, 8, 10, 11, 6, 9, 8, 10, 7)
+    rows = [np.array([1, *rng.integers(2, 32000, size=n)]) for n in lengths]
+    q_rows = [np.array([101, *rng.integers(1000, 30522, size=n - 2), 102]) for n in lengths]
+    owner = [i // 6 for i in range(12)]
+    wrappers, seen = _wrappers(), []
+    vit_apply, qformer_apply = blip_vit.apply, qformer.apply
+
+    def batched():
+        return pope_direct(eng, rows, owner, lambda unique: (pixels[unique],),
+                           q_rows=q_rows)[0].last_logits
+
+    def per_row():
+        return torch.cat([eng.probe(r[None], pixels[[o]], q[None]).last_logits
+                          for r, q, o in zip(rows, q_rows, owner)])
+
+    logits, record = {}, {}
+    blip_vit.apply = lambda c, p, px: seen.append(("vit", px.shape[0])) or vit_apply(c, p, px)
+    qformer.apply = lambda c, p, i, *a: seen.append(("qformer", i.shape[0])) or qformer_apply(c, p, i, *a)
+    try:
+        for mode, fn in (("batched probe", batched), ("per-row probe", per_row)):
+            fn()  # warm-up
+            seen.clear()
+            for w in wrappers.values():
+                w.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            out, secs = _sync_time(fn)
+            counts = {k: w.launches for k, w in wrappers.items()}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            logits[mode] = out.float()
+            record[mode] = {"ms_a_question": secs * 1e3 / 12, "launches": counts, "peak_gib": peak,
+                            "towers": list(seen)}
+            print(f"pope instructblip {mode}: {secs * 1e3 / 12:.2f} ms a question ({secs * 1e3:.1f} "
+                  f"ms for 12), device peak {peak:.2f} GiB, launches {counts}; the towers' rows a "
+                  f"call {seen}")
+            _check_counts(f"pope instructblip {mode}", counts, dict.fromkeys(wrappers, 0))
+            if out.shape != (12, eng.cfg.text.vocab_size) or not torch.isfinite(out).all():
+                raise AssertionError(f"pope instructblip {mode}: last_logits {tuple(out.shape)}")
+    finally:
+        blip_vit.apply, qformer.apply = vit_apply, qformer_apply
+    if record["batched probe"]["towers"][:2] != [("vit", 2), ("qformer", 8)]:
+        raise AssertionError(f"pope instructblip: the first group's towers ran on "
+                             f"{record['batched probe']['towers'][:2]}, not 2 images and 8 rows")
+    ref = logits["per-row probe"]
+    bound = POPE_MODES_RTOL["instructblip"] * ref.abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > bound
+    err = (logits["batched probe"] - ref).abs().max().item()
+    same = logits["batched probe"].argmax(-1) == ref.argmax(-1)
+    print(f"pope instructblip batched against per-row: max |d last_logits| {err:.4f} (bound "
+          f"{bound:.4f}); first tokens equal {int(same.sum())} of 12, {int(sure.sum())} rows with a "
+          f"top-2 margin over the bound, all equal there: {bool(same[sure].all())}")
+    if not err <= bound or not same[sure].all():
+        raise AssertionError("pope instructblip: batched and per-row disagree beyond the bound")
+    return record
+
+
+def instructblip_full() -> tuple:
+    """``InstructBlipEngine`` at InstructBLIP-Vicuna-7B width and depth
+    (EVA ViT-g/14 39 x 1408, Q-Former 12 x 768, 32 queries, Vicuna-7B with
+    vocabulary 32001), synthetic bf16 weights, a 20-token instruction and
+    its 12 Q-Former ids: greedy, exact K=3 and fused K=3 under
+    ``epis_quantile`` through ``drive`` (K1 992 / 1984 / 992, K2 1, K5 0,
+    exact); two requests in one batch whose rows stop at different steps
+    (``batch_of_two``); VCD, beam search (nb = 3) and OPERA at the CLI's
+    defaults (``baselines_full``); the vision tower and the Q-Former on their
+    own; POPE (``pope_instructblip``).  Returns (the launches the kernels
+    line carries, the POPE record, the towers' record)."""
+    import gc
+
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine import baselines
+    from dropoutdecoding_tpu_torch.engine.instructblip_engine import InstructBlipEngine
+    from dropoutdecoding_tpu_torch.models import blip_vit, qformer
+    from dropoutdecoding_tpu_torch.models import instructblip as ib_mod
+    from dropoutdecoding_tpu_torch.utils.config import (
+        EnsembleConfig,
+        GenerationConfig,
+        InstructBlipConfig,
+    )
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_instructblip_params
+
+    cfg = InstructBlipConfig()
+    rng = np.random.default_rng(37)
+    ids = rng.integers(2, 32000, size=(2, 20))
+    ids[:, 0] = 1
+    q_ids = rng.integers(1000, 30522, size=(2, 12))
+    q_ids[:, 0], q_ids[:, -1] = 101, 102  # BERT's [CLS] ... [SEP]
+    pixels = rng.normal(size=(2, 3, 224, 224)).astype(np.float32)
+    params, secs = _sync_time(
+        lambda: synthetic_instructblip_params(cfg, "cuda", torch.bfloat16, seed=0))
+    n = sum(t.numel() for part in params for t in _leaves(part))
+    print(f"synthetic InstructBLIP-Vicuna-7B params: {n / 1e9:.3f} B, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
+    ens = EnsembleConfig(**IB_ENS)
+
+    def make(ensemble, gen, **fields):
+        return InstructBlipEngine(
+            cfg=cfg, params=params, gen=gen, seed=IB_SEED, ensemble=ensemble,
+            max_len=cfg.num_query_tokens + 64 + 512, **{"ens": ens, **fields},
+        )  # 608: the CLI's capacity
+
+    one = (ids[:1], pixels[:1], q_ids[:1])
+    runs = drive(make, one, "instructblip", [GREEDY, EXACT, FUSED], ens)
+    batch_of_two(lambda gen, uniform: make(True, gen, uniform=uniform), (ids, pixels, q_ids),
+                 "instructblip", int8_kv=False, seed=IB_SEED)
+    noised = baselines.noised_pixels(make(False, GenerationConfig()), pixels[0])[None]
+    base = baselines_full(make, one, "instructblip", noised=noised)
+
+    # the vision tower and the Q-Former on their own, one image
+    px = torch.as_tensor(pixels[:1], device="cuda")
+    qt = torch.as_tensor(q_ids[:1], device="cuda")
+    embeds = blip_vit.apply(cfg.vision, params.vision, px)
+    towers = {
+        "vit_ms": _eager_ms(lambda: blip_vit.apply(cfg.vision, params.vision, px)),
+        "vit_device_ms": time_ms(lambda: blip_vit.apply(cfg.vision, params.vision, px), reps=10),
+        "qformer_ms": _eager_ms(lambda: qformer.apply(cfg.qformer, params.qformer, qt, embeds)),
+        "visual_tokens_ms": _eager_ms(lambda: ib_mod.visual_tokens(cfg, params, px, qt)),
+    }
+    flops = vit_flops(cfg.vision, 1)
+    towers["vit_tflops"] = flops / towers["vit_device_ms"] / 1e9
+    print(f"instructblip towers, one image: ViT-g {towers['vit_ms']:.2f} ms (host included), "
+          f"{towers['vit_device_ms']:.2f} ms device (graph replay), {flops / 1e12:.3f} TFLOP, "
+          f"{towers['vit_tflops']:.1f} TFLOP/s, bound {flops / PEAK_OPS_PER_S['bf16'] * 1e3:.3f} ms "
+          f"by operations; Q-Former {towers['qformer_ms']:.2f} ms (host included); "
+          f"visual_tokens {towers['visual_tokens_ms']:.2f} ms (host included)")
+    pope_px = np.random.default_rng(47).normal(size=(2, 3, 224, 224)).astype(np.float32)
+    pope = pope_instructblip(make(True, GenerationConfig()), pope_px)
+    del params, embeds
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {
+        "K1 InstructBLIP": runs["exact K=3"]["K1"], "K1 InstructBLIP fused": runs["fused K=3"]["K1"],
+        "K1 InstructBLIP VCD": base["VCD"]["K1"],
+        "K1 InstructBLIP beam": base["beam search nb=3"]["K1"],
+        "K2 InstructBLIP": runs["exact K=3"]["K2"],
+    }
+    return launches, pope, towers
+
+
+def _leaves(tree):
+    """The tensors of a params part (dicts and lists of them)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 # llava-hf/llava-1.5-7b-hf's config.json as published (the core dims of its
@@ -2084,7 +2486,76 @@ LLAVA_7B_HF_PREPROCESSOR = {
 }
 
 
-def _hf_tensors(cfg, params) -> list:
+# Salesforce/instructblip-vicuna-7b's config.json: the keys that fix the
+# model's shapes (EVA ViT-g/14 at 224 px, the Q-Former with its 30523-id BERT
+# vocabulary and 32 queries, Vicuna-7B with 32001 ids)
+INSTRUCTBLIP_7B_HF_CONFIG = {
+    "architectures": ["InstructBlipForConditionalGeneration"],
+    "initializer_factor": 1.0,
+    "initializer_range": 0.02,
+    "model_type": "instructblip",
+    "num_query_tokens": 32,
+    "qformer_config": {
+        "attention_probs_dropout_prob": 0.1,
+        "cross_attention_frequency": 2,
+        "encoder_hidden_size": 1408,
+        "hidden_act": "gelu",
+        "hidden_size": 768,
+        "intermediate_size": 3072,
+        "layer_norm_eps": 1e-12,
+        "max_position_embeddings": 512,
+        "model_type": "instructblip_qformer",
+        "num_attention_heads": 12,
+        "num_hidden_layers": 12,
+        "vocab_size": 30523,
+    },
+    "text_config": {
+        "architectures": ["LlamaForCausalLM"],
+        "hidden_size": 4096,
+        "intermediate_size": 11008,
+        "max_position_embeddings": 2048,
+        "model_type": "llama",
+        "num_attention_heads": 32,
+        "num_hidden_layers": 32,
+        "pad_token_id": 0,
+        "rms_norm_eps": 1e-06,
+        "tie_word_embeddings": False,
+        "torch_dtype": "float16",
+        "vocab_size": 32001,
+    },
+    "tie_word_embeddings": False,
+    "torch_dtype": "float32",
+    "use_decoder_only_language_model": True,
+    "vision_config": {
+        "hidden_act": "gelu",
+        "hidden_size": 1408,
+        "image_size": 224,
+        "intermediate_size": 6144,
+        "layer_norm_eps": 1e-06,
+        "model_type": "instructblip_vision_model",
+        "num_attention_heads": 16,
+        "num_hidden_layers": 39,
+        "patch_size": 14,
+        "qkv_bias": True,
+    },
+}
+# and its preprocessor_config.json (BlipImageProcessor: 224 x 224, no crop)
+INSTRUCTBLIP_7B_HF_PREPROCESSOR = {
+    "do_convert_rgb": True,
+    "do_normalize": True,
+    "do_rescale": True,
+    "do_resize": True,
+    "image_mean": [0.48145466, 0.4578275, 0.40821073],
+    "image_processor_type": "BlipImageProcessor",
+    "image_std": [0.26862954, 0.26130258, 0.27577711],
+    "processor_class": "InstructBlipProcessor",
+    "resample": 3,
+    "rescale_factor": 0.00392156862745098,
+    "size": {"height": 224, "width": 224},
+}
+
+
+def llava_hf_tensors(cfg, params) -> list:
     """The inverse of ``models.llava.params_from_hf``: [(HF name, shape,
     make)] in the real checkpoint's (pre-4.52) key layout, ``make()``
     giving the tensor on the params' device.  Vision tower first, then the
@@ -2120,6 +2591,14 @@ def _hf_tensors(cfg, params) -> list:
     for j in (1, 2):
         add(f"multi_modal_projector.linear_{j}.weight", lambda j=j: proj[f"fc{j}_w"].t())
         add(f"multi_modal_projector.linear_{j}.bias", lambda j=j: proj[f"fc{j}_b"])
+    _hf_lm_tensors(tc, lm, add)
+    return out
+
+
+def _hf_lm_tensors(tc, lm: dict, add) -> None:
+    """``add(HF name, make)`` of every leaf of the Llama tower ``lm`` under
+    ``language_model.``, layer by layer (the inverse of
+    ``llama.params_from_hf``)."""
     add("language_model.model.embed_tokens.weight", lambda: lm["embed_tokens"])
     ll = lm["layers"]
     for i in range(tc.num_hidden_layers):
@@ -2132,15 +2611,63 @@ def _hf_tensors(cfg, params) -> list:
             add(f"{e}mlp.{name}.weight", lambda n=name, i=i: ll[n][i].t())
     add("language_model.model.norm.weight", lambda: lm["norm"])
     add("language_model.lm_head.weight", lambda: lm["lm_head"].t())
+
+
+def instructblip_hf_tensors(cfg, params) -> list:
+    """The inverse of ``models.instructblip.params_from_hf``: [(HF name,
+    shape, make)] of an InstructBlipForConditionalGeneration checkpoint, the
+    ViT's fused qkv bias with a zero k third, the Q-Former's leaves by its
+    own name map (``qformer.hf_layer_leaves``)."""
+    from dropoutdecoding_tpu_torch.models import qformer
+
+    vc, qc = cfg.vision, cfg.qformer
+    vis, qf, proj, lm = params
+    out = []
+
+    def add(name, make):
+        out.append((name, tuple(make().shape), make))
+
+    v, D, P = "vision_model.", vc.hidden_size, vc.patch_size
+    add(v + "embeddings.class_embedding", lambda: vis["class_embedding"].reshape(1, 1, D))
+    add(v + "embeddings.position_embedding", lambda: vis["position_embedding"][None])
+    add(v + "embeddings.patch_embedding.weight",
+        lambda: vis["patch_embedding"].t().reshape(D, 3, P, P))
+    add(v + "embeddings.patch_embedding.bias", lambda: vis["patch_bias"])
+    vl = vis["layers"]
+    for i in range(vc.num_hidden_layers):
+        e = f"{v}encoder.layers.{i}."
+        add(e + "self_attn.qkv.weight", lambda i=i: vl["qkv_w"][i].t())
+        add(e + "self_attn.qkv.bias", lambda i=i: torch.cat(
+            [vl["q_b"][i], torch.zeros_like(vl["q_b"][i]), vl["v_b"][i]]))
+        for hf, ours in (("self_attn.projection", "proj"), ("mlp.fc1", "fc1"), ("mlp.fc2", "fc2")):
+            add(f"{e}{hf}.weight", lambda o=ours, i=i: vl[f"{o}_w"][i].t())
+            add(f"{e}{hf}.bias", lambda o=ours, i=i: vl[f"{o}_b"][i])
+        for hf, ours in (("layer_norm1", "ln1"), ("layer_norm2", "ln2")):
+            add(f"{e}{hf}.weight", lambda o=ours, i=i: vl[f"{o}_w"][i])
+            add(f"{e}{hf}.bias", lambda o=ours, i=i: vl[f"{o}_b"][i])
+    add(v + "post_layernorm.weight", lambda: vis["post_ln_w"])
+    add(v + "post_layernorm.bias", lambda: vis["post_ln_b"])
+    add("query_tokens", lambda: qf["query_tokens"][None])
+    for hf, ours in (("word_embeddings.weight", "word_embeddings"),
+                     ("position_embeddings.weight", "position_embeddings"),
+                     ("layernorm.weight", "emb_ln_w"), ("layernorm.bias", "emb_ln_b")):
+        add(f"qformer.embeddings.{hf}", lambda o=ours: qf[o])
+    for i, lp in enumerate(qf["layers"]):
+        for ours, name, transpose in qformer.hf_layer_leaves(qc, i):
+            add("qformer." + name, lambda o=ours, lp=lp, t=transpose: lp[o].t() if t else lp[o])
+    add("language_projection.weight", lambda: proj["w"].t())
+    add("language_projection.bias", lambda: proj["b"])
+    _hf_lm_tensors(cfg.text, lm, add)
     return out
 
 
 _ST_NAMES = {torch.bfloat16: "BF16", torch.float32: "F32", torch.float16: "F16"}
 
 
-def write_hf_checkpoint(path, cfg, params, config: dict, shards: int = 3) -> int:
-    """``params`` written as an HF LLaVA checkpoint directory: ``config``
-    as config.json, the 336 px preprocessor_config.json, and the tensors in
+def write_hf_checkpoint(path, tensors: list, files: dict, shards: int = 3) -> int:
+    """An HF checkpoint directory: each of ``files`` ({name: dict}) as JSON
+    (config.json, preprocessor_config.json), and ``tensors`` ([(HF name,
+    shape, make)], ``make()`` giving the tensor, all of one dtype) in
     ``shards`` .safetensors files (the format: an 8-byte little-endian
     header length, a JSON header padded to 8 bytes, the raw bytes) with a
     ``model.safetensors.index.json``.  One tensor is on the host at a time.
@@ -2148,14 +2675,10 @@ def write_hf_checkpoint(path, cfg, params, config: dict, shards: int = 3) -> int
     import numpy as np
 
     os.makedirs(path, exist_ok=True)
-    with open(os.path.join(path, "config.json"), "w") as f:
-        json.dump(config, f, indent=2)
-    px = cfg.vision.image_size  # 336: the published file
-    with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
-        json.dump({**LLAVA_7B_HF_PREPROCESSOR, "crop_size": {"height": px, "width": px},
-                   "size": {"shortest_edge": px}}, f, indent=2)
-    tensors = _hf_tensors(cfg, params)
-    dtype = params.lm["embed_tokens"].dtype
+    for name, content in files.items():
+        with open(os.path.join(path, name), "w") as f:
+            json.dump(content, f, indent=2)
+    dtype = tensors[0][2]().dtype
     item = torch.empty((), dtype=dtype).element_size()
     sizes = [int(np.prod(shape)) * item for _, shape, _ in tensors]
     # cut into shards of about equal bytes, in order
@@ -2192,8 +2715,10 @@ def write_hf_checkpoint(path, cfg, params, config: dict, shards: int = 3) -> int
 
 class _StandInTokenizer:
     """The ``transformers`` tokenizer surface ``VlmProcessor`` uses, over a
-    fixed word list: a prompt word's id is a hash of it, "<image>" is
-    LLaVA's image token, and an id decodes to a word of ``WORDS``."""
+    fixed word list: a prompt word's id is a hash of it below ``vocab``
+    (and 32000), "<image>" is LLaVA's image token, and an id decodes to a
+    word of ``WORDS``.  InstructBLIP's pair is two of them, the Q-Former's at
+    its vocabulary."""
 
     WORDS = ("a", "dog", "sits", "on", "the", "chair", "next", "to", "table", "with", "cat",
              "and", "person", "car", "near", "bed", "in", "room.", "no")
@@ -2251,23 +2776,26 @@ class _RssPeak:
 
 
 def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_new: int = 16,
-              check_counts=None) -> dict:
-    """The port's CHAIR CLI on a real checkpoint layout: LLaVA-1.5-7B at full
+              check_counts=None, model: str = "llava-1.5") -> dict:
+    """The port's CHAIR CLI on a real checkpoint layout, ``model``
+    LLaVA-1.5-7B or (``"instructblip"``) InstructBLIP-Vicuna-7B at full
     width and depth with synthetic bf16 weights, written in the HF sharded
-    layout (the published config.json, three .safetensors shards and the
-    index) under ``.smoke_ckpt/``, loaded through the CLI's own
-    ``build_engine`` (no cache), leaves checked bit-equal to what was
-    written; then the CLI captions two images with the default Dropout
-    Decoding arm, ``--original``, ``--vcd``, ``--original --num-beams 3``
-    and ``--opera`` (``max_new`` tokens, no eos), a stand-in tokenizer
-    inside the real ``VlmProcessor`` and ``ClipImagePreprocessor``: ``main``
-    whole where PIL and nltk are importable, else ``run_engine`` +
-    ``emit_caption`` per image.  Every caption must equal the arm's engine
-    call made directly (``generate``, ``vcd_generate``, ``beam_generate``,
-    ``opera_generate``), and the CLI's run launches K1 32 times a step on
-    ``--original``, VCD (over 2 rows) and beam search (over 3), 64 on the
-    default arm and none under OPERA, K2 once a prefill (twice a caption
-    under VCD).  ``cfg`` / ``config`` / ``device`` make a
+    layout (the published config.json and preprocessor_config.json, three
+    .safetensors shards and the index) under ``.smoke_ckpt/``, loaded
+    through the CLI's own ``build_engine`` (no cache), leaves checked
+    bit-equal to what was written; then the CLI captions two images with the
+    default Dropout Decoding arm, ``--original``, ``--vcd``, ``--original
+    --num-beams 3`` and ``--opera`` (``max_new`` tokens, no eos), a stand-in
+    tokenizer (InstructBLIP: a pair, the Q-Former's ids below its
+    vocabulary) inside the real ``VlmProcessor`` and the image preprocessor
+    the checkpoint's config names: ``main`` whole where PIL and nltk are
+    importable, else ``run_engine`` + ``emit_caption`` per image.  Every
+    caption must equal the arm's engine call made directly (``generate``,
+    ``vcd_generate``, ``beam_generate``, ``opera_generate``), and the CLI's
+    run launches K1 32 times a step on ``--original``, VCD (over 2 rows) and
+    beam search (over 3), 64 on the default arm and none under OPERA, K2
+    once a prefill (twice a caption under VCD).  Then the POPE CLI on the
+    same engine (``pope_cli``).  ``cfg`` / ``config`` / ``device`` make a
     narrow rehearsal on the CPU possible.  Returns the phase's numbers."""
     import dataclasses
     import importlib.util
@@ -2277,13 +2805,47 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
     import numpy as np
 
     from dropoutdecoding_tpu_torch.cli import chair_test as cli
-    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig, LlavaConfig
-    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
-    from dropoutdecoding_tpu_torch.utils.processor import ClipImagePreprocessor, VlmProcessor
+    from dropoutdecoding_tpu_torch.engine import baselines, opera
+    from dropoutdecoding_tpu_torch.utils.config import (
+        GenerationConfig,
+        InstructBlipConfig,
+        LlavaConfig,
+    )
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_instructblip_params,
+        synthetic_llava_params,
+    )
+    from dropoutdecoding_tpu_torch.utils.processor import (
+        VlmProcessor,
+        image_preprocessor_from_checkpoint,
+    )
 
-    cfg = cfg or LlavaConfig()
-    config = config or LLAVA_7B_HF_CONFIG
-    if LlavaConfig.from_hf_dict(config) != cfg:
+    ib = model == "instructblip"
+    if ib:
+        config = config or INSTRUCTBLIP_7B_HF_CONFIG
+        cfg = cfg or InstructBlipConfig.from_hf_dict(config)
+        Config, synthetic, hf_tensors = InstructBlipConfig, synthetic_instructblip_params, instructblip_hf_tensors
+        px = cfg.vision.image_size  # 224: the published file
+        preprocessor = {**INSTRUCTBLIP_7B_HF_PREPROCESSOR, "size": {"height": px, "width": px}}
+        towers = {  # leaves of the vision tower, the Q-Former and the projection
+            "patch_embedding": lambda p: p.vision["patch_embedding"],
+            "qkv_w[0]": lambda p: p.vision["layers"]["qkv_w"][0],
+            "q_b[0]": lambda p: p.vision["layers"]["q_b"][0],
+            "v_b[-1]": lambda p: p.vision["layers"]["v_b"][-1],
+            "query_tokens": lambda p: p.qformer["query_tokens"],
+            "qformer cross_k_w[0]": lambda p: p.qformer["layers"][0]["cross_k_w"],
+            "qformer outq_w[-1]": lambda p: p.qformer["layers"][-1]["outq_w"],
+            "projection": lambda p: p.projection["w"],
+        }
+    else:
+        config = config or LLAVA_7B_HF_CONFIG
+        cfg = cfg or LlavaConfig()
+        Config, synthetic, hf_tensors = LlavaConfig, synthetic_llava_params, llava_hf_tensors
+        px = cfg.vision.image_size  # 336: the published file
+        preprocessor = {**LLAVA_7B_HF_PREPROCESSOR, "crop_size": {"height": px, "width": px},
+                        "size": {"shortest_edge": px}}
+        towers = {"patch_embedding": lambda p: p.vision["patch_embedding"]}
+    if Config.from_hf_dict(config) != cfg:
         raise AssertionError("config.json does not describe the model written")
     root = os.path.dirname(os.path.abspath(__file__))
     ckpt = os.path.join(root, ".smoke_ckpt")  # listed in .gitignore
@@ -2291,17 +2853,18 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
     record = {}
     try:
         # --- write the checkpoint, keep a sample of its leaves ---
-        params = synthetic_llava_params(cfg, device, torch.bfloat16, seed=0)
+        params = synthetic(cfg, device, torch.bfloat16, seed=0)
         L = cfg.text.num_hidden_layers
         ll = params.lm["layers"]
         sample = {"embed_tokens": params.lm["embed_tokens"].clone(),
                   "lm_head": params.lm["lm_head"].clone(),
-                  "patch_embedding": params.vision["patch_embedding"].clone()}
+                  **{k: get(params).clone() for k, get in towers.items()}}
         for i in (0, L - 1):
             for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
                 sample[f"{n}[{i}]"] = ll[n][i].clone()
         t0 = time.perf_counter()
-        nbytes = write_hf_checkpoint(ckpt, cfg, params, config)
+        nbytes = write_hf_checkpoint(ckpt, hf_tensors(cfg, params), {
+            "config.json": config, "preprocessor_config.json": preprocessor})
         write_s = time.perf_counter() - t0
         del params, ll
         if cuda:
@@ -2309,7 +2872,8 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
             torch.cuda.reset_peak_memory_stats()
         # --- load through the CLI ---
         args = cli.build_parser().parse_args(
-            ["--coco-data-dir", "unused", "--model-path", ckpt, "--image-numbers", "2"])
+            ["--coco-data-dir", "unused", "--model-path", ckpt, "--image-numbers", "2",
+             "--model", model])
         rss0 = _rss_gib()
         t0 = time.perf_counter()
         with _RssPeak() as rss:
@@ -2325,13 +2889,13 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
         spans = {"q_proj": (0, H * Dh), "k_proj": (H * Dh, (H + KH) * Dh),
                  "v_proj": ((H + KH) * Dh, (H + 2 * KH) * Dh)}
         got = {"embed_tokens": lm["embed_tokens"], "lm_head": lm["lm_head"],
-               "patch_embedding": engine.params.vision["patch_embedding"]}
+               **{k: get(engine.params) for k, get in towers.items()}}
         for i in (0, L - 1):
             for n, (a, b) in spans.items():
                 got[f"{n}[{i}]"] = ll["qkv_proj"][i][:, a:b]  # build_engine fuses q/k/v
             got[f"o_proj[{i}]"] = ll["o_proj"][i]
         unequal = [k for k in sample if not torch.equal(got[k], sample[k])]
-        print(f"chair_cli: wrote {nbytes / 2**30:.2f} GiB in 3 shards in {write_s:.1f} s; "
+        print(f"chair_cli {model}: wrote {nbytes / 2**30:.2f} GiB in 3 shards in {write_s:.1f} s; "
               f"build_engine {load_s:.1f} s, host RSS {rss0:.2f} GiB before, peak {host_peak:.2f} "
               f"GiB during it (ru_maxrss of the run "
               f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB), device peak "
@@ -2341,11 +2905,18 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
         del got, sample, lm, ll
 
         # --- caption through the CLI ---
-        tok = _StandInTokenizer(cfg.image_token_index, cfg.text.vocab_size)
-        processor = VlmProcessor(tok, ClipImagePreprocessor.from_checkpoint(ckpt))
+        image_prep = image_preprocessor_from_checkpoint(ckpt)
+        if ib:
+            processor = VlmProcessor(
+                _StandInTokenizer(None, cfg.text.vocab_size), image_prep,
+                qformer_tokenizer=_StandInTokenizer(None, cfg.qformer.vocab_size))
+        else:
+            processor = VlmProcessor(
+                _StandInTokenizer(cfg.image_token_index, cfg.text.vocab_size), image_prep)
+        print(f"chair_cli {model}: image preprocessor {type(image_prep).__name__}")
         whole = all(importlib.util.find_spec(m) for m in ("PIL", "nltk"))
-        print("chair_cli: " + ("main whole (PIL and nltk importable)" if whole else
-                                "run_engine + emit_caption per image (nltk not importable)"))
+        print(f"chair_cli {model}: " + ("main whole (PIL and nltk importable)" if whole else
+                                         "run_engine + emit_caption per image (nltk not importable)"))
         from PIL import Image
 
         rng = np.random.default_rng(17)
@@ -2359,16 +2930,35 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
         gen = GenerationConfig(max_new_tokens=max_new, eos_token_id=-1, pad_token_id=0)
         wrappers = _wrappers()
         make_engine = cli.make_engine
-        from dropoutdecoding_tpu_torch.engine import baselines, opera
+        prompt = cli.PROMPTS[model]
+
+        if ib:  # the engine calls of each arm on the direct inputs a = (ids, pixels, q ids)
+            def vcd(e, a):
+                noised = torch.stack([baselines.noised_pixels(e, p) for p in a[1]])
+                return baselines.vcd_generate(e, states=(e.prefill(*a),
+                                                         e.prefill(a[0], noised, a[2])))
+
+            def beam(e, a):
+                return baselines.beam_generate(e, state=e.prefill(*a), num_beams=3)
+
+            def opera_call(e, a):
+                return opera.opera_generate(e, state=e.prefill(*a), **OPERA_CLI)
+        else:
+            def vcd(e, a):
+                return baselines.vcd_generate(e, *a)
+
+            def beam(e, a):
+                return baselines.beam_generate(e, *a, num_beams=3)
+
+            def opera_call(e, a):
+                return opera.opera_generate(e, *a, **OPERA_CLI)
 
         arms = (  # (arm, flags, the engine call the CLI must make, K1 forwards a step, K2 a caption)
-            ("dropout decoding", [], lambda e, i, p: e.generate(i, p), 2, 1),
-            ("--original", ["--original", "True"], lambda e, i, p: e.generate(i, p), 1, 1),
-            ("--vcd", ["--vcd", "True"], lambda e, i, p: baselines.vcd_generate(e, i, p), 1, 2),
-            ("--num-beams 3", ["--original", "True", "--num-beams", "3"],
-             lambda e, i, p: baselines.beam_generate(e, i, p, num_beams=3), 1, 1),
-            ("--opera", ["--opera", "True"],
-             lambda e, i, p: opera.opera_generate(e, i, p, **OPERA_CLI), 0, 1),
+            ("dropout decoding", [], lambda e, a: e.generate(*a), 2, 1),
+            ("--original", ["--original", "True"], lambda e, a: e.generate(*a), 1, 1),
+            ("--vcd", ["--vcd", "True"], vcd, 1, 2),
+            ("--num-beams 3", ["--original", "True", "--num-beams", "3"], beam, 1, 1),
+            ("--opera", ["--opera", "True"], opera_call, 0, 1),
         )
         for arm, extra, direct_call, forwards, prefills in arms:
             work = os.path.join(ckpt, "run")
@@ -2377,7 +2967,7 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
             arm_args = cli.build_parser().parse_args(
                 ["--coco-data-dir", coco, "--model-path", ckpt, "--image-numbers", "2",
                  "--seed", "0", "--method", "smoke", "--output-dir", os.path.join(work, "out"),
-                 "--sample-save-name", os.path.join(work, "sample.log")] + extra)
+                 "--sample-save-name", os.path.join(work, "sample.log"), "--model", model] + extra)
             opera_arm, vcd_arm = cli.str2bool(arm_args.opera), cli.str2bool(arm_args.vcd)
             eng = dataclasses.replace(  # the arm's engine as build_engine makes it
                 engine, gen=dataclasses.replace(gen, num_beams=cli.beam_count(arm_args),
@@ -2404,31 +2994,33 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
             else:
                 captions = os.path.join(work, "captions.jsonl")
                 for img_file, image in zip(files, images):
-                    text = cli.run_engine(eng, processor, "llava-1.5", cli.PROMPTS["llava-1.5"], image)
-                    cli.emit_caption(captions, "llava-1.5", img_file, text)
+                    text = cli.run_engine(eng, processor, model, prompt, image)
+                    cli.emit_caption(captions, model, img_file, text)
             if cuda:
                 torch.cuda.synchronize()
             cli_s = time.perf_counter() - t0
             counts = {k: fn.launches for k, fn in wrappers.items()}
             direct = os.path.join(work, "direct.jsonl")
             for img_file, image in zip(files, images):
-                inputs = processor(cli.PROMPTS["llava-1.5"], image)
-                result = direct_call(eng, inputs["input_ids"], inputs["pixel_values"])
-                cli.emit_caption(direct, "llava-1.5", img_file,
+                inputs = processor(prompt, image)
+                a = (inputs["input_ids"], inputs["pixel_values"])
+                result = direct_call(eng, a + (processor.qformer_ids(prompt),) if ib else a)
+                cli.emit_caption(direct, model, img_file,
                                  processor.decode(result.tokens[0][: result.num_tokens[0]]))
             recs = sorted((json.loads(line) for line in open(captions)), key=lambda r: r["image_id"])
             same = recs == [json.loads(line) for line in open(direct)]  # files are in id order
             steps = len(files) * (max_new - 1)
             want = {"K1": steps * L * forwards, "K2": len(files) * prefills,
                     "K3": 0, "K4": 0, "K5": 0, "K6": 0}
-            print(f"chair_cli {arm}: {len(recs)} captions in {cli_s:.2f} s through the CLI, equal to "
-                  f"the engine call made directly: {same}; launches {counts} (want {want}); "
-                  f"first caption: {recs[0]['caption']!r}")
+            print(f"chair_cli {model} {arm}: {len(recs)} captions in {cli_s:.2f} s through the CLI, "
+                  f"equal to the engine call made directly: {same}; launches {counts} (want "
+                  f"{want}); first caption: {recs[0]['caption']!r}")
             if not same or len(recs) != len(files):
                 raise AssertionError(f"chair_cli {arm}: CLI captions differ from the engine call's")
-            (check_counts or _check_counts)(f"chair_cli {arm}", counts, want)
+            (check_counts or _check_counts)(f"chair_cli {model} {arm}", counts, want)
             record[arm] = {"captions_s": cli_s, "launches": counts}
-        record["pope_cli"] = pope_cli(engine, processor, ckpt, device, check_counts)
+        record["pope_cli"] = pope_cli(engine, processor, ckpt, device, check_counts,
+                                      "instructblip" if ib else "llava")
         record.update(write_s=write_s, load_s=load_s, host_peak_gib=host_peak,
                       device_peak_gib=dev_peak, whole_main=whole)
         return record
@@ -2436,18 +3028,21 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_counts=None) -> dict:
+def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_counts=None,
+             model: str = "llava") -> dict:
     """The port's POPE CLI on the engine ``chair_cli`` loaded from its HF
     checkpoint: ``pope_test.main(..., device)`` with ``--number 12`` over
     the vendored question sets (two images a set, six questions each), with
-    synthetic 640 x 480 JPEGs under the names they read, three times:
-    serial, ``--batch-size 8`` and ``--prefix-cache True``.  Each answer
-    archive must equal what the same mode's engine calls give when made
-    directly (``generate`` of one token a question; ``probe`` over groups of
-    8 right-padded rows with their unique images; ``probe_prefix`` of each
-    image's shared template + ``probe_extend`` of its tails).  Launches: K2
-    once a question serially (``generate``'s prefill; one new token runs no
-    decode step), nothing else in any mode.  Answers carry their token ids
+    synthetic 640 x 480 JPEGs under the names they read: serial,
+    ``--batch-size 8`` and, on LLaVA, ``--prefix-cache True`` (InstructBLIP's
+    must exit before the model loads, with the JAX CLI's message).  Each
+    answer archive must equal what the same mode's engine calls give when
+    made directly (``generate`` of one token a question; ``probe`` over
+    groups of 8 right-padded rows with their unique images, InstructBLIP's
+    with their padded Q-Former ids; ``probe_prefix`` of each image's shared
+    template + ``probe_extend`` of its tails).  Launches: K2 once a question
+    serially (``generate``'s prefill; one new token runs no decode step),
+    nothing else in any mode.  Answers carry their token ids
     (``vlm_processor``'s word, then the id), so the archives compare tokens.
     ``main`` prints the confusion matrices; this prints the s a question of
     each mode."""
@@ -2459,8 +3054,10 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
 
     from dropoutdecoding_tpu_torch.cli import chair_test as cli
     from dropoutdecoding_tpu_torch.cli import pope_test as pope
+    from dropoutdecoding_tpu_torch.engine.instructblip_engine import NO_SHARED_PREFIX
     from dropoutdecoding_tpu_torch.evalsuite.pope import parse_question_file, vendored_question_dir
 
+    ib = model == "instructblip"
     n = 12
     questions = {s: parse_question_file(os.path.join(vendored_question_dir(), f"coco_pope_{s}.json"))[:n]
                  for s in pope.STRATEGIES}
@@ -2478,13 +3075,16 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
         def __call__(self, *args):
             return vlm_processor(*args)
 
+        def qformer_ids(self, prompt):
+            return vlm_processor.qformer_ids(prompt)
+
         def decode(self, token_ids):
             return f"{vlm_processor.decode(token_ids)} {[int(t) for t in token_ids]}"
 
     processor = Answers()
     eng = dataclasses.replace(engine)  # main sets its one-token budget on its own copy
     direct = dataclasses.replace(engine, gen=dataclasses.replace(engine.gen, max_new_tokens=1))
-    prompt = pope.POPE_PROMPTS["llava"]
+    prompt = pope.POPE_PROMPTS[model]
 
     def ids(p):
         return np.asarray(processor(p)["input_ids"])[0]
@@ -2496,7 +3096,8 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
         out = []
         for p, name in zip(prompts, names):
             inputs = processor(p, load(name))
-            r = direct.generate(inputs["input_ids"], inputs["pixel_values"])
+            q = (processor.qformer_ids(p),) if ib else ()
+            r = direct.generate(inputs["input_ids"], inputs["pixel_values"], *q)
             out.append(processor.decode(r.tokens[0][: r.num_tokens[0]]).strip())
         return out
 
@@ -2507,21 +3108,35 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
         return [processor.decode([t]).strip() for t in res.first_token.tolist()]
 
     def batched(prompts, names):
-        return tokens(pope_direct(direct, [ids(p) for p in prompts], names, pick)[0])
+        q_rows = [np.asarray(processor.qformer_ids(p))[0] for p in prompts] if ib else None
+        return tokens(pope_direct(direct, [ids(p) for p in prompts], names, pick, q_rows=q_rows)[0])
 
     def prefixed(prompts, names):
         template = pope.template_prefix_len(ids(prompt.format("aaaa")), ids(prompt.format("zzzz")))
         return tokens(pope_direct(direct, [ids(p) for p in prompts], names, pick, template)[0])
 
+    def argv(extra):
+        return ["--model", model, "--model-path", root, "--coco-data-dir", coco, "--pope-dir",
+                pope_dir, "--number", str(n), "--seed", "0"] + extra
+
     wrappers = _wrappers()
     make_engine, record, start = cli.make_engine, {}, time.perf_counter()
-    for mode, extra, calls in (("serial", [], serial), ("--batch-size 8", ["--batch-size", "8"], batched),
-                               ("--prefix-cache", ["--prefix-cache", "True"], prefixed)):
-        pope_dir = os.path.join(root, "pope_run")
+    pope_dir = os.path.join(root, "pope_run")
+    modes = [("serial", [], serial), ("--batch-size 8", ["--batch-size", "8"], batched)]
+    if ib:  # the prefix cache exits before the model loads, with the JAX CLI's message
+        try:
+            pope.main(pope.build_parser().parse_args(argv(["--prefix-cache", "True"])), device=device)
+        except SystemExit as e:
+            if str(e) != NO_SHARED_PREFIX:
+                raise AssertionError(f"pope_cli --prefix-cache: exit message {e}") from e
+        else:
+            raise AssertionError("pope_cli --prefix-cache ran on InstructBLIP")
+        print("pope_cli instructblip --prefix-cache: exits before the model loads, as the JAX CLI")
+    else:
+        modes.append(("--prefix-cache", ["--prefix-cache", "True"], prefixed))
+    for mode, extra, calls in modes:
         shutil.rmtree(pope_dir, ignore_errors=True)
-        args = pope.build_parser().parse_args(
-            ["--model", "llava", "--model-path", root, "--coco-data-dir", coco, "--pope-dir", pope_dir,
-             "--number", str(n), "--seed", "0"] + extra)
+        args = pope.build_parser().parse_args(argv(extra))
         for w in wrappers.values():
             w.launches = 0
         cli.make_engine = lambda a, device="cuda": (eng, processor)
@@ -2541,15 +3156,15 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
                 for s, qs in questions.items()}
         total = sum(len(qs) for qs in questions.values())
         want_counts = {**dict.fromkeys(wrappers, 0), "K2": total if mode == "serial" else 0}
-        print(f"pope_cli {mode}: {total} questions in {secs:.2f} s through the CLI, "
+        print(f"pope_cli {model} {mode}: {total} questions in {secs:.2f} s through the CLI, "
               f"{secs / total:.4f} s a question; archives equal to the engine calls made directly: "
               f"{archives == want}; answers {sorted(set(a for v in archives.values() for a in v))}; "
               f"launches {counts} (want {want_counts})")
         if archives != want:
             raise AssertionError(f"pope_cli {mode}: archives {archives} != direct calls' {want}")
-        (check_counts or _check_counts)(f"pope_cli {mode}", counts, want_counts)
+        (check_counts or _check_counts)(f"pope_cli {model} {mode}", counts, want_counts)
         record[mode] = {"s_a_question": secs / total, "launches": counts}
-    shutil.rmtree(os.path.join(root, "pope_run"), ignore_errors=True)
+    shutil.rmtree(pope_dir, ignore_errors=True)
     record["seconds"] = time.perf_counter() - start
     return record
 
@@ -2598,11 +3213,41 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
     },
+    "K1 InstructBLIP": {
+        "name": "ensemble_decode_attention (InstructBLIP-Vicuna-7B: M = 3, G = 1, 608-slot cache)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 InstructBLIP fused": {
+        "name": "ensemble_decode_attention (InstructBLIP fused mode: M = 4)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 InstructBLIP VCD": {
+        "name": "ensemble_decode_attention (InstructBLIP VCD: M = 1 over 2 rows)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 InstructBLIP beam": {
+        "name": "ensemble_decode_attention (InstructBLIP beam search: M = 1 over 3 rows)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
     "K2": {
         "name": "vision_uncertainty",
         "route": "cuda",
         "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
         # and the top-k table XLA made beside it (engine/generate.py:334)
+        "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
+    },
+    "K2 InstructBLIP": {
+        "name": "vision_uncertainty (InstructBLIP: [1, 32, 32001], k = 10)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
     },
     "K3": {
@@ -2653,12 +3298,20 @@ def main() -> int:
     t_base = time.perf_counter()
     small_reference("baselines")
     print(f"small_reference('baselines') {time.perf_counter() - t_base:.1f} s")
+    ib_s = {}
+    (_, ib_s["narrow"]) = _wall(lambda: small_reference("instructblip"))
     launches, pope = end_to_end()
+    (ib_launches, ib_pope, towers), ib_s["full width"] = _wall(instructblip_full)
+    launches.update(ib_launches)
     cli_record = chair_cli()
     print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")
+    ib_cli, ib_s["CLI"] = _wall(lambda: chair_cli(model="instructblip"))
+    print(f"chair_cli instructblip phase: {json.dumps(ib_cli)}; towers {json.dumps(towers)}; "
+          f"POPE {json.dumps(ib_pope)}; card {card}")
     pope_s = {"small": t_pope, **{k: v["seconds"] for k, v in pope.items()},
               "cli": cli_record["pope_cli"]["seconds"]}
     print(f"POPE phases: {json.dumps(pope_s)}, {sum(pope_s.values()):.1f} s added")
+    print(f"InstructBLIP phases, s: {json.dumps(ib_s)}, {sum(ib_s.values()):.1f} s added")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -15,10 +15,12 @@ flag.  Every Dropout Decoding arm runs: exact and fused mode
 (``--text-logit-mask``); so do the paper's baselines: greedy
 (``--original``), beam search (``--original --num-beams N`` with
 ``--length-penalty`` / ``--early-stopping``), VCD (``--vcd``) and OPERA
-(``--opera``, one image at a time), each serial and, but OPERA, batched.
-Flags whose engine is not ported yet raise ``NotImplementedError`` naming
-their ROADMAP Queue 1 item when the engine is built, before any image is
-read (``NOT_PORTED``).
+(``--opera``, one image at a time), each serial and, but OPERA, batched;
+on all three models (``--model llava-1.5``, ``llava-next`` and
+``instructblip``, whose Q-Former reads the instruction through
+``qformer_ids_for``).  Flags whose engine is not ported yet raise
+``NotImplementedError`` naming their ROADMAP Queue 1 item when the engine
+is built, before any image is read (``NOT_PORTED``).
 """
 from __future__ import annotations
 
@@ -63,7 +65,6 @@ NOT_PORTED = (
     ("--w8a8-decode", lambda a: str2bool(getattr(a, "w8a8_decode", False)), 12),
     ("--consistency", lambda a: str2bool(getattr(a, "consistency", False)), 15),
     ("--consistency-im", lambda a: bool(getattr(a, "consistency_im", None)), 15),
-    ("--model instructblip", lambda a: a.model == "instructblip", 11),
 )
 
 
@@ -197,6 +198,17 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
             max_len=cfg.vision.num_patches + 64 + 512,
             **common,
         )
+    elif model == "instructblip":
+        from ..engine.instructblip_engine import InstructBlipEngine
+        from ..models import instructblip as ib_mod
+
+        cfg, params = ib_mod.load(args.model_path, torch.bfloat16, device, cache)
+        engine = InstructBlipEngine(
+            cfg=cfg,
+            params=maybe_quantize(args, params),
+            max_len=cfg.num_query_tokens + 64 + 512,
+            **common,
+        )
     elif model == "llava-next":
         from ..engine.llavanext_engine import LlavaNextEngine
         from ..models import llavanext as next_mod
@@ -251,23 +263,35 @@ def next_image_prep(engine):
     return engine._next_prep_cache
 
 
+def qformer_ids_for(processor, prompt, enc):
+    """InstructBLIP's Q-Former instruction ids [1, T]: the processor's
+    ``qformer_ids``, else the LM ids ``enc`` holds (the JAX CLI's fallback;
+    ids past the Q-Former's vocabulary then raise in the engine)."""
+    return processor.qformer_ids(prompt) if hasattr(processor, "qformer_ids") else enc["input_ids"]
+
+
 def generate_arm(engine, model, input_ids, *images):
     """The arm ``engine`` was built for, over a batch of prompts: VCD, OPERA
     (one image), beam search (``--original`` with beams) or the engine's own
-    ``generate``.  ``images``: LLaVA-1.5's pixels, or LLaVA-NeXT's tile
-    stack and size (lists of them for a batch), whose VCD noise the CLI
-    makes per image, as the JAX CLI does."""
+    ``generate``.  ``images``: LLaVA-1.5's pixels, LLaVA-NeXT's tile stack
+    and size (lists of them for a batch), or InstructBLIP's pixels and
+    Q-Former ids; VCD noises the pixels (the ViT's input) per image, as the
+    JAX CLI does."""
     from ..engine import baselines
 
     gen, opera = engine.gen, getattr(engine, "_opera", None)
     if gen.use_cd:
-        if model != "llava-next":
+        if model == "llava-1.5":
             return baselines.vcd_generate(engine, input_ids, *images)
-        tiles, sizes = images
-        noised = ([baselines.noised_pixels(engine, t) for t in tiles] if isinstance(tiles, list)
-                  else baselines.noised_pixels(engine, tiles))
+        pixels, rest = images[0], images[1:]
+        if isinstance(pixels, list):  # LLaVA-NeXT rows: a tile stack each
+            noised = [baselines.noised_pixels(engine, t) for t in pixels]
+        elif model == "llava-next":  # one image's tile stack
+            noised = baselines.noised_pixels(engine, pixels)
+        else:  # InstructBLIP: [B, 3, H, W], an image a row
+            noised = torch.stack([baselines.noised_pixels(engine, p) for p in pixels])
         return baselines.vcd_generate(engine, states=(
-            engine.prefill(input_ids, tiles, sizes), engine.prefill(input_ids, noised, sizes)))
+            engine.prefill(input_ids, pixels, *rest), engine.prefill(input_ids, noised, *rest)))
     if opera is not None:
         from ..engine.opera import opera_generate
 
@@ -285,6 +309,10 @@ def run_engine(engine, processor, model, prompt, image):
     if model == "llava-next":
         tiles, orig = next_image_prep(engine)(image)
         result = generate_arm(engine, model, processor(prompt)["input_ids"], tiles, orig)
+    elif model == "instructblip":
+        inputs = processor(prompt, image)
+        result = generate_arm(engine, model, inputs["input_ids"], inputs["pixel_values"],
+                              qformer_ids_for(processor, prompt, inputs))
     else:
         inputs = processor(prompt, image)
         result = generate_arm(engine, model, inputs["input_ids"], inputs["pixel_values"])
@@ -405,12 +433,13 @@ def main(args, device="cuda"):
     if batch > 1:
         # batched path: dropout decoding, --original, beam search and VCD
         # run over ``batch`` images (identical prompts, so identical merged
-        # lengths); LLaVA-NeXT rows carry their own tile stacks and sizes
+        # lengths); LLaVA-NeXT rows carry their own tile stacks and sizes,
+        # InstructBLIP rows their Q-Former ids
         import numpy as np
 
         for start in range(0, len(img_files), batch):
             group = img_files[start : start + batch]
-            ids_list, px_list, size_list = [], [], []
+            ids_list, px_list, size_list, qid_list = [], [], [], []
             for path in paths[start : start + batch]:
                 image = load(path)
                 if model == "llava-next":
@@ -422,13 +451,16 @@ def main(args, device="cuda"):
                     inputs = processor(PROMPTS[model], image)
                     ids_list.append(inputs["input_ids"][0])
                     px_list.append(inputs["pixel_values"][0])
-            for _ in range(batch - len(group)):  # the last group keeps the batch's shape
-                ids_list.append(ids_list[-1])
-                px_list.append(px_list[-1])
-                if size_list:
-                    size_list.append(size_list[-1])
+                    if model == "instructblip":
+                        q = qformer_ids_for(processor, PROMPTS[model], inputs)
+                        qid_list.append(np.asarray(q)[0])
+            for rows in (ids_list, px_list, size_list, qid_list):  # the last group keeps the
+                rows.extend(rows[-1:] * (batch - len(group)))  # batch's shape
             if model == "llava-next":
                 result = generate_arm(engine, model, np.stack(ids_list), px_list, size_list)
+            elif model == "instructblip":
+                result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list),
+                                      np.stack(qid_list))
             else:
                 result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list))
             for i, img_file in enumerate(group):

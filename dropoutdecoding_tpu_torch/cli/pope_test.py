@@ -20,9 +20,11 @@ flag.  Three paths answer the questions, each with the greedy first token:
   (``engine.probe_extend``); ``--int8-prefix-cache True`` keeps the prefix
   int8.
 
-``--quantize w8a8`` and ``--model instructblip`` raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item before the model
-or any image is read.  The grouping and padding are plain functions over id
+``--model instructblip`` runs serially and batched (its Q-Former reads each
+question, so a batch carries the questions' Q-Former ids with their
+mask); its ``--prefix-cache`` exits before the model loads, as the JAX
+CLI's does.  ``--quantize w8a8`` raises ``NotImplementedError`` naming its
+ROADMAP Queue 1 item before the model or any image is read.  The grouping and padding are plain functions over id
 arrays (``template_prefix_len``, ``group_prefix_len``, ``pad_tails``,
 ``pad_rows``, ``image_slots``, ``fill_rows``, ``image_runs``).
 """
@@ -47,6 +49,7 @@ from ..evalsuite.pope import (
     seed_question_dir,
     write_questions,
 )
+from ..engine.instructblip_engine import NO_SHARED_PREFIX
 from .chair_test import _progress, str2bool
 
 POPE_PROMPTS = {
@@ -207,8 +210,9 @@ def answer_serial(engine, processor, model, prompts, names, load) -> list:
 
 def answer_batch(engine, processor, model, prompts, names, load, batch: int) -> list:
     """``engine.probe`` over groups of ``batch`` right-padded questions, the
-    vision tower run once for each unique image of a group."""
-    from .chair_test import next_image_prep
+    vision tower run once for each unique image of a group; InstructBLIP's
+    rows carry their Q-Former ids, right-padded with their mask."""
+    from .chair_test import next_image_prep, qformer_ids_for
 
     answers = []
     for start in range(0, len(prompts), batch):
@@ -218,6 +222,7 @@ def answer_batch(engine, processor, model, prompts, names, load, batch: int) -> 
         rows = fill_rows([np.asarray(processor(p)["input_ids"])[0] for p in group], batch)
         lens = np.array([len(r) for r in rows], np.int32)
         ids, _ = pad_rows(rows)
+        extra = {}
         if model == "llava-next":
             prepped = [next_image_prep(engine)(image) for image in images]
             tiles, sizes = [t for t, _ in prepped], [o for _, o in prepped]
@@ -227,8 +232,12 @@ def answer_batch(engine, processor, model, prompts, names, load, batch: int) -> 
                 np.asarray(processor(group[index.index(u)], image)["pixel_values"])
                 for u, image in enumerate(images)
             ]),)
+        if model == "instructblip":  # the Q-Former reads each question
+            q_rows = [np.asarray(qformer_ids_for(processor, p, processor(p)))[0] for p in group]
+            q_ids, extra["qformer_attention_mask"] = pad_rows(fill_rows(q_rows, batch))
+            pixels += (q_ids,)
         index = np.asarray(fill_rows(index, batch), np.int32)
-        result = engine.probe(ids, *pixels, text_lens=lens, image_index=index)
+        result = engine.probe(ids, *pixels, text_lens=lens, image_index=index, **extra)
         answers += [_answer(processor, t) for t in result.first_token[: len(group)].tolist()]
         _progress(start + len(group), len(prompts), "answered")
     return answers
@@ -277,16 +286,7 @@ def main(args, device="cuda"):
 
     model_key = MODEL_KEYS[args.model]
     if str2bool(args.prefix_cache) and model_key == "instructblip":
-        # fail before the model loads: the constraint is structural
-        raise SystemExit(
-            "--prefix-cache cannot apply to InstructBLIP: its Q-Former "
-            "reads the question text (reference instructblip.py:617-631 "
-            "passes qformer_input_ids), so the 32 visual tokens — the "
-            "START of the merged sequence — differ per question and no "
-            "shared LM prefix exists.  Use --batch-size instead: the "
-            "batched probe already runs the EVA-ViT-g tower once per "
-            "unique image (the expensive shared stage)."
-        )
+        raise SystemExit(NO_SHARED_PREFIX)  # before the model loads: the constraint is structural
     eng_args = engine_args(args, model_key)
     chair_test.check_ported(eng_args)  # before any question, weight or image is read
 
@@ -354,8 +354,8 @@ def build_parser():
     """The JAX CLI's parser, flag for flag, name for name, default for
     default."""
     p = argparse.ArgumentParser(
-        description="POPE with the PyTorch port (--quantize w8a8 and --model instructblip "
-        "raise NotImplementedError naming their ROADMAP item)"
+        description="POPE with the PyTorch port (--quantize w8a8 raises "
+        "NotImplementedError naming its ROADMAP item)"
     )
     p.add_argument("--model", type=str, default="llava")
     p.add_argument("--model-path", type=str, required=True)

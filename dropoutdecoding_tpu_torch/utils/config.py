@@ -1,9 +1,9 @@
-"""Frozen configuration dataclasses of the LLaVA-1.5 and LLaVA-NeXT Dropout
-Decoding paths.
+"""Frozen configuration dataclasses of the LLaVA-1.5, LLaVA-NeXT and
+InstructBLIP Dropout Decoding paths.
 
 A copy of the matching dataclasses in ``dropoutdecoding_tpu/utils/config.py``
-with the same fields and defaults (LLaVA-1.5-7B, LLaVA-v1.6-Mistral-7B and
-CLIP ViT-L/336 widths).
+with the same fields and defaults (LLaVA-1.5-7B, LLaVA-v1.6-Mistral-7B,
+InstructBLIP-Vicuna-7B and CLIP ViT-L/336 widths).
 The port cannot import that module: ``dropoutdecoding_tpu.utils`` imports
 JAX from its package ``__init__`` (through ``utils/prng.py``).
 ``tests/test_torch_imports.py`` holds the two copies equal field by field.
@@ -96,6 +96,77 @@ class ClipVisionConfig:
 
 
 @dataclass(frozen=True)
+class QFormerConfig:
+    """InstructBLIP Q-Former (BERT encoder with periodic cross-attention)."""
+
+    vocab_size: int = 30523
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    cross_attention_frequency: int = 2
+    encoder_hidden_size: int = 1408  # InstructBLIP EVA-ViT hidden size
+    layer_norm_eps: float = 1e-12
+    max_position_embeddings: int = 512
+    num_query_tokens: int = 32
+
+    @classmethod
+    def from_hf_dict(cls, d: dict, num_query_tokens: int = 32) -> "QFormerConfig":
+        """A core dim the dict leaves out takes transformers'
+        ``InstructBlipQFormerConfig`` default (vocabulary 30522), as
+        ``from_pretrained`` does; the JAX package's copy requires them."""
+        return cls(
+            vocab_size=d.get("vocab_size", 30522),
+            hidden_size=d.get("hidden_size", 768),
+            num_hidden_layers=d.get("num_hidden_layers", 12),
+            num_attention_heads=d.get("num_attention_heads", 12),
+            intermediate_size=d.get("intermediate_size", 3072),
+            cross_attention_frequency=d.get("cross_attention_frequency", 2),
+            encoder_hidden_size=d.get("encoder_hidden_size", 1408),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-12),
+            max_position_embeddings=d.get("max_position_embeddings", 512),
+            num_query_tokens=num_query_tokens,
+        )
+
+
+@dataclass(frozen=True)
+class BlipVisionConfig:
+    """InstructBLIP vision tower (EVA ViT-g/14): pre-norm ViT with a final
+    post-layernorm, learned position embeddings and bias on q and v."""
+
+    hidden_size: int = 1408
+    intermediate_size: int = 6144
+    num_hidden_layers: int = 39
+    num_attention_heads: int = 16
+    image_size: int = 224
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+    hidden_act: str = "gelu"
+    qkv_bias: bool = True
+
+    @property
+    def num_positions(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "BlipVisionConfig":
+        """A core dim the dict leaves out takes transformers'
+        ``InstructBlipVisionConfig`` default (EVA ViT-g/14 at 224 px), as
+        ``from_pretrained`` does; the JAX package's copy requires them."""
+        return cls(
+            hidden_size=d.get("hidden_size", 1408),
+            intermediate_size=d.get("intermediate_size", 6144),
+            num_hidden_layers=d.get("num_hidden_layers", 39),
+            num_attention_heads=d.get("num_attention_heads", 16),
+            image_size=d.get("image_size", 224),
+            patch_size=d.get("patch_size", 14),
+            layer_norm_eps=d.get("layer_norm_eps", 1e-6),
+            hidden_act=d.get("hidden_act", "gelu"),
+            qkv_bias=d.get("qkv_bias", True),
+        )
+
+
+@dataclass(frozen=True)
 class LlavaConfig:
     """LLaVA-1.5 composition."""
 
@@ -159,6 +230,28 @@ class LlavaNextConfig:
                 tuple(p) for p in d.get("image_grid_pinpoints", [])
             )
             or cls.image_grid_pinpoints,
+        )
+
+
+@dataclass(frozen=True)
+class InstructBlipConfig:
+    """InstructBLIP composition: EVA-ViT -> Q-Former -> projection -> Vicuna
+    (``Salesforce/instructblip-vicuna-7b`` widths)."""
+
+    text: LlamaConfig = LlamaConfig(vocab_size=32001)
+    vision: BlipVisionConfig = BlipVisionConfig()
+    qformer: QFormerConfig = QFormerConfig()
+    num_query_tokens: int = 32
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "InstructBlipConfig":
+        return cls(
+            text=LlamaConfig.from_hf_dict(d["text_config"]),
+            vision=BlipVisionConfig.from_hf_dict(d["vision_config"]),
+            qformer=QFormerConfig.from_hf_dict(
+                d["qformer_config"], d.get("num_query_tokens", 32)
+            ),
+            num_query_tokens=d.get("num_query_tokens", 32),
         )
 
 

@@ -9,9 +9,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.instructblip import InstructBlipParams
 from ..models.llava import LlavaParams
 from ..models.llavanext import LlavaNextParams
-from .config import LlamaConfig, LlavaConfig, LlavaNextConfig
+from .config import InstructBlipConfig, LlamaConfig, LlavaConfig, LlavaNextConfig
 from .quantize import INT4_GROUP
 
 
@@ -25,6 +26,8 @@ def _to_torch(tree, device, dtype):
             k: _to_torch(v, device, scale_dtype if k in ("s", "s4") else dtype)
             for k, v in tree.items()
         }
+    if isinstance(tree, (list, tuple)):  # the Q-Former's layers, one dict each
+        return [_to_torch(v, device, dtype) for v in tree]
     a = np.asarray(tree)
     if a.dtype.kind in "iub":
         return torch.from_numpy(np.array(a)).to(device=device)
@@ -89,11 +92,18 @@ def synthetic_llava_params(
         "fc1_w": nrm(D, E), "fc1_b": zeros(E),
         "fc2_w": nrm(E, E), "fc2_b": zeros(E),
     }
+    return LlavaParams(vision=vision, projector=projector, lm=_synthetic_dense_lm(tc, nrm, ones))
+
+
+def _synthetic_dense_lm(tc: LlamaConfig, nrm, ones) -> dict:
+    """A dense Llama tower at ``tc`` from the callers' draws: ``nrm(*shape)``
+    normal(0, 0.02), ``ones(*shape)``."""
+    E = tc.hidden_size
     H, KH, Dh, L, I, V = (
         tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim,
         tc.num_hidden_layers, tc.intermediate_size, tc.vocab_size,
     )
-    lm = {
+    return {
         "embed_tokens": nrm(V, E),
         "layers": {
             "input_ln": ones(L, E),
@@ -109,7 +119,6 @@ def synthetic_llava_params(
         "norm": ones(E),
         "lm_head": nrm(E, V),
     }
-    return LlavaParams(vision=vision, projector=projector, lm=lm)
 
 
 def llavanext_params_from_numpy(
@@ -137,6 +146,92 @@ def synthetic_llavanext_params(
     newline = torch.empty(cfg.text.hidden_size, dtype=dtype, device=device)
     newline.normal_(0.0, 0.02, generator=gen)
     return LlavaNextParams(vision=vision, projector=projector, image_newline=newline, lm=lm)
+
+
+def instructblip_params_from_numpy(
+    tree, device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32
+) -> InstructBlipParams:
+    """The JAX ``InstructBlipParams`` pytree (``models/instructblip.py:25``)
+    as numpy arrays -> the port's params; the Q-Former's layers stay a list
+    of dicts."""
+    parts = tree._asdict() if hasattr(tree, "_asdict") else dict(tree)
+    return InstructBlipParams(
+        **{name: _to_torch(parts[name], device, dtype) for name in InstructBlipParams._fields}
+    )
+
+
+def synthetic_instructblip_params(
+    cfg: InstructBlipConfig,
+    device: torch.device | str,
+    dtype: torch.dtype = torch.bfloat16,
+    seed: int = 0,
+) -> InstructBlipParams:
+    """Random InstructBLIP weights made on ``device`` from a seeded
+    ``torch.Generator``, the JAX package's ``init_params`` recipe: normal with
+    std 0.02, norm weights 1, biases 0; the ViT's fused qkv has biases on q
+    and v only.  The LM is ``synthetic_llava_params``' Llama at ``cfg.text``.
+    At the InstructBLIP-Vicuna-7B defaults this is about 7.9 B parameters,
+    15.8 GB in bf16."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def nrm(*shape):
+        return torch.empty(shape, dtype=dtype, device=device).normal_(0.0, 0.02, generator=gen)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    vc, qc = cfg.vision, cfg.qformer
+    D, I, L, P = vc.hidden_size, vc.intermediate_size, vc.num_hidden_layers, vc.patch_size
+    vision = {
+        "class_embedding": nrm(D),
+        "patch_embedding": nrm(3 * P * P, D),
+        "patch_bias": zeros(D),
+        "position_embedding": nrm(vc.num_positions, D),
+        "post_ln_w": ones(D),
+        "post_ln_b": zeros(D),
+        "layers": {
+            "ln1_w": ones(L, D), "ln1_b": zeros(L, D),
+            "ln2_w": ones(L, D), "ln2_b": zeros(L, D),
+            "qkv_w": nrm(L, D, 3 * D), "q_b": zeros(L, D), "v_b": zeros(L, D),
+            "proj_w": nrm(L, D, D), "proj_b": zeros(L, D),
+            "fc1_w": nrm(L, D, I), "fc1_b": zeros(L, I),
+            "fc2_w": nrm(L, I, D), "fc2_b": zeros(L, D),
+        },
+    }
+    Dq, Iq, E = qc.hidden_size, qc.intermediate_size, qc.encoder_hidden_size
+
+    def linear(name, d_in, d_out):
+        return {f"{name}_w": nrm(d_in, d_out), f"{name}_b": zeros(d_out)}
+
+    def norm(name):
+        return {f"{name}_w": ones(Dq), f"{name}_b": zeros(Dq)}
+
+    layers = []
+    for i in range(qc.num_hidden_layers):
+        lp = {**linear("self_q", Dq, Dq), **linear("self_k", Dq, Dq), **linear("self_v", Dq, Dq),
+              **linear("self_out", Dq, Dq), **norm("self_ln"),
+              **linear("interq", Dq, Iq), **linear("outq", Iq, Dq), **norm("outq_ln"),
+              **linear("inter", Dq, Iq), **linear("out", Iq, Dq), **norm("out_ln")}
+        if i % qc.cross_attention_frequency == 0:
+            lp.update({**linear("cross_q", Dq, Dq), **linear("cross_k", E, Dq),
+                       **linear("cross_v", E, Dq), **linear("cross_out", Dq, Dq),
+                       **norm("cross_ln")})
+        layers.append(lp)
+    qformer = {
+        "word_embeddings": nrm(qc.vocab_size, Dq),
+        "position_embeddings": nrm(qc.max_position_embeddings, Dq),
+        "emb_ln_w": ones(Dq),
+        "emb_ln_b": zeros(Dq),
+        "query_tokens": nrm(cfg.num_query_tokens, Dq),
+        "layers": layers,
+    }
+    projection = {"w": nrm(Dq, cfg.text.hidden_size), "b": zeros(cfg.text.hidden_size)}
+    return InstructBlipParams(vision=vision, qformer=qformer, projection=projection,
+                              lm=_synthetic_dense_lm(cfg.text, nrm, ones))
 
 
 def synthetic_int8_lm(cfg: LlamaConfig, device: torch.device | str, seed: int = 0) -> dict:

@@ -1,11 +1,13 @@
 """Input processing: CLIP image preprocessing + prompt tokenization (port
-of ``dropoutdecoding_tpu/utils/processor.py``, bit-equal to it).
+of ``dropoutdecoding_tpu/utils/processor.py``, bit-equal to it on CLIP's and
+LLaVA-NeXT's configs).
 
 Image preprocessing follows the checkpoint's preprocessor_config.json
 (resize shortest side -> center crop -> rescale -> normalize; anyres tiles
-for LLaVA-NeXT) with PIL + numpy; text goes through the checkpoint's fast
-tokenizer (``transformers``, imported when a checkpoint's processor is
-loaded).  Outputs are numpy arrays; the engines move them to their device.
+for LLaVA-NeXT; InstructBLIP's BLIP config a resize straight to its height
+and width, which the JAX package's copy does not read) with PIL + numpy;
+text goes through the checkpoint's fast tokenizer (``transformers``,
+imported when a checkpoint's processor is loaded).  Outputs are numpy arrays; the engines move them to their device.
 """
 from __future__ import annotations
 
@@ -77,6 +79,48 @@ class ClipImagePreprocessor:
 
     def batch(self, images) -> np.ndarray:
         return np.stack([self(im) for im in images])
+
+
+class BlipImagePreprocessor:
+    """HF ``BlipImageProcessor`` semantics (InstructBLIP): a bicubic resize
+    straight to (height, width), no crop, then rescale and normalize."""
+
+    def __init__(self, height: int = 224, width: int = 224, mean=OPENAI_CLIP_MEAN,
+                 std=OPENAI_CLIP_STD):
+        self.height, self.width = height, width
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __call__(self, image) -> np.ndarray:
+        """PIL.Image -> [3, height, width] float32 normalized pixels."""
+        from PIL import Image
+
+        if image.mode != "RGB":
+            image = image.convert("RGB")
+        image = image.resize((self.width, self.height), Image.BICUBIC)
+        arr = np.asarray(image, np.float32) / 255.0
+        return ((arr - self.mean) / self.std).transpose(2, 0, 1)
+
+    def batch(self, images) -> np.ndarray:
+        return np.stack([self(im) for im in images])
+
+
+def image_preprocessor_from_checkpoint(model_dir: str):
+    """The image preprocessor a checkpoint's preprocessor_config.json
+    describes: ``BlipImagePreprocessor`` where ``size`` is {height, width}
+    with no shortest edge (HF's ``BlipImageProcessor``, InstructBLIP's
+    224 px), else ``ClipImagePreprocessor``.  The JAX package reads only a
+    shortest edge and a crop height, so on InstructBLIP's config it falls to
+    336 px, 577 ViT tokens against the tower's 257 positions."""
+    with open(os.path.join(model_dir, "preprocessor_config.json")) as f:
+        d = json.load(f)
+    size = d.get("size")
+    if isinstance(size, dict) and "shortest_edge" not in size and "height" in size:
+        return BlipImagePreprocessor(
+            height=size["height"], width=size.get("width", size["height"]),
+            mean=d.get("image_mean", OPENAI_CLIP_MEAN), std=d.get("image_std", OPENAI_CLIP_STD),
+        )
+    return ClipImagePreprocessor.from_checkpoint(model_dir)
 
 
 class LlavaNextImagePreprocessor:
@@ -176,11 +220,14 @@ class VlmProcessor:
         qdir = os.path.join(model_dir, "qformer_tokenizer")
         if os.path.isdir(qdir):
             qtok = AutoTokenizer.from_pretrained(qdir, use_fast=True)
-        return cls(tok, ClipImagePreprocessor.from_checkpoint(model_dir), qformer_tokenizer=qtok)
+        return cls(tok, image_preprocessor_from_checkpoint(model_dir), qformer_tokenizer=qtok)
 
     def qformer_ids(self, prompt: str):
         """Instruction ids in the Q-Former's tokenizer space (falls back to
-        the LM tokenizer when the checkpoint has no qformer_tokenizer)."""
+        the LM tokenizer when the checkpoint has no qformer_tokenizer, as
+        the JAX package does; ids past the Q-Former's vocabulary then make
+        ``models/instructblip.visual_tokens`` raise, where JAX's gather
+        clamps them)."""
         tok = self.qformer_tokenizer or self.tokenizer
         return tok(prompt, return_tensors="np")["input_ids"].astype("int32")
 

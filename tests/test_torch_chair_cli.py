@@ -312,7 +312,6 @@ NOT_PORTED = [
     (["--w8a8-decode", "True"], 12),
     (["--consistency", "True"], 15),
     (["--consistency-im", "projection"], 15),
-    (["--model", "instructblip"], 11),
 ]
 
 

@@ -445,13 +445,13 @@ def test_chip_smoke_writer_round_trips(tmp_path, tiny_llava):
     port loads back bit for bit."""
     from transformers import LlavaForConditionalGeneration
 
-    from chip_smoke import write_hf_checkpoint
+    from chip_smoke import llava_hf_tensors, write_hf_checkpoint
     from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
 
     config = tiny_llava[0].config.to_dict()
     cfg = torch_config.LlavaConfig.from_hf_dict(config)
     params = synthetic_llava_params(cfg, "cpu", torch.bfloat16, seed=4)
-    write_hf_checkpoint(str(tmp_path), cfg, params, config)
+    write_hf_checkpoint(str(tmp_path), llava_hf_tensors(cfg, params), {"config.json": config})
     index = json.loads((tmp_path / "model.safetensors.index.json").read_text())
     assert len(set(index["weight_map"].values())) == 3
     _, info = LlavaForConditionalGeneration.from_pretrained(str(tmp_path), output_loading_info=True)

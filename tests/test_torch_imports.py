@@ -31,6 +31,7 @@ EXPECTED_MODULES = [
     "evalsuite.text", "evalsuite.throne", "evalsuite.metrics.evalcap",
     "evalsuite.metrics.meteor", "evalsuite.metrics.spice_lite", "cli.chair_test",
     "cli.chair2throne", "decoding.vcd", "decoding.opera", "engine.baselines", "engine.opera",
+    "models.blip_vit", "models.qformer", "models.instructblip", "engine.instructblip_engine",
 ]
 # an import statement of JAX or of the JAX package, in any source line
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|dropoutdecoding_tpu(\.|\s|$))", re.M)
@@ -73,7 +74,7 @@ def test_no_source_line_imports_jax():
     "name",
     [
         "LlamaConfig", "ClipVisionConfig", "LlavaConfig", "LlavaNextConfig", "EnsembleConfig",
-        "GenerationConfig",
+        "GenerationConfig", "QFormerConfig", "BlipVisionConfig", "InstructBlipConfig",
     ],
 )
 def test_config_copies_agree(name):
@@ -106,6 +107,21 @@ def test_config_constructors_agree():
         ref = jax_config.LlavaNextConfig.from_hf_dict(d)
         assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert ours.vision.num_patches == ref.vision.num_patches == 16
+    ib = {
+        "text_config": hf["text_config"],
+        "vision_config": {**hf["vision_config"], "layer_norm_eps": 1e-5, "qkv_bias": True},
+        "qformer_config": {
+            "vocab_size": 48, "hidden_size": 24, "num_hidden_layers": 4,
+            "num_attention_heads": 4, "intermediate_size": 48, "cross_attention_frequency": 2,
+            "encoder_hidden_size": 32, "max_position_embeddings": 64,
+        },
+        "num_query_tokens": 4,
+    }
+    ours = torch_config.InstructBlipConfig.from_hf_dict(ib)
+    ref = jax_config.InstructBlipConfig.from_hf_dict(ib)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
+    assert ours.qformer.num_query_tokens == ours.num_query_tokens == 4
+    assert ours.vision.num_positions == ref.vision.num_positions == 17
     for n in range(7):
         assert torch_config.EnsembleConfig.voting_probs_for(
             n

@@ -581,7 +581,7 @@ def test_int8_prefix_cache_matches_the_jax_main(synthetic_coco, tmp_path, monkey
     assert [e.int8_prefix_cache for e in engines] == [True]
 
 
-@pytest.mark.parametrize("extra,item", [(["--quantize", "w8a8"], 12), (["--model", "instructblip"], 11)])
+@pytest.mark.parametrize("extra,item", [(["--quantize", "w8a8"], 12)])
 def test_not_ported_raises_before_any_read(tmp_path, monkeypatch, extra, item):
     monkeypatch.setattr(tchair, "load_processor", lambda path: pytest.fail("tokenizer read"))
     monkeypatch.setattr(tchair, "build_engine", lambda *a, **k: pytest.fail("weights read"))
