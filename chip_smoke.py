@@ -90,8 +90,17 @@ Phases, each fatal on failure:
    ``probe_prefix`` + ``probe_extend``, agreeing within ``POPE_MODES_RTOL``,
    launch counts exact (no kernel on bf16, K2 none anywhere, K6 128 a
    forward on int4, K5 32 a NeXT prefill and none in its extend), ms a
-   question and the device peak of each mode.  Then InstructBLIP-Vicuna-7B
-   at full width and depth with synthetic bf16 weights
+   question and the device peak of each mode.  Serving at 8 slots
+   (``serving_full``, bf16): 12 requests of 32 tokens in three waves, fused
+   and exact, against ``generate`` one at a time (ms a step, tokens/s,
+   requests/s, device peak; each request equal to its run alone in the
+   server; K1 32 / 64 a server step, K2 one a submit); w8a8 on the int8
+   weights (``w8a8_full``: prefill ms beside the int8 tier's, the first
+   step at which greedy tokens part, an 8-slot step with and without
+   ``w8a8_decode``); on NeXT a request joining 7 decoding slots by
+   ``submit`` and by ``submit_chunked`` (``serving_next``: the longest gap
+   between two tokens of an active slot; K5 32 / 0 in the join).  Then
+   InstructBLIP-Vicuna-7B at full width and depth with synthetic bf16 weights
    (``instructblip_full``): greedy / exact / fused K=3 (K1 992 / 1984 /
    992, K2 1, K5 0), a batch of two requests whose rows stop at different
    steps, VCD, beam search and OPERA, the vision tower and the Q-Former on
@@ -108,8 +117,11 @@ Phases, each fatal on failure:
    the POPE CLI on the same engine (``pope_cli``): 12 vendored questions a
    strategy, serial, ``--batch-size 8`` and ``--prefix-cache True``, each
    answer archive equal to the same mode's engine calls made directly.
-   Then the same for InstructBLIP-Vicuna-7B (``chair_cli(model=
-   "instructblip")``): its config.json and BlipImageProcessor config, a
+   Then the serve CLI on the same engine (``serve_cli``): ``serve.main``
+   over HTTP on 127.0.0.1, three concurrent ``/caption``, one
+   ``/caption_stream`` and ``/stats``, captions equal to each request run
+   alone in an 8-slot server.  Then the same for InstructBLIP-Vicuna-7B
+   (``chair_cli(model="instructblip")``): its config.json and BlipImageProcessor config, a
    stand-in tokenizer pair, the five arms, and the POPE CLI serial and
    batched (its ``--prefix-cache`` must exit with the JAX CLI's message).
 
@@ -299,16 +311,23 @@ def _decode_inputs(B, M, H, KH, D, S, cur, dtype, seed, dead_member=False, int8=
     return q, panel(), scales(), panel(), scales(), kn, vn, mask
 
 
-def decode_least_time(args, got, cur: int) -> tuple[int, dict]:
+def decode_least_time(args, got, cur) -> tuple[int, dict]:
     """(bytes, bound) of one K1 / K3 call on ``_decode_inputs``' arguments
-    with one filled length ``cur``: the cache and its scales are read up to
-    the filled slot, every other operand whole; QK^T and PV over the filled
-    slots and the own token."""
+    with the filled length ``cur``, one for every row or a list of one a
+    row: each row's cache and scales are read up to its filled slot, every
+    other operand whole; QK^T and PV over the filled slots and the own
+    token."""
     q = args[0]
-    S = args[-1].shape[-1]
-    filled = [t[:, :cur] if t.shape[1] == S else t[:, :, :cur] for t in args[1:-3]]
-    nbytes = _nbytes(q, *filled, *args[-3:], got)
-    return nbytes, least_time(nbytes, 4 * q.numel() * (cur + 1), "bf16")
+    B, S = q.shape[0], args[-1].shape[-1]
+    fills = list(cur) if isinstance(cur, (list, tuple)) else [cur] * B
+    cache = sum(t[0].numel() * t.element_size() * n // S for t in args[1:-3] for n in fills)
+    nbytes = _nbytes(q, *args[-3:], got) + cache
+    return nbytes, least_time(nbytes, 4 * q[0].numel() * sum(n + 1 for n in fills), "bf16")
+
+
+# the 8 slots of a server step: prompts of 595 tokens that joined at 8
+# different steps, from a row just placed to one 31 tokens in
+SERVING_FILLS = [595, 626, 603, 611, 596, 619, 607, 624]
 
 
 def check_decode_attention() -> dict:
@@ -377,6 +396,12 @@ def check_decode_attention() -> dict:
         ("B=3 M=1 G=1 bf16 S=608 (InstructBLIP beam search)", 3, 1, 32, 32, 128, 608, 84, bf16,
          False, True),
         ("M=3 G=1 bf16 S=608, every slot filled", 1, 3, 32, 32, 128, 608, 608, bf16, True, False),
+        # the serving layer's step: 8 slots, each row its own fill (a request
+        # joined at its own step), exact and fused
+        ("B=8 M=3 G=1 bf16, eight fills (serving)", 8, 3, 32, 32, 128, 1152, SERVING_FILLS, bf16,
+         False, True),
+        ("B=8 M=4 G=1 bf16, eight fills (serving fused)", 8, 4, 32, 32, 128, 1152, SERVING_FILLS,
+         bf16, False, True),
     ]
     recorded = {  # the cases whose records the kernels line carries, by label
         "K1": {"M=3 G=1 bf16": "K1", "B=2 M=1 G=1 bf16 (VCD)": "K1 VCD",
@@ -384,7 +409,9 @@ def check_decode_attention() -> dict:
                "M=3 G=1 bf16 S=608 (InstructBLIP)": "K1 InstructBLIP",
                "M=4 G=1 bf16 S=608 (InstructBLIP fused)": "K1 InstructBLIP fused",
                "B=2 M=1 G=1 bf16 S=608 (InstructBLIP VCD)": "K1 InstructBLIP VCD",
-               "B=3 M=1 G=1 bf16 S=608 (InstructBLIP beam search)": "K1 InstructBLIP beam"},
+               "B=3 M=1 G=1 bf16 S=608 (InstructBLIP beam search)": "K1 InstructBLIP beam",
+               "B=8 M=3 G=1 bf16, eight fills (serving)": "K1 serving",
+               "B=8 M=4 G=1 bf16, eight fills (serving fused)": "K1 serving fused"},
         "K3": {"M=3 G=1 bf16": "K3"},
     }
     attention = (  # (kernel, wrapper, plain twin, int8 cache, seed base)
@@ -968,6 +995,8 @@ def small_reference(tier: str) -> None:
         return small_baselines()
     if tier == "instructblip":
         return small_instructblip()
+    if tier == "serving":
+        return small_serving()
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
@@ -2135,15 +2164,526 @@ def baselines_full(make, args, tier: str, noised=None) -> dict:
     return counts_by_run
 
 
+SERVE_SLOTS = 8  # the serve CLI's default --slots
+SERVE_CHUNK = 8  # and its --step-chunk
+
+
+def _count_steps(eng) -> list:
+    """Count the calls of ``eng._one_step`` (a server step of every slot)
+    from now on; returns the counter, a one-element list."""
+    n = [0]
+    one_step = eng._one_step
+
+    def counted(*args, **kwargs):
+        n[0] += 1
+        return one_step(*args, **kwargs)
+
+    eng._one_step = counted
+    return n
+
+
+def _staggered(server, reqs: dict) -> dict:
+    """The narrow check's joins on a 3-slot server: the first request alone
+    for 2 steps, the second joins, a step later the third, the rest as
+    slots free; a harvest after every step.  Returns {rid: tokens}."""
+    order, results = list(reqs), {}
+    server.submit(order[0], *reqs[order[0]])
+    server.step(2)
+    server.submit(order[1], *reqs[order[1]])
+    server.step()
+    pending = order[2:]
+    while pending or server.active():
+        while pending and server.free_slots():
+            rid = pending.pop(0)
+            server.submit(rid, *reqs[rid])
+        server.step()
+        results.update(server.harvest())
+    return results
+
+
+def small_serving() -> None:
+    """The serving path on the narrow fp32 models, card (kernels) against
+    CPU (plain twins), with one table of injected draws: a 3-slot
+    ``DecodeServer`` with staggered joins (``_staggered``) on LLaVA in exact
+    and fused mode, each request's tokens equal to its solo ``generate`` on
+    the card and card equal to CPU; K1 launched L x forwards times a
+    server step and K2 once a submit.  Then LLaVA-NeXT: a request joining by
+    ``submit_chunked`` (1320 slots in pieces of 256, 2 pumped steps between
+    two) while another decodes, against one joining by ``submit``: the
+    active slot advanced 10 steps during the chunked join, K5 none in the
+    chunked prefill and 2 in the one-shot one, tokens equal to solo and
+    card to CPU.  Then w8a8: int8 fused weights with ``w8a8_prefill`` and
+    ``w8a8_decode``, the 3-slot server in fused mode (12 decode rows: the
+    card's ``torch._int_mm`` takes them zero-padded) and a greedy
+    ``generate`` (1 row), card against CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
+    from dropoutdecoding_tpu_torch.engine.serving import DecodeServer
+    from dropoutdecoding_tpu_torch.models import llavanext
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_llava_params,
+        synthetic_llavanext_params,
+    )
+    from dropoutdecoding_tpu_torch.utils.quantize import (
+        fuse_projections,
+        int8_column_major,
+        quantize_llama_params,
+    )
+
+    rng = np.random.default_rng(29)
+    T = 12
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    wrappers = _wrappers()
+    cfg, ncfg = _narrow_config(), _narrow_next_config()
+    llava = LlavaParams(*(
+        _sharpen(p, 10) for p in synthetic_llava_params(cfg, "cpu", torch.float32, 3)))
+    L = cfg.text.num_hidden_layers
+    # every request draws from stream 0 at its own steps; a done or empty
+    # slot's host count runs on, so the table wraps
+    draws = torch.from_numpy(rng.random((64, 1, 3, 1312), dtype=np.float32))
+
+    def uniform(step, row, m, n):
+        return draws[step % 64, row, m, :n]
+
+    reqs = {}
+    for i in range(4):
+        ids = np.array([[1, 17, 29, 500, 41, 53, 67, 71, 83 + i]])
+        reqs[f"r{i}"] = (ids, rng.normal(size=(1, 3, 112, 112)).astype(np.float32))
+
+    def run(params, device, ens, **fields):
+        """(server tokens, solo tokens on the card (None on the CPU), the
+        launches of the server run, its server steps) on ``device``."""
+        p = LlavaParams(*(_to(part, device) for part in params))
+        eng = LlavaEngine(cfg=cfg, params=p, gen=gen, max_len=128, ens=ens, uniform=uniform,
+                          **fields)
+        server = DecodeServer(engine=eng, n_slots=3)
+        for fn in wrappers.values():
+            fn.launches = 0
+        steps = _count_steps(eng)
+        out = _staggered(server, reqs)
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        del eng._one_step  # the class's again
+        solo = {rid: eng.generate(*args).tokens[0] for rid, args in reqs.items()} \
+            if device == "cuda" else None
+        return out, solo, counts, steps[0]
+
+    def check(label, params, ens, forwards, **fields):
+        got = {dev: run(params, dev, ens, **fields) for dev in ("cuda", "cpu")}
+        (card, card_solo, counts, steps), (cpu, _, _, _) = got["cuda"], got["cpu"]
+        want = {**dict.fromkeys(wrappers, 0), "K1": steps * L * forwards, "K2": len(reqs)}
+        same_solo = all(np.array_equal(card[r], card_solo[r]) for r in reqs)
+        same_cpu = all(np.array_equal(card[r], cpu[r]) for r in reqs)
+        print(f"narrow serving {label}: {steps} server steps, launches {counts} (want {want}); "
+              f"server equal to solo on the card {same_solo}, card equal to CPU {same_cpu}; "
+              f"r1 {card['r1'].tolist()}")
+        _check_counts(f"narrow serving {label}", counts, want)
+        if not (same_solo and same_cpu and all(len(card[r]) == T for r in reqs)):
+            raise AssertionError(f"narrow serving {label}: {card} / solo {card_solo} / cpu {cpu}")
+
+    check("exact", llava, EnsembleConfig(), 2)
+    check("fused", llava, EnsembleConfig(fused_step=True), 1)
+    # int8 fused weights in the CLI's w8a8 layout (column-major)
+    int8 = llava._replace(lm=int8_column_major(fuse_projections(quantize_llama_params(llava.lm))))
+    check("w8a8 fused, int8 weights", int8, EnsembleConfig(fused_step=True), 1,
+          w8a8_prefill=True, w8a8_decode=True)
+    greedy = {}
+    for device in ("cuda", "cpu"):
+        p = LlavaParams(*(_to(part, device) for part in int8))
+        eng = LlavaEngine(cfg=cfg, params=p, gen=dataclasses.replace(gen, max_new_tokens=24),
+                          max_len=128, ensemble=False, w8a8_prefill=True, w8a8_decode=True)
+        greedy[device] = eng.generate(*reqs["r0"]).tokens
+    card, cpu = greedy["cuda"], greedy["cpu"]
+    print(f"narrow serving w8a8 greedy (1 decode row): card {card[0].tolist()} "
+          f"cpu equal {np.array_equal(card, cpu)}")
+    if not np.array_equal(card, cpu):
+        raise AssertionError("narrow serving w8a8 greedy: card tokens differ from the CPU's")
+
+    # LLaVA-NeXT: a chunked join pumps the active slot
+    nparams = llavanext.LlavaNextParams(*(
+        _sharpen(p, 5) for p in synthetic_llavanext_params(ncfg, "cpu", torch.float32, seed=3)))
+    size = (150, 220)
+    n_tiles = llavanext.image_geometry(size, ncfg)["n_tiles"]
+    ids = np.array([[1, 17, 29, 120, 41, 53, 67, 71, 83]])
+    tiles = {k: rng.normal(size=(n_tiles, 3, 112, 112)).astype(np.float32) for k in "ab"}
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = llavanext.LlavaNextParams(*(_to(part, device) for part in nparams))
+        eng = LlavaNextEngine(cfg=ncfg, params=p, gen=dataclasses.replace(gen, max_new_tokens=16),
+                              max_len=1344, seed=506, uniform=uniform,
+                              ens=EnsembleConfig(mask_accumulate=False, topk=10))
+        for how in ("submit", "submit_chunked"):
+            server = DecodeServer(engine=eng, n_slots=2)
+            server.submit("a", ids, tiles["a"], size)
+            server.step()
+            before = server._carry["steps"].tolist()[0]
+            wrappers["K5"].launches = 0
+            if how == "submit":
+                server.submit("b", ids, tiles["b"], size)
+            else:
+                server.submit_chunked("b", ids, tiles["b"], size, chunk=256, pump_steps=2)
+            k5 = wrappers["K5"].launches
+            advanced = server._carry["steps"].tolist()[0] - before
+            res = {}
+            while server.active():
+                server.step(2)
+                res.update(server.harvest())
+            out[device, how] = res
+            want = {"advanced": 0 if how == "submit" else 10, "K5": 2 if how == "submit" else 0}
+            got = {"advanced": advanced, "K5": k5}
+            print(f"narrow serving next {how} on {device}: the active slot advanced {advanced} "
+                  f"steps during the join, K5 launched {k5} times (want {want})")
+            if advanced != want["advanced"]:
+                raise AssertionError(f"narrow serving next {how}: {got} != {want}")
+            if device == "cuda":  # the twins count no launch
+                _check_counts(f"narrow serving next {how}", got, want)
+        if device == "cpu":
+            continue
+        solo = {k: eng.generate(ids, tiles[k], size).tokens[0] for k in "ab"}
+        for how in ("submit", "submit_chunked"):
+            if not all(np.array_equal(out[device, how][k], solo[k]) for k in "ab"):
+                raise AssertionError(f"narrow serving next {how} on {device}: tokens differ "
+                                     f"from solo: {out[device, how]} / {solo}")
+    if not all(np.array_equal(out["cuda", h][k], out["cpu", h][k])
+               for h in ("submit", "submit_chunked") for k in "ab"):
+        raise AssertionError("narrow serving next: card tokens differ from the CPU's")
+    b = out["cuda", "submit_chunked"]["b"]
+    print(f"narrow serving next: tokens equal, card to CPU and chunked to one-shot; b {b.tolist()}")
+
+
+def serve_requests(cfg, n: int, seed: int) -> dict:
+    """``n`` LLaVA-1.5 requests: ids [1, 20] (BOS, the image at 5, the rest
+    their own, below the image token) and pixels [1, 3, 336, 336] (the
+    config's image size)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    px = cfg.vision.image_size
+    out = {}
+    for i in range(n):
+        ids = rng.integers(2, cfg.image_token_index, size=(1, 20))
+        ids[0, 0], ids[0, 5] = 1, cfg.image_token_index
+        out[f"q{i}"] = (ids, rng.normal(size=(1, 3, px, px)).astype(np.float32))
+    return out
+
+
+def serve_waves(server, reqs: dict, wave: int) -> tuple:
+    """``reqs`` through ``server`` in waves of ``wave`` requests: the first
+    at step 0, the second after one ``step(SERVE_CHUNK)``, each later one
+    once ``wave`` slots are free; a harvest after every chunk.  Returns
+    ({rid: tokens}, [s of each synchronised step(SERVE_CHUNK)])."""
+    order = list(reqs)
+    waves = [order[i:i + wave] for i in range(0, len(order), wave)]
+    results, chunk_s = {}, []
+    for rid in waves.pop(0):
+        server.submit(rid, *reqs[rid])
+    while waves or server.active():
+        _, secs = _sync_time(lambda: server.step(SERVE_CHUNK))
+        chunk_s.append(secs)
+        results.update(server.harvest())
+        if waves and len(server.free_slots()) >= len(waves[0]):
+            for rid in waves.pop(0):
+                server.submit(rid, *reqs[rid])
+    return results, chunk_s
+
+
+def alone_in_server(eng, reqs: dict, T: int) -> dict:
+    """Each request's tokens run alone in a ``SERVE_SLOTS``-slot server: the
+    row count of every product of the busy server, so that bf16 rounds the
+    same (``matmul_row_rounding``)."""
+    from dropoutdecoding_tpu_torch.engine.serving import DecodeServer
+
+    out = {}
+    for rid, args in reqs.items():
+        server = DecodeServer(engine=eng, n_slots=SERVE_SLOTS)
+        server.submit(rid, *args)
+        server.step(T - 1)
+        out.update(server.harvest())
+    return out
+
+
+def serving_full(make, cfg, label: str = "bf16") -> dict:
+    """LLaVA-1.5-7B serving at ``SERVE_SLOTS`` slots (the serve CLI's
+    defaults), fused K=3 and exact K=3: 12 requests of 32 tokens joining in
+    three waves of 4 (``serve_waves``, ``step(SERVE_CHUNK)`` between
+    harvests) against ``generate`` on the same requests one at a time.
+    Each request's tokens must equal that request run alone in the same
+    8-slot server (``alone_in_server``); how many equal the solo
+    ``generate`` is printed (bf16 rows depend on the row count).  Launches
+    exact: K1 32 a server step fused, 64 exact, over all 8 rows, whatever
+    their fill; K2 one a submit.  Returns, by mode, ms a step(8) (median),
+    tokens/s and requests/s of the server and of the sequential runs, the
+    device peak and the launches."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.serving import DecodeServer
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+
+    T = 32
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    reqs = serve_requests(cfg, 12, seed=41)
+    wrappers = _wrappers()
+    L = cfg.text.num_hidden_layers
+    record = {}
+    for mode, ens, forwards in (("fused", EnsembleConfig(fused_step=True), 1),
+                                ("exact", EnsembleConfig(), 2)):
+        eng = make(True, gen, ens=ens)
+        warm = DecodeServer(engine=eng, n_slots=SERVE_SLOTS)  # warm-up at the server's shapes
+        warm.submit("w", *reqs["q0"])
+        warm.step(2)
+        del warm
+        server = DecodeServer(engine=eng, n_slots=SERVE_SLOTS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in wrappers.values():
+            fn.launches = 0
+        steps = _count_steps(eng)
+        (got, chunk_s), total_s = _sync_time(lambda: serve_waves(server, reqs, 4))
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del eng._one_step  # the class's again
+        want = {**dict.fromkeys(wrappers, 0), "K1": steps[0] * L * forwards, "K2": len(reqs)}
+        alone = alone_in_server(eng, reqs, T)
+        solo, seq_s = _sync_time(lambda: {rid: eng.generate(*a).tokens[0] for rid, a in reqs.items()})
+        same_alone = [rid for rid in reqs if np.array_equal(got[rid], alone[rid])]
+        same_solo = [rid for rid in reqs if np.array_equal(got[rid], solo[rid])]
+        step8 = statistics.median(chunk_s) * 1e3
+        rec = record[mode] = {
+            "server_steps": steps[0], "ms_per_step8": step8, "ms_per_step": step8 / SERVE_CHUNK,
+            "tokens_per_s": len(reqs) * T / total_s, "requests_per_s": len(reqs) / total_s,
+            "sequential_requests_per_s": len(reqs) / seq_s,
+            "sequential_tokens_per_s": len(reqs) * T / seq_s,
+            "speedup": seq_s / total_s, "device_peak_gib": peak, "launches": counts,
+        }
+        print(f"serving {label} {mode}: 12 requests x {T} tokens in three waves on {SERVE_SLOTS} "
+              f"slots, {steps[0]} server steps in {total_s:.2f} s: step({SERVE_CHUNK}) "
+              f"{step8:.2f} ms median ({step8 / SERVE_CHUNK:.2f} ms a step; chunks "
+              f"{[round(s * 1e3, 1) for s in chunk_s]}), {rec['tokens_per_s']:.1f} tokens/s, "
+              f"{rec['requests_per_s']:.3f} requests/s; sequential generate {seq_s:.2f} s, "
+              f"{rec['sequential_requests_per_s']:.3f} requests/s ({rec['speedup']:.2f}x); device "
+              f"peak {peak:.2f} GiB; launches {counts} (want {want}); equal to alone in the "
+              f"server {len(same_alone)}/12, to solo generate {len(same_solo)}/12")
+        _check_counts(f"serving {label} {mode}", counts, want)
+        if len(same_alone) != len(reqs) or any(len(t) != T for t in got.values()):
+            raise AssertionError(f"serving {label} {mode}: requests whose tokens differ from "
+                                 f"their run alone: {sorted(set(reqs) - set(same_alone))}")
+        del server, alone, solo
+    return record
+
+
+def w8a8_full(make, make_w8a8, cfg) -> dict:
+    """w8a8 on the int8 tier's weights (``make(ensemble, gen, **fields)``
+    builds an engine over them, an int8 cache; ``make_w8a8`` over the same
+    values laid out column-major, as the CLI lays them out for w8a8): the
+    prefill at 595 tokens with ``w8a8_prefill`` beside the int8 tier's
+    (whose matmuls take bf16 copies of the weights), median of 3; 32 greedy
+    tokens with ``w8a8_prefill`` and ``w8a8_decode`` against the tier's,
+    and the first step at which they differ; ms a server step at 8 slots,
+    fused K=3, with ``w8a8_decode`` and weight-only (32 rows a product;
+    the greedy run's 1 row zero-padded).  Launches: K3 32 a step, K4 one."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.serving import DecodeServer
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+
+    T = 32
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    reqs = serve_requests(cfg, SERVE_SLOTS, seed=43)
+    ids, pixels = reqs["q0"]
+    wrappers = _wrappers()
+    L = cfg.text.num_hidden_layers
+    record = {}
+    tokens = {}
+    for label, mk, fields in (("int8", make, {}),
+                              ("w8a8", make_w8a8, dict(w8a8_prefill=True, w8a8_decode=True))):
+        eng = mk(False, gen, **fields)
+        eng.prefill(ids, pixels)  # warm-up
+        record[f"{label}_prefill_ms"] = statistics.median(
+            _sync_time(lambda: eng.prefill(ids, pixels))[1] for _ in range(3)) * 1e3
+        tokens[label] = eng.generate(ids, pixels).tokens[0]
+    differ = np.flatnonzero(tokens["int8"] != tokens["w8a8"])
+    record["first_differing_step"] = int(differ[0]) if len(differ) else None
+    for label, mk, fields in (("int8", make, {}), ("w8a8_decode", make_w8a8,
+                                                   dict(w8a8_decode=True))):
+        eng = mk(True, gen, ens=EnsembleConfig(fused_step=True), **fields)
+        server = DecodeServer(engine=eng, n_slots=SERVE_SLOTS)
+        for rid, args in reqs.items():
+            server.submit(rid, *args)
+        server.step(2)  # warm-up
+        for fn in wrappers.values():
+            fn.launches = 0
+        chunk_s = [_sync_time(lambda: server.step(SERVE_CHUNK))[1] for _ in range(3)]
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        want = {**dict.fromkeys(wrappers, 0), "K3": 3 * SERVE_CHUNK * L, "K4": 3 * SERVE_CHUNK}
+        _check_counts(f"w8a8 server {label}", counts, want)
+        record[f"{label}_ms_per_step_8_slots"] = statistics.median(chunk_s) * 1e3 / SERVE_CHUNK
+        del server
+    record["projection"] = w8a8_projection()
+    print(f"w8a8 on int8 weights: prefill at 595 tokens {record['w8a8_prefill_ms']:.2f} ms "
+          f"(int8 tier {record['int8_prefill_ms']:.2f} ms); 32 greedy tokens first differ from "
+          f"int8's at step {record['first_differing_step']} (w8a8 {tokens['w8a8'][:8].tolist()}..., "
+          f"int8 {tokens['int8'][:8].tolist()}...); server step at {SERVE_SLOTS} slots, fused: "
+          f"w8a8_decode {record['w8a8_decode_ms_per_step_8_slots']:.2f} ms, int8 weight-only "
+          f"{record['int8_ms_per_step_8_slots']:.2f} ms; K3/K4 launches exact")
+    return record
+
+
+def _stamp_steps(server) -> list:
+    """Make every step of ``server`` (the pump's too) synchronise and stamp
+    its end on the host clock; returns the list of stamps."""
+    step, stamps = server.step, []
+
+    def stamped(n=1):
+        for _ in range(n):
+            step()
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+    server.step = stamped
+    return stamps
+
+
+def _wall_us(fn, n: int = 100) -> float:
+    """Host wall time of one ``fn()`` in a synchronised run of ``n``, µs:
+    what a host-bound caller pays, launches included."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def w8a8_projection() -> dict:
+    """One gate+up projection ([R, 4096] x [4096, 22016], bf16
+    activations) at the fused 8-slot decode's 32 rows and a prefill's 595:
+    the int8 product (``torch._int_mm``) on a row-major weight (the int8
+    tier's layout) and on a column-major one (``int8_column_major``), the
+    activation quantizer, the whole ``_mm_w8a8``, the weight-only ``_mm``
+    and the bf16 product, device µs (``time_ms``) and host wall µs
+    (``_wall_us``).  Returns them by row count."""
+    from dropoutdecoding_tpu_torch.models import llama
+    from dropoutdecoding_tpu_torch.utils.quantize import quantize_activations, quantize_matrix
+
+    g = torch.Generator(device="cuda").manual_seed(59)
+    w = quantize_matrix(torch.randn(4096, 22016, generator=g, device="cuda") * 0.02)
+    col = {**w, "q": w["q"].mT.contiguous().mT}
+    out = {}
+    for R in (32, 595):
+        x = torch.randn(R, 4096, generator=g, device="cuda").to(torch.bfloat16)
+        qx, _ = quantize_activations(x)
+        wb = w["q"].to(torch.bfloat16)
+        calls = {
+            "int_mm row-major": lambda: torch._int_mm(qx, w["q"]),
+            "int_mm column-major": lambda: torch._int_mm(qx, col["q"]),
+            "quantize_activations": lambda: quantize_activations(x),
+            "mm_w8a8 column-major": lambda: llama._mm_w8a8(x, col),
+            "mm int8 weight-only": lambda: llama._mm(x, w),
+            "bf16 product": lambda: x @ wb,
+        }
+        out[R] = {k: {"device_us": time_ms(fn) * 1e3, "wall_us": _wall_us(fn)}
+                  for k, fn in calls.items()}
+        print(f"w8a8 projection [{R}, 4096] x [4096, 22016]: " + "; ".join(
+            f"{k} {v['device_us']:.1f} us device, {v['wall_us']:.1f} us wall"
+            for k, v in out[R].items()))
+    return out
+
+
+def serving_next(make_next, cfg, tiles, size) -> dict:
+    """LLaVA-v1.6-Mistral-7B serving: 7 slots decode while an 8th request
+    joins, by one-shot ``submit`` and by ``submit_chunked(chunk=256,
+    pump_steps=4)``.  Every server step is synchronised and stamped; the
+    longest gap between two stamps (two tokens of an active slot) across
+    the join, one-shot against chunked.  The seven active requests' tokens
+    equal between the two runs (the pumped steps advance only them); the
+    joiner's prefill (K5's attention against the pieces' plain extend
+    attention, both bf16) within ``POPE_MODES_RTOL["next"]`` of the largest
+    logit, and the first step at which its tokens part printed.  K5 32 in
+    the one-shot join and none in the chunked one; K2 one a submit."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.serving import DecodeServer
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+
+    T = 32
+    rng = np.random.default_rng(47)
+    ids = rng.integers(2, cfg.image_token_index, size=(1, 20))
+    ids[0, 0], ids[0, 5] = 1, cfg.image_token_index
+    reqs = {f"n{i}": (ids, rng.normal(size=tiles.shape).astype(np.float32), size) for i in range(8)}
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    eng = make_next(True, gen, ens=EnsembleConfig(fused_step=True, mask_accumulate=False, topk=10))
+    wrappers = _wrappers()
+    record, tokens, logits = {}, {}, {}
+    for how in ("submit", "submit_chunked"):
+        server = DecodeServer(engine=eng, n_slots=SERVE_SLOTS)
+        stamps = _stamp_steps(server)
+        for rid in list(reqs)[:7]:
+            server.submit(rid, *reqs[rid])
+        server.step(4)
+        stamps.clear()
+        server.step(2)
+        wrappers["K5"].launches = wrappers["K2"].launches = 0
+        t0 = time.perf_counter()
+        if how == "submit":
+            server.submit("n7", *reqs["n7"])
+        else:
+            server.submit_chunked("n7", *reqs["n7"], chunk=256, pump_steps=4)
+        join_s = time.perf_counter() - t0
+        k5, k2 = wrappers["K5"].launches, wrappers["K2"].launches
+        logits[how] = server._state.last_logits[7].float().cpu()  # the joiner's, in slot 7
+        server.step(4)
+        gaps, during = np.diff(stamps), len(stamps) - 6
+        res = {}
+        while server.active():
+            server.step(SERVE_CHUNK)
+            res.update(server.harvest())
+        tokens[how] = res
+        want = {"K5": cfg.text.num_hidden_layers if how == "submit" else 0, "K2": 1}
+        record[how] = {"longest_gap_ms": float(gaps.max()) * 1e3,
+                       "median_gap_ms": float(np.median(gaps)) * 1e3, "join_s": join_s,
+                       "steps_during_join": during, "K5": k5}
+        print(f"serving next {how}: join {join_s * 1e3:.1f} ms, {during} steps of the 7 "
+              f"active slots during it; gap between two tokens of an active slot: longest "
+              f"{gaps.max() * 1e3:.1f} ms, median {np.median(gaps) * 1e3:.1f} ms (every gap, ms: "
+              f"{[round(float(g) * 1e3, 1) for g in gaps]}); K5 {k5}, K2 {k2} in the join (want {want})")
+        _check_counts(f"serving next {how}", {"K5": k5, "K2": k2}, want)
+    same = [r for r in reqs if np.array_equal(tokens["submit"][r], tokens["submit_chunked"][r])]
+    a, b = tokens["submit"]["n7"], tokens["submit_chunked"]["n7"]
+    part = np.flatnonzero(a != b)
+    drift = ((logits["submit"] - logits["submit_chunked"]).abs().max()
+             / logits["submit"].abs().max()).item()
+    record.update(joiner_logit_drift=drift, joiner_first_differing_step=
+                  int(part[0]) if len(part) else None)
+    print(f"serving next: tokens equal between the two joins for {same}; the joiner's prefill "
+          f"logits {drift:.2e} of the largest apart (bound {POPE_MODES_RTOL['next']:g}), its "
+          f"tokens first part at step {record['joiner_first_differing_step']}")
+    if sorted(set(reqs) - set(same)) not in ([], ["n7"]) or len(tokens["submit"]) != len(reqs):
+        raise AssertionError(f"serving next: active requests' tokens differ between the joins: "
+                             f"{sorted(set(reqs) - set(same))}")
+    if not drift <= POPE_MODES_RTOL["next"]:
+        raise AssertionError(f"serving next: the joiner's chunked prefill is {drift} off")
+    return record
+
+
 def end_to_end() -> tuple:
     """The main paths at full width and depth: LlavaEngine.generate at
     LLaVA-1.5-7B with synthetic bf16 weights and a bf16 cache, then with
     synthetic int8 fused weights and an int8 cache, then with synthetic
     packed int4 fused weights, an int8 head and an int8 cache;
     LlavaNextEngine.generate at LLaVA-v1.6-Mistral-7B with synthetic bf16
-    weights; on bf16, int4 and NeXT, POPE (``pope_full``).  Returns each
-    kernel's launch count from the exact K=3 run of the path that runs it,
-    and ``pope_full``'s records by tier."""
+    weights; on bf16, int4 and NeXT, POPE (``pope_full``); serving on bf16
+    (``serving_full``), w8a8 on the int8 weights (``w8a8_full``) and on
+    NeXT (``serving_next``).  Returns each kernel's launch count from the
+    exact K=3 run of the path that runs it (the server's K1 from its exact
+    and fused runs), ``pope_full``'s records by tier and the serving
+    records."""
     import gc
 
     import numpy as np
@@ -2165,6 +2705,7 @@ def end_to_end() -> tuple:
         synthetic_llava_params,
         synthetic_llavanext_params,
     )
+    from dropoutdecoding_tpu_torch.utils.quantize import int8_column_major
 
     def free():
         gc.collect()
@@ -2199,6 +2740,7 @@ def end_to_end() -> tuple:
     L = cfg.text.num_hidden_layers
     pope = {"bf16": pope_full(llava(params, False)(True, GenerationConfig()), (pope_pixels,), "bf16",
                               no_kernel)}
+    serving = {"bf16": serving_full(llava(params, False), cfg)}
 
     # free the bf16 tower before the int8 one exists; keep vision + projector
     vision, projector = params.vision, params.projector
@@ -2210,6 +2752,9 @@ def end_to_end() -> tuple:
     int8 = drive(llava(params, True), (ids, pixels), "int8", [GREEDY, EXACT, FUSED],
                  EnsembleConfig(), int8_kv=True)["exact K=3"]
     batch_of_two(llava_pair_engine(params, True), llava_pair(cfg), "int8", int8_kv=True)
+    colmajor = params._replace(lm=int8_column_major(params.lm))  # the CLI's w8a8 layout
+    serving["w8a8"] = w8a8_full(llava(params, True), llava(colmajor, True), cfg)
+    del colmajor
     del params, lm
     free()
     lm, secs = _sync_time(lambda: synthetic_int4_lm(cfg.text, "cuda", seed=0))
@@ -2248,13 +2793,16 @@ def end_to_end() -> tuple:
                   .astype(np.float32) for s in sizes]
     pope["next"] = pope_full(make_next(True, GenerationConfig()), (pope_tiles, sizes), "next",
                              {**no_kernel, "K5": ncfg.text.num_hidden_layers})  # each prefill's layers
+    serving["next"] = serving_next(make_next, ncfg, tiles, size)
     del params
     free()
     launches = {
         "K1": nxt["K1"], "K1 VCD": base["VCD"]["K1"], "K1 beam": base["beam search nb=3"]["K1"],
         "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"], "K6": int4["K6"],
+        "K1 serving": serving["bf16"]["exact"]["launches"]["K1"],
+        "K1 serving fused": serving["bf16"]["fused"]["launches"]["K1"],
     }
-    return launches, pope
+    return launches, pope, serving
 
 
 def vit_flops(vc, images: int) -> float:
@@ -2795,7 +3343,8 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
     run launches K1 32 times a step on ``--original``, VCD (over 2 rows) and
     beam search (over 3), 64 on the default arm and none under OPERA, K2
     once a prefill (twice a caption under VCD).  Then the POPE CLI on the
-    same engine (``pope_cli``).  ``cfg`` / ``config`` / ``device`` make a
+    same engine (``pope_cli``) and, on LLaVA-1.5, the serve CLI
+    (``serve_cli``).  ``cfg`` / ``config`` / ``device`` make a
     narrow rehearsal on the CPU possible.  Returns the phase's numbers."""
     import dataclasses
     import importlib.util
@@ -3021,11 +3570,128 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
             record[arm] = {"captions_s": cli_s, "launches": counts}
         record["pope_cli"] = pope_cli(engine, processor, ckpt, device, check_counts,
                                       "instructblip" if ib else "llava")
+        if not ib:  # the serve CLI serves LLaVA-1.5 and NeXT only
+            record["serve_cli"] = serve_cli(engine, processor, ckpt, device, check_counts,
+                                            max_new)
         record.update(write_s=write_s, load_s=load_s, host_peak_gib=host_peak,
                       device_peak_gib=dev_peak, whole_main=whole)
         return record
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def serve_cli(engine, vlm_processor, root: str, device: str = "cuda", check_counts=None,
+              max_new: int = 16) -> dict:
+    """The port's serve CLI on the engine ``chair_cli`` loaded from its HF
+    checkpoint: ``serve.main`` with the CLI's defaults (8 slots, a step
+    chunk of 8, fused K=3), its ``make_engine`` giving that engine with the
+    serve flags' ensemble and ``max_new`` tokens, its HTTP server bound to
+    127.0.0.1 on a free port, in a thread.  Three ``/caption`` and one
+    ``/caption_stream`` at once, then ``/stats``: each caption equal to its
+    request run alone in an 8-slot server (``alone_in_server``), the
+    stream's deltas to its caption, the counters to 4 requests of
+    ``max_new`` tokens; K1 launched L times a server step, K2 once a
+    request.  Returns the phase's numbers."""
+    import concurrent.futures as cf
+    import dataclasses
+    import http.client
+    import threading
+
+    import numpy as np
+    from PIL import Image
+
+    from dropoutdecoding_tpu_torch.cli import chair_test as cli
+    from dropoutdecoding_tpu_torch.cli import serve
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    args = serve.build_parser().parse_args(["--model-path", root])
+    eng = dataclasses.replace(
+        engine, ens=cli.build_ensemble_config(args, args.model), ensemble=True,
+        gen=GenerationConfig(max_new_tokens=max_new, eos_token_id=-1, pad_token_id=0))
+    rng = np.random.default_rng(53)
+    paths = []
+    for i in range(4):
+        paths.append(os.path.join(root, f"serve_{i}.jpg"))
+        Image.fromarray(rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)).save(paths[-1])
+    started = {}
+
+    class Service(serve.CaptionService):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            started["service"] = self
+
+    class LocalServer(serve.ThreadingHTTPServer):
+        def __init__(self, address, handler):
+            super().__init__(("127.0.0.1", 0), handler)  # main asks for 0.0.0.0:8000
+            started["httpd"] = self
+
+    patched = (cli.make_engine, serve.CaptionService, serve.ThreadingHTTPServer)
+    cli.make_engine = lambda a, device="cuda": (eng, vlm_processor)
+    serve.CaptionService, serve.ThreadingHTTPServer = Service, LocalServer
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    steps = _count_steps(eng)
+    thread = threading.Thread(target=serve.main, args=(args, device), daemon=True)
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        while "httpd" not in started:
+            if time.perf_counter() - t0 > 60 or not thread.is_alive():
+                raise AssertionError("serve_cli: the HTTP server did not start")
+            time.sleep(0.05)
+        port = started["httpd"].server_address[1]
+
+        def call(method, path, body=None):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            conn.request(method, path, None if body is None else json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, resp.read().decode()
+
+        t0 = time.perf_counter()
+        with cf.ThreadPoolExecutor(max_workers=4) as ex:
+            futures = [ex.submit(call, "POST", "/caption", {"image_path": p}) for p in paths[:3]]
+            futures.append(ex.submit(call, "POST", "/caption_stream", {"image_path": paths[3]}))
+            replies = [f.result() for f in futures]
+        http_s = time.perf_counter() - t0
+        stats = json.loads(call("GET", "/stats")[1])
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        n_steps = steps[0]
+    finally:
+        cli.make_engine, serve.CaptionService, serve.ThreadingHTTPServer = patched
+        if "httpd" in started:
+            started["httpd"].shutdown()
+            started["httpd"].server_close()
+        if "service" in started:
+            started["service"].close()
+        thread.join(30)
+        del eng._one_step  # the class's again
+    if thread.is_alive():
+        raise AssertionError("serve_cli: serve.main did not return after shutdown")
+    prompt = cli.PROMPTS[args.model]
+    want_captions = []
+    for p in paths:
+        inputs = vlm_processor(prompt, Image.open(p).convert("RGB"))
+        alone = alone_in_server(eng, {"r": (inputs["input_ids"], inputs["pixel_values"])}, max_new)
+        want_captions.append(vlm_processor.decode(alone["r"]).strip())
+    captions = [json.loads(text)["caption"] for _, text in replies[:3]]
+    events = [e[len("data: "):] for e in replies[3][1].split("\n\n") if e]
+    deltas = [json.loads(e)["delta"] for e in events[:-1]]
+    streamed = " ".join(d for d in deltas if d)  # a delta of special tokens only is empty
+    L = eng.cfg.text.num_hidden_layers
+    want = {**dict.fromkeys(wrappers, 0), "K1": n_steps * L, "K2": len(paths)}
+    ok = (all(s == 200 for s, _ in replies) and captions == want_captions[:3]
+          and events[-1] == "[DONE]" and streamed == want_captions[3]
+          and stats["requests_done"] == 4 and stats["tokens_generated"] == 4 * max_new)
+    print(f"serve_cli: 3 /caption and 1 /caption_stream at once in {http_s:.2f} s over HTTP, "
+          f"{n_steps} server steps; captions equal to each request alone in an 8-slot server: "
+          f"{captions == want_captions[:3]}, stream ({len(events) - 1} deltas) equal: "
+          f"{streamed == want_captions[3]}; /stats {stats}; launches {counts} (want {want}); "
+          f"first caption {captions[0]!r}")
+    if not ok:
+        raise AssertionError(f"serve_cli: replies {replies} / direct {want_captions} / {stats}")
+    (check_counts or _check_counts)("serve_cli", counts, want)
+    return {"http_s": http_s, "server_steps": n_steps, "stats": stats, "launches": counts}
 
 
 def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_counts=None,
@@ -3237,6 +3903,18 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
     },
+    "K1 serving": {
+        "name": "ensemble_decode_attention (DecodeServer exact: M = 3 over 8 slots, 8 fills)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 serving fused": {
+        "name": "ensemble_decode_attention (DecodeServer fused: M = 4 over 8 slots, 8 fills)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
     "K2": {
         "name": "vision_uncertainty",
         "route": "cuda",
@@ -3300,10 +3978,13 @@ def main() -> int:
     print(f"small_reference('baselines') {time.perf_counter() - t_base:.1f} s")
     ib_s = {}
     (_, ib_s["narrow"]) = _wall(lambda: small_reference("instructblip"))
-    launches, pope = end_to_end()
+    serve_s = {}
+    (_, serve_s["narrow"]) = _wall(lambda: small_reference("serving"))
+    (launches, pope, serving), e2e_s = _wall(end_to_end)
+    print(f"serving phase: {json.dumps(serving)}; card {card}")
     (ib_launches, ib_pope, towers), ib_s["full width"] = _wall(instructblip_full)
     launches.update(ib_launches)
-    cli_record = chair_cli()
+    cli_record, serve_s["chair_cli (with serve_cli)"] = _wall(chair_cli)
     print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")
     ib_cli, ib_s["CLI"] = _wall(lambda: chair_cli(model="instructblip"))
     print(f"chair_cli instructblip phase: {json.dumps(ib_cli)}; towers {json.dumps(towers)}; "
@@ -3312,6 +3993,8 @@ def main() -> int:
               "cli": cli_record["pope_cli"]["seconds"]}
     print(f"POPE phases: {json.dumps(pope_s)}, {sum(pope_s.values()):.1f} s added")
     print(f"InstructBLIP phases, s: {json.dumps(ib_s)}, {sum(ib_s.values()):.1f} s added")
+    print(f"serving phases, s: {json.dumps(serve_s)}; end_to_end with serving_full "
+          f"{e2e_s:.1f} s")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ flag.  Every Dropout Decoding arm runs: exact and fused mode
 (``--opera``, one image at a time), each serial and, but OPERA, batched;
 on all three models (``--model llava-1.5``, ``llava-next`` and
 ``instructblip``, whose Q-Former reads the instruction through
-``qformer_ids_for``).  Flags whose engine is not ported yet raise
+``qformer_ids_for``), and every tier: ``--quantize int8``, ``w8a8`` (int8
+activations in the prefills' projections) and ``int4``, ``--w8a8-decode``
+and ``--int8-kv``.  Flags whose engine is not ported yet raise
 ``NotImplementedError`` naming their ROADMAP Queue 1 item when the engine
 is built, before any image is read (``NOT_PORTED``).
 """
@@ -61,8 +63,6 @@ def str2bool(v) -> bool:
 # (flag, whether args ask for it, ROADMAP Queue 1 item that ports its engine)
 NOT_PORTED = (
     ("--spec-gamma", lambda a: bool(getattr(a, "spec_gamma", None)), 14),
-    ("--quantize w8a8", lambda a: getattr(a, "quantize", None) == "w8a8", 12),
-    ("--w8a8-decode", lambda a: str2bool(getattr(a, "w8a8_decode", False)), 12),
     ("--consistency", lambda a: str2bool(getattr(a, "consistency", False)), 15),
     ("--consistency-im", lambda a: bool(getattr(a, "consistency_im", None)), 15),
 )
@@ -77,8 +77,9 @@ def beam_count(args) -> int:
 
 
 def check_ported(args) -> None:
-    """Exit, as the JAX CLI does, on ``--do-sample`` with beams and on
-    ``--opera`` with ``--original``, ``--vcd`` or a batch; then raise
+    """Exit, as the JAX CLI does, on ``--do-sample`` with beams, on
+    ``--w8a8-decode`` without int8 weights and on ``--opera`` with
+    ``--original``, ``--vcd`` or a batch; then raise
     ``NotImplementedError`` for the first flag in ``args`` whose engine the
     port does not have yet."""
     if str2bool(getattr(args, "do_sample", False)) and beam_count(args) > 1:
@@ -86,6 +87,10 @@ def check_ported(args) -> None:
             "--do-sample with --num-beams > 1 (beam-sample) is not "
             "implemented; drop one of the two flags."
         )
+    if str2bool(getattr(args, "w8a8_decode", False)) and getattr(args, "quantize", None) not in (
+        "int8", "w8a8",
+    ):
+        raise SystemExit("--w8a8-decode needs int8 weights: pass --quantize int8 or w8a8")
     if str2bool(args.opera):
         if str2bool(args.original) or str2bool(args.vcd):
             raise SystemExit("--opera excludes --original/--vcd")
@@ -127,23 +132,29 @@ def build_ensemble_config(args, model: str) -> EnsembleConfig:
 
 
 def maybe_quantize(args, params):
-    """``--quantize`` int8 / int4 on the LM tower, then (``--fuse-proj``,
-    on by default) q/k/v and gate/up fused into one leaf each: a layout
-    change with identical outputs, the JAX CLI's single-device default."""
+    """``--quantize`` int8 (and w8a8, whose weights are int8) / int4 on the
+    LM tower, then (``--fuse-proj``, on by default) q/k/v and gate/up fused
+    into one leaf each: a layout change with identical outputs, the JAX
+    CLI's single-device default; under w8a8 (``--quantize w8a8`` or
+    ``--w8a8-decode``) the int8 projections column-major, the layout the
+    int8 product reads fast (``int8_column_major``)."""
     from ..utils.quantize import (
         fuse_projections,
+        int8_column_major,
         quantize_llama_params,
         quantize_llama_params_int4,
     )
 
     lm = params.lm
     mode = getattr(args, "quantize", None)
-    if mode == "int8":
+    if mode in ("int8", "w8a8"):
         lm = quantize_llama_params(lm)
     elif mode == "int4":
         lm = quantize_llama_params_int4(lm)
     if str2bool(getattr(args, "fuse_proj", True)):
         lm = fuse_projections(lm)
+    if mode == "w8a8" or str2bool(getattr(args, "w8a8_decode", False)):
+        lm = int8_column_major(lm)
     return params._replace(lm=lm)
 
 
@@ -184,6 +195,10 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
         ensemble=not (str2bool(args.original) or str2bool(args.vcd) or use_opera),
         seed=args.seed if args.seed is not None else REFERENCE_SEEDS[model],
         text_logits_mask=str2bool(getattr(args, "text_logit_mask", False)),
+        # w8a8: int8 activations in the prefills' projections; --w8a8-decode
+        # in the decode steps' (check_ported asks for int8 weights)
+        w8a8_prefill=getattr(args, "quantize", None) == "w8a8",
+        w8a8_decode=str2bool(getattr(args, "w8a8_decode", False)),
         int8_kv=str2bool(getattr(args, "int8_kv", False)),
         int8_prefix_cache=str2bool(getattr(args, "int8_prefix_cache", False)),
     )

@@ -23,9 +23,9 @@ flag.  Three paths answer the questions, each with the greedy first token:
 ``--model instructblip`` runs serially and batched (its Q-Former reads each
 question, so a batch carries the questions' Q-Former ids with their
 mask); its ``--prefix-cache`` exits before the model loads, as the JAX
-CLI's does.  ``--quantize w8a8`` raises ``NotImplementedError`` naming its
-ROADMAP Queue 1 item before the model or any image is read.  The grouping and padding are plain functions over id
-arrays (``template_prefix_len``, ``group_prefix_len``, ``pad_tails``,
+CLI's does.  ``--quantize w8a8`` runs every prefill's projections on int8
+weights with int8 activations.  The grouping and padding are plain
+functions over id arrays (``template_prefix_len``, ``group_prefix_len``, ``pad_tails``,
 ``pad_rows``, ``image_slots``, ``fill_rows``, ``image_runs``).
 """
 from __future__ import annotations
@@ -353,10 +353,7 @@ def main(args, device="cuda"):
 def build_parser():
     """The JAX CLI's parser, flag for flag, name for name, default for
     default."""
-    p = argparse.ArgumentParser(
-        description="POPE with the PyTorch port (--quantize w8a8 raises "
-        "NotImplementedError naming its ROADMAP item)"
-    )
+    p = argparse.ArgumentParser(description="POPE with the PyTorch port")
     p.add_argument("--model", type=str, default="llava")
     p.add_argument("--model-path", type=str, required=True)
     p.add_argument("--coco-data-dir", type=str, required=True)
@@ -374,7 +371,9 @@ def build_parser():
         default=None,
         choices=[None, "int8", "w8a8", "int4"],
         help="LM tower quantization: 'int8' weight-only per channel, 'int4' packed "
-        "group-wise projections with an int8 head; 'w8a8' is not ported yet",
+        "group-wise projections with an int8 head; 'w8a8' int8 weights with the "
+        "prefills' projections on int8 activations too (a POPE question is all "
+        "prefill)",
     )
     p.add_argument("--int8-kv", type=str2bool, default=False,
                    help="int8-quantized KV cache")

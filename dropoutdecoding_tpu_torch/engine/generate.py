@@ -42,8 +42,14 @@ every projection through K6, ``ops/cuda_int4_matmul.py``) its int4 tier
 has no field for it.
 
 The loop makes no host sync per token: it reads ``done`` back only every
-``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.  The JAX engine's
-w8a8 options have no counterpart yet (ROADMAP Queue 1 item 12).
+``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.  Each row keeps
+its own generation index (``steps``, as the JAX engine's): a finished row
+stops there, and the serving layer (``engine/serving.py``) steps rows that
+joined at different times in one batch.  ``w8a8_prefill`` /
+``w8a8_decode`` run the projections on int8 weights with int8 activations
+(``models/llama._mm_w8a8``).  ``prefill_chunked`` runs one request's LM
+prefill in pieces with a callback between two, so that a server can step
+its other rows meanwhile.
 
 A one-token workload (POPE) reads only the first token, which no mask can
 change, so it skips everything after the prompt's last logits:
@@ -169,15 +175,20 @@ def kl_logits_or_stub(img_logits: torch.Tensor, mask_policy: str) -> torch.Tenso
     return img_logits.new_zeros(img_logits.shape[:-1] + (1,))
 
 
-def _record_text_stats(tm: TextMaskState, step: int, winner_logits: torch.Tensor) -> TextMaskState:
+def _record_text_stats(tm: TextMaskState, step, winner_logits: torch.Tensor) -> TextMaskState:
     """Write 1 / max logit, the entropy and the varentropy of the emitting
-    step's logits [B, V] at generation index ``step`` (every row's; the
-    last position past the end), in place; returns ``tm``."""
-    idx = min(max(step, 0), tm.prob.shape[1] - 1)
+    step's logits [B, V] at generation index ``step`` (an int for every row,
+    or each row's own, [B] long; past the end at the last position), in
+    place; returns ``tm``."""
+    T = tm.prob.shape[1]
+    if isinstance(step, int):
+        at = (slice(None), min(max(step, 0), T - 1))
+    else:
+        at = (torch.arange(step.shape[0], device=step.device), step.clamp(0, T - 1))
     ent, vent = entropy_varentropy(winner_logits)
-    tm.prob[:, idx] = 1.0 / winner_logits.float().amax(dim=-1)
-    tm.ent[:, idx] = ent
-    tm.vent[:, idx] = vent
+    tm.prob[at] = 1.0 / winner_logits.float().amax(dim=-1)
+    tm.ent[at] = ent
+    tm.vent[at] = vent
     return tm
 
 
@@ -210,6 +221,11 @@ class LlavaEngine:
     text_logits_mask: bool = False  # the "+ logit text-mask" variant: policy "logits"
     text_mask_policy: str = "none"  # "none" | "logits" | "entropy"
     int8_kv: bool = False  # int8 KV cache (K3 reads it, K4 appends to it)
+    # int8 activations x int8 weights (s8 x s8 -> s32) in every projection of
+    # the prefills (prefill, probe, the prefix cache, chunked) / of the decode
+    # steps; dense and int4 weights ignore them
+    w8a8_prefill: bool = False
+    w8a8_decode: bool = False
     # probe_prefix hands back int8 handles (kv_int8_reader_layout): half the
     # bytes of a cached prefix dense, read by extend_attention_int8prefix
     int8_prefix_cache: bool = False
@@ -283,9 +299,62 @@ class LlavaEngine:
         position and the fill need them."""
         ids, merged, image_pos = self._merge_inputs(input_ids, pixel_values)
         B, S, _ = merged.shape
-        hidden, kv = llama_mod.prefill(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        hidden, kv = llama_mod.prefill(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
+        )
         cur_len, text_lens = self._fill(B, S, text_lens)
         return self._assemble_state(ids, hidden, kv, image_pos, cur_len, text_lens)
+
+    # ------------------------------------------------------------------
+    # chunked prefill (serving: bound the stall a long prompt causes)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _check_one(input_ids) -> None:
+        if np.shape(input_ids)[0] != 1:
+            raise ValueError("prefill_chunked is per-request (B=1)")
+
+    def _lm_chunked(self, merged: torch.Tensor, real_len, chunk: int, pump):
+        """The LM prefill of one merged prompt [1, S, D] in ``chunk``-token
+        pieces, ``pump()`` called between two (JAX ``engine/generate.py:
+        372-461``): each piece is one ``prefill_extend`` over the K/V of the
+        pieces before it, the slots at or past ``real_len`` (an int, or a [1]
+        tensor: a NeXT prompt's padding) masked out, so its rows are those
+        of one causal prefill up to summation order.  Returns (hidden [1, S,
+        D], KVCache [L, 1, S, KH, Dh])."""
+        lm, cfg = self.params.lm, self.cfg.text
+        B, S, _ = merged.shape
+        shape = (cfg.num_hidden_layers, B, S, cfg.num_key_value_heads, cfg.head_dim)
+        kbuf, vbuf = merged.new_zeros(shape), merged.new_zeros(shape)
+        live = torch.as_tensor(real_len, device=self.device).reshape(-1, 1)
+        hidden = []
+        for i, off in enumerate(range(0, S, chunk)):
+            if pump is not None and i > 0:
+                pump()
+            n = min(chunk, S - off)
+            prefix_mask = torch.arange(off, device=self.device)[None] < live.clamp(max=off)
+            h, kv = llama_mod.prefill_extend(
+                lm, cfg, merged[:, off:off + n], off + self._positions(B, n),
+                KVCache(kbuf[:, :, :off], vbuf[:, :, :off]), w8a8=self.w8a8_prefill,
+                prefix_mask=prefix_mask,
+            )
+            kbuf[:, :, off:off + n] = kv.k
+            vbuf[:, :, off:off + n] = kv.v
+            hidden.append(h)
+        return torch.cat(hidden, dim=1), KVCache(kbuf, vbuf)
+
+    @torch.no_grad()
+    def prefill_chunked(self, input_ids, *rest, chunk: int = 256, pump=None) -> PrefillState:
+        """``prefill`` of one request (B = 1) with its LM run in ``chunk``-token
+        pieces, ``pump()`` called between two (JAX ``engine/generate.py:
+        419``): the serving layer's pump steps the active slots, so a long
+        prompt stalls them for one piece at a time, not the whole prompt
+        (``DecodeServer.submit_chunked``).  The state is ``prefill``'s up to
+        summation order."""
+        self._check_one(input_ids)
+        ids, merged, image_pos = self._merge_inputs(input_ids, *rest)
+        B, S, _ = merged.shape
+        hidden, kv = self._lm_chunked(merged, S, chunk, pump)
+        return self._assemble_state(ids, hidden, kv, image_pos, self._fill(B, S, None)[0])
 
     def _head(self, hidden: torch.Tensor, cur_len: torch.Tensor) -> ProbeResult:
         """The logits [B, V] at each row's last real position ``cur_len - 1``
@@ -354,20 +423,24 @@ class LlavaEngine:
     # decode
     # ------------------------------------------------------------------
     def _rows(self, source, state, step, *rest, n):
-        """[B, n] draws of ``source`` at ``step`` (and ``rest``, the member)
-        for every row's ``rng_id``, on the engine's device."""
-        draws = [source(step, row, *rest, n) for row in state.rng_id.tolist()]
+        """[B, n] draws of ``source`` (with ``rest``, the member) for every
+        row's ``rng_id``, each at ``step``: one int for every row, or a list
+        of each row's own; on the engine's device."""
+        rows = state.rng_id.tolist()
+        steps = step if isinstance(step, list) else [step] * len(rows)
+        draws = [source(s, row, *rest, n) for s, row in zip(steps, rows)]
         return torch.stack(draws).to(self.device)
 
     def _member_drop_slots(
-        self, state: PrefillState, argmax_src, step: int, logits_for_kl=None, cur_len=None,
+        self, state: PrefillState, argmax_src, step, logits_for_kl=None, cur_len=None,
         tm: TextMaskState | None = None,
     ):
-        """The K members' cache-slot drop masks [B, K, Smax] at ``step``,
-        from an argmax source (this step's unmasked argmax in exact mode,
-        the previous step's in fused mode); ``logits_for_kl`` [B, V] feed
-        "epis_kl", ``cur_len`` and ``tm`` the text policy.  Only real visual
-        tokens (``state.visual_mask``) are ever dropped as visual tokens."""
+        """The K members' cache-slot drop masks [B, K, Smax] at ``step`` (an
+        int, or each row's: ``_rows``), from an argmax source (this step's
+        unmasked argmax in exact mode, the previous step's in fused mode);
+        ``logits_for_kl`` [B, V] feed "epis_kl", ``cur_len`` and ``tm`` the
+        text policy.  Only real visual tokens (``state.visual_mask``) are
+        ever dropped as visual tokens."""
         ens = self.ens
         B, N = state.epis.shape
         valid = state.visual_mask
@@ -415,9 +488,10 @@ class LlavaEngine:
         in_gen = (slots >= gen_start) & (slots < cur_len[:, None] - 3)
         return drop_slots | (tdrop & in_gen)[:, None, :]
 
-    def _sample_rows(self, state: PrefillState, step: int, logits: torch.Tensor) -> torch.Tensor:
+    def _sample_rows(self, state: PrefillState, step, logits: torch.Tensor) -> torch.Tensor:
         """Each row's token [B] drawn from ``logits`` [B, V] (HF's warpers,
-        then the categorical draw) with the row's noise at ``step``."""
+        then the categorical draw) with the row's noise at ``step`` (an int,
+        or each row's: ``_rows``)."""
         noise = self._rows(self.gumbel, state, step, n=logits.shape[-1])
         return sample_token(logits, noise, self.gen)
 
@@ -432,10 +506,18 @@ class LlavaEngine:
         rows = torch.arange(logits_k.shape[0], device=self.device)
         return winner, token, logits_k[rows, winner]
 
-    def _one_step(self, state, step, token, cur_len, done, tokens, carry: _Carry):
-        """One decode step at generation index ``step``; writes
-        ``tokens[:, step]`` and appends to the cache in place.  Returns
-        (next_token, cur_len, done, carry)."""
+    def _one_step(self, state, steps, draw_steps, token, cur_len, done, tokens, carry: _Carry):
+        """One decode step of every row at its own generation index (JAX
+        ``engine/generate.py:630``).
+
+        ``steps`` [B] long is each row's index on the device; ``draw_steps``
+        is the step the row's draws are keyed by, host values (an int for
+        every row, or a list), equal to ``steps`` on every row not done: a
+        done row's draws reach nothing it returns.  A row not done writes its
+        token at ``tokens[b, steps[b]]`` (a done row, or one past the
+        buffer, keeps it) and its K/V at ``cur_len[b]``, both in place.
+        Returns (next_token, cur_len, steps, done, carry): fill and index
+        advance only on rows that were not done."""
         cfg, lm = self.cfg, self.params.lm
         cache = state.cache
         B = token.shape[0]
@@ -448,12 +530,13 @@ class LlavaEngine:
             # one M=K+1 forward: member 0 unmasked, members 1..K masked from
             # the previous step's argmax (and lagged logits for epis_kl)
             drop_slots = self._member_drop_slots(
-                state, carry.prev_argmax0, step, carry.prev_logits0, cur_len, tm
+                state, carry.prev_argmax0, draw_steps, carry.prev_logits0, cur_len, tm
             )
             masks = torch.cat([base_mask[:, None], base_mask[:, None] & ~drop_slots], dim=1)
             M = masks.shape[1]
             ha, ka, va = llama_mod.decode_step(
-                lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks
+                lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks,
+                w8a8=self.w8a8_decode,
             )
             logits_all = llama_mod.lm_head(lm, ha)  # [B, K+1, V]
             logits0 = logits_all[:, 0]
@@ -463,7 +546,8 @@ class LlavaEngine:
             kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, KH, D]
         else:
             h0, k0, v0 = llama_mod.decode_step(
-                lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None]
+                lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None],
+                w8a8=self.w8a8_decode,
             )
             logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
             argmax0 = logits0.argmax(dim=-1)
@@ -471,29 +555,36 @@ class LlavaEngine:
                 next_token, winner_logits = argmax0, logits0
                 kw, vw = k0[:, :, 0], v0[:, :, 0]
             else:
-                drop_slots = self._member_drop_slots(state, argmax0, step, logits0, cur_len, tm)
+                drop_slots = self._member_drop_slots(
+                    state, argmax0, draw_steps, logits0, cur_len, tm
+                )
                 member_mask = base_mask[:, None, :] & ~drop_slots  # [B, K, Smax]
                 K = member_mask.shape[1]
                 xk = x[:, None].expand(B, K, x.shape[-1])
                 hk, kk, vk = llama_mod.decode_step(
-                    lm, cfg.text, xk, cur_len, cache, member_mask
+                    lm, cfg.text, xk, cur_len, cache, member_mask, w8a8=self.w8a8_decode
                 )
                 winner, next_token, winner_logits = self._aggregate(llama_mod.lm_head(lm, hk))
                 rows = torch.arange(B, device=self.device)
                 kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, KH, D]
         if self.gen.do_sample:
             # HF samples the forward's returned (vote winner's) logits
-            next_token = self._sample_rows(state, step, winner_logits)
+            next_token = self._sample_rows(state, draw_steps, winner_logits)
         if tm is not None:
-            _record_text_stats(tm, step, winner_logits)
+            _record_text_stats(tm, steps, winner_logits)
 
         llama_mod.cache_set_rows(cache, cur_len, kw, vw)
         next_token = torch.where(done, self.gen.pad_token_id, next_token)
-        tokens[:, step] = next_token  # pad for rows already done
+        rows = torch.arange(B, device=self.device)
+        at = steps.clamp(max=tokens.shape[1] - 1)
+        keep = done | (steps >= tokens.shape[1])  # done, or past the buffer
+        tokens[rows, at] = torch.where(keep, tokens[rows, at], next_token)
         carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None)
+        live = (~done).long()
         return (
             next_token,
-            cur_len + (~done).long(),
+            cur_len + live,
+            steps + live,
             done | (next_token == self.gen.eos_token_id),
             carry,
         )
@@ -522,11 +613,13 @@ class LlavaEngine:
         # fused mode's first overlap source is the prefill's argmax, also
         # when token 0 was sampled; lagged epis_kl starts from its logits
         carry = _Carry(tm, state.first_token, state.last_logits if self._lag_kl else None)
+        steps = torch.ones(B, dtype=torch.long, device=self.device)
         for step in range(1, T):  # decode steps start at 1, like the JAX loop
             if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
                 break  # the only host sync in the loop
-            token, cur_len, done, carry = self._one_step(
-                state, step, token, cur_len, done, tokens, carry
+            # every row not done is at ``step``
+            token, cur_len, steps, done, carry = self._one_step(
+                state, steps, step, token, cur_len, done, tokens, carry
             )
         return tokens
 
@@ -545,7 +638,9 @@ class LlavaEngine:
         ``prefill``'s."""
         _, merged, _ = self._merge_inputs(input_ids, pixel_values, image_index)
         B, S, _ = merged.shape
-        hidden = llama_mod.prefill_hidden(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        hidden = llama_mod.prefill_hidden(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
+        )
         return self._head(hidden, self._fill(B, S, text_lens)[0])
 
     def _prefix_handle(self, kv: KVCache) -> KVCache:
@@ -560,7 +655,9 @@ class LlavaEngine:
         leaves under ``int8_prefix_cache``."""
         _, merged, _ = self._merge_inputs(prefix_ids, pixel_values)
         B, S, _ = merged.shape
-        _, kv = llama_mod.prefill(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        _, kv = llama_mod.prefill(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
+        )
         return self._prefix_handle(kv)
 
     @torch.no_grad()
@@ -580,7 +677,7 @@ class LlavaEngine:
         positions = (prefix_len[:, None] + torch.arange(T, device=self.device)[None]).expand(B, T)
         hidden, _ = llama_mod.prefill_extend(
             self.params.lm, self.cfg.text, llama_mod.embed(self.params.lm, ids), positions,
-            prefix_kv, prefix_mask=prefix_mask,
+            prefix_kv, w8a8=self.w8a8_prefill, prefix_mask=prefix_mask,
         )
         if text_lens is None:
             last = torch.full((B,), T, dtype=torch.long, device=self.device)

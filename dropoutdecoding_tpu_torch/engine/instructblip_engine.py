@@ -90,7 +90,9 @@ class InstructBlipEngine(LlavaEngine):
         ids, merged = self._merge(input_ids, pixel_values, qformer_input_ids,
                                   qformer_attention_mask)
         B, S, _ = merged.shape
-        hidden, kv = llama_mod.prefill(self.params.lm, self.cfg.text, merged, self._positions(B, S))
+        hidden, kv = llama_mod.prefill(
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
+        )
         cur_len, text_lens = self._fill(B, S, text_lens)
         image_pos = torch.zeros((B,), dtype=torch.long, device=self.device)
         return self._assemble_state(ids, hidden, kv, image_pos, cur_len, text_lens)
@@ -107,7 +109,7 @@ class InstructBlipEngine(LlavaEngine):
                                 qformer_attention_mask, image_index)
         B, S, _ = merged.shape
         hidden = llama_mod.prefill_hidden(self.params.lm, self.cfg.text, merged,
-                                          self._positions(B, S))
+                                          self._positions(B, S), w8a8=self.w8a8_prefill)
         return self._head(hidden, self._fill(B, S, text_lens)[0])
 
     def generate(self, input_ids, pixel_values, qformer_input_ids=None) -> GenerationResult:
@@ -132,8 +134,8 @@ class InstructBlipEngine(LlavaEngine):
         raise ValueError(NO_SHARED_PREFIX)
 
     def prefill_chunked(self, *args, **kwargs):
-        raise NotImplementedError(
-            "chunked prefill targets long prompts; InstructBLIP merged prompts are ~64 tokens "
-            "(32 Q-Former queries + instruction): a single prefill is already shorter than "
-            "one chunk"
+        raise NotImplementedError(  # the JAX engine's message, word for word
+            "chunked prefill targets long prompts; InstructBLIP merged "
+            "prompts are ~64 tokens (32 Q-Former queries + instruction) — "
+            "a single prefill dispatch is already shorter than one chunk"
         )

@@ -31,8 +31,12 @@ tails' rope positions start at ``real_len`` and its pad slots are masked
 out of their attention.  At LLaVA-v1.6 widths the prefix and the batched
 probe are ~2.95k-token prefills, so both run K5; the extend does not.
 
-Not ported yet (raises ``NotImplementedError``): ``prefill_chunked``
-(ROADMAP Queue 1 item 14).
+``prefill_chunked`` runs the LM prefill of one request in pieces over the
+padded merge, the pad slots masked (``LlavaEngine._lm_chunked``), and
+calls the serving layer's pump between two pieces.  The JAX engine passes
+the pump on too (``engine/llavanext_engine.py:381``); a ~2.95k-token
+prompt is the case it exists for.  No piece runs K5: each is an extend
+over the pieces before it (plain attention), as in JAX.
 """
 from __future__ import annotations
 
@@ -44,10 +48,6 @@ import torch
 from ..models import llama as llama_mod
 from ..models import llavanext as next_mod
 from .generate import GenerationResult, LlavaEngine, PrefillState, ProbeResult
-
-
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 @dataclass
@@ -150,9 +150,23 @@ class LlavaNextEngine(LlavaEngine):
         )
         B, S, _ = merged.shape
         hidden, kv = llama_mod.prefill(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask,
+            w8a8=self.w8a8_prefill,
         )
         return self._assemble_state(ids, hidden, kv, image_pos, real_len, text_lens, valid)
+
+    @torch.no_grad()
+    def prefill_chunked(self, input_ids, tile_pixels, original_size, chunk: int = 256,
+                        pump=None) -> PrefillState:
+        """``prefill`` of one request (B = 1) with its LM run in ``chunk``-token
+        pieces, ``pump()`` called between two (JAX ``engine/llavanext_engine.
+        py:363-382``); the state is ``prefill``'s up to summation order."""
+        self._check_one(input_ids)
+        ids, merged, _, real_len, image_pos, valid = self._merge_next(
+            input_ids, tile_pixels, original_size
+        )
+        hidden, kv = self._lm_chunked(merged, real_len, chunk, pump)
+        return self._assemble_state(ids, hidden, kv, image_pos, real_len, None, valid)
 
     def generate(self, input_ids, tile_pixels, original_size) -> GenerationResult:
         return self._generate(input_ids, tile_pixels, original_size)
@@ -167,7 +181,8 @@ class LlavaNextEngine(LlavaEngine):
         )
         B, S, _ = merged.shape
         hidden = llama_mod.prefill_hidden(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask,
+            w8a8=self.w8a8_prefill,
         )
         return self._head(hidden, real_len)
 
@@ -180,7 +195,8 @@ class LlavaNextEngine(LlavaEngine):
         _, merged, key_mask, real_len, _, _ = self._merge_next(prefix_ids, tile_pixels, original_size)
         B, S, _ = merged.shape
         _, kv = llama_mod.prefill(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask
+            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask,
+            w8a8=self.w8a8_prefill,
         )
         return self._prefix_handle(kv), real_len, key_mask
 
@@ -191,6 +207,3 @@ class LlavaNextEngine(LlavaEngine):
         masked."""
         kv, real_len, key_mask = prefix
         return self._extend(kv, real_len, key_mask, tail_ids, text_lens)
-
-    def prefill_chunked(self, *args, **kwargs):
-        raise _later("prefill_chunked", 14)

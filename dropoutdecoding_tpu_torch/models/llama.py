@@ -23,15 +23,19 @@ on a leading [L] axis; a projection may be dense, int8 {"q", "s"} or
 packed int4 {"q4", "s4"} (``utils/quantize.py``), and q/k/v and gate/up may
 be fused into one leaf each (``fuse_projections``).  An int4 projection
 runs K6 (``ops/cuda_int4_matmul.py``) on the layer's view of the stacked
-weight; no dequantized matrix is made.  Logits are fp32.
+weight; no dequantized matrix is made.  Logits are fp32.  With ``w8a8``
+(``prefill``, ``prefill_extend``, ``decode_step``) an int8 projection
+quantizes its activation rows and multiplies int8 by int8 into int32
+sums (``_mm_w8a8``); the head keeps its own path.
 
 Unlike the JAX package, the cache is updated in place: ``cache_seed``,
-``cache_set_rows`` and ``cache_reorder_rows`` (beam search's reorder) write
-into the KVCache's tensors.  On an int8 cache ``cache_set_rows`` is K4
-(``ops/cuda_cache_append.py``).
+``cache_set_rows``, ``cache_reorder_rows`` (beam search's reorder) and
+``cache_copy_slot`` / ``cache_copy_slots`` (the serving layer's placement)
+write into the KVCache's tensors.  On an int8 cache ``cache_set_rows`` is
+K4 (``ops/cuda_cache_append.py``).
 
-Not ported yet (each raises ``NotImplementedError``): w8a8 projections
-(ROADMAP Queue 1 item 12) and tensor parallelism (Queue 1 item 16).
+Not ported yet (raises ``NotImplementedError``): tensor parallelism
+(ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -57,9 +61,8 @@ from ..ops.cuda_flash_prefill import flash_prefill_attention
 from ..ops.cuda_int4_matmul import int4_matmul
 from ..utils.config import LlamaConfig
 from ..utils.hf_io import hf_leaf, hf_stacked
-from ..utils.quantize import quantize_kv
+from ..utils.quantize import quantize_activations, quantize_kv
 
-_W8A8 = "w8a8 projections are not ported yet (ROADMAP Queue 1 item 12)"
 LONG_PREFILL = 1024  # prefill length from which attention runs K5
 
 
@@ -172,17 +175,51 @@ def cache_set_rows(
 ) -> KVCache:
     """Write each row's new-token K/V ([L, B, KH, D], dense) at slot
     ``cur_len[b]``, in place (the engine's per-step append of the vote
-    winner's K/V); on an int8 cache, quantized by K4 in one launch."""
+    winner's K/V); on an int8 cache, quantized by K4 in one launch.  A row
+    whose slot lies outside the cache is not written, as the JAX package's
+    scatter drops it (a server's row past its budget, still stepped until
+    harvest, reaches it); no host sync decides which."""
     if cache_is_quantized(cache):
         cache_append_int8(
             cache.k["q"], cache.k["s"], cache.v["q"], cache.v["s"], cur_len,
             k_new.contiguous(), v_new.contiguous(),
         )
         return cache
+    S = cache.k.shape[2]
     rows = torch.arange(k_new.shape[1], device=cur_len.device)
-    cache.k[:, rows, cur_len] = k_new.to(cache.k.dtype)
-    cache.v[:, rows, cur_len] = v_new.to(cache.v.dtype)
+    at = cur_len.clamp(0, S - 1)
+    inside = ((cur_len >= 0) & (cur_len < S))[None, :, None, None]
+    for leaf, new in ((cache.k, k_new), (cache.v, v_new)):
+        leaf[:, rows, at] = torch.where(inside, new.to(leaf.dtype), leaf[:, rows, at])
     return cache
+
+
+def cache_copy_slots(dst: KVCache, src: KVCache, slots) -> KVCache:
+    """Copy every row of ``src`` into rows ``slots`` ([B] ids) of ``dst``, in
+    place (the serving layer's batched placement, JAX
+    ``models/llama.py:252``); both caches dense, or both int8."""
+    if cache_is_quantized(dst) != cache_is_quantized(src):
+        raise ValueError("cache_copy_slots: one cache is int8 and the other dense")
+    slots = torch.as_tensor(slots, dtype=torch.long, device=_leaves(dst)[0].device)
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d[:, slots] = s.to(d.dtype)
+    return dst
+
+
+def cache_copy_slot(dst: KVCache, src: KVCache, slot: int, row: int = 0) -> KVCache:
+    """Copy row ``row`` of ``src`` into row ``slot`` of ``dst``, in place (the
+    serving layer's placement of one request, JAX ``models/llama.py:264``)."""
+    if cache_is_quantized(dst) != cache_is_quantized(src):
+        raise ValueError("cache_copy_slot: one cache is int8 and the other dense")
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d[:, slot].copy_(s[:, row])
+    return dst
+
+
+def _leaves(cache: KVCache) -> list:
+    """The cache's tensors: k and v, or their "q" and "s" arrays; every one
+    holds its rows on axis 1."""
+    return [t for leaf in cache for t in (leaf.values() if isinstance(leaf, dict) else [leaf])]
 
 
 def cache_map(cache: KVCache, fn) -> KVCache:
@@ -263,30 +300,62 @@ def _mm(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for dense, int8 {"q", "s"} or packed int4 {"q4", "s4"}
     weights.  int8 multiplies in the activation dtype, rounds to it, then
     applies the per-channel scale in it, as the JAX package does
-    (``models/llama.py:375-379``); int4 is K6."""
+    (``models/llama.py:375-379``), from a row-major copy whatever the
+    leaf's layout (w8a8's is column-major), so that the sums keep their
+    order; int4 is K6."""
     if isinstance(w, dict):
         if "q4" in w:
             return int4_matmul(x.contiguous(), w["q4"], w["s4"])
-        return (x @ w["q"].to(x.dtype)) * w["s"][0].to(x.dtype)
+        wq = w["q"].to(x.dtype, memory_format=torch.contiguous_format)
+        return (x @ wq) * w["s"][0].to(x.dtype)
     return x @ w
 
 
-def _mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
+INT_MM_MIN_ROWS = 32  # rows of an int8 product on the card; fewer are zero-padded
+
+
+def _int_mm(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of int8 [R, D] @ int8 [D, E] (``torch._int_mm``).  On
+    the card cuBLASLt refuses 16 rows or fewer (decode has 1-32), so short
+    inputs get zero rows, sliced off after: never a float product, whose 24
+    bits cannot hold 4096 * 127^2."""
+    R = qx.shape[0]
+    if qx.is_cuda and R < INT_MM_MIN_ROWS:
+        qx = F.pad(qx, (0, 0, 0, INT_MM_MIN_ROWS - R))
+        return torch._int_mm(qx, qw)[:R]
+    return torch._int_mm(qx, qw)
+
+
+def _mm_w8a8(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` with int8 activations for int8 {"q", "s"} weights (JAX
+    ``models/llama.py:538``): the rows quantized per row
+    (``quantize_activations``), s8 x s8 -> s32, then ``(y * sx * s)`` in
+    fp32, in JAX's order, rounded to x's dtype.  Dense and int4 weights take
+    ``_mm`` (int4 is K6, as in JAX).  The product is ``torch._int_mm``: the
+    JAX op is plain XLA, not a TPU kernel."""
+    if not isinstance(w, dict) or "q4" in w:
+        return _mm(x, w)
+    qx, sx = quantize_activations(x)
+    y = _int_mm(qx.reshape(-1, qx.shape[-1]), w["q"]).reshape(*x.shape[:-1], w["q"].shape[-1])
+    return (y.float() * sx * w["s"].float()[0]).to(x.dtype)
+
+
+def _mlp(lp: dict, x: torch.Tensor, mm=_mm) -> torch.Tensor:
     if "gate_up_proj" in lp:
-        gate, up = _mm(x, lp["gate_up_proj"]).chunk(2, dim=-1)
+        gate, up = mm(x, lp["gate_up_proj"]).chunk(2, dim=-1)
     else:
-        gate, up = _mm(x, lp["gate_proj"]), _mm(x, lp["up_proj"])
-    return _mm(F.silu(gate) * up, lp["down_proj"])
+        gate, up = mm(x, lp["gate_proj"]), mm(x, lp["up_proj"])
+    return mm(F.silu(gate) * up, lp["down_proj"])
 
 
-def _qkv(lp: dict, h: torch.Tensor, H: int, KH: int, Dh: int):
+def _qkv(lp: dict, h: torch.Tensor, H: int, KH: int, Dh: int, mm=_mm):
     """q/k/v projections, from the fused "qkv_proj" leaf when present (one
     matmul, the output sliced at head-aligned offsets)."""
     lead = h.shape[:-1]
     if "qkv_proj" in lp:
-        q, k, v = _mm(h, lp["qkv_proj"]).split([H * Dh, KH * Dh, KH * Dh], dim=-1)
+        q, k, v = mm(h, lp["qkv_proj"]).split([H * Dh, KH * Dh, KH * Dh], dim=-1)
     else:
-        q, k, v = _mm(h, lp["q_proj"]), _mm(h, lp["k_proj"]), _mm(h, lp["v_proj"])
+        q, k, v = mm(h, lp["q_proj"]), mm(h, lp["k_proj"]), mm(h, lp["v_proj"])
     return q.reshape(*lead, H, Dh), k.reshape(*lead, KH, Dh), v.reshape(*lead, KH, Dh)
 
 
@@ -299,13 +368,16 @@ def _layer(layers: dict, i: int) -> dict:
     }
 
 
-def _forward(params: dict, cfg: LlamaConfig, x: torch.Tensor, cos, sin, attend, keep_kv=True):
+def _forward(params: dict, cfg: LlamaConfig, x: torch.Tensor, cos, sin, attend, keep_kv=True,
+             w8a8=False):
     """The decoder's layer loop over activations ``x`` [B, R, D] with rope
     tables ``cos`` / ``sin`` that broadcast against [B, R, heads, Dh];
-    ``attend(i, q, k, v)`` is layer ``i``'s attention.  Returns (final-norm
-    hidden, every layer's k and v stacked [L, B, R, KH, Dh]), or with
-    ``keep_kv`` off (hidden, None): each layer's K/V is then dropped once its
-    attention has read it."""
+    ``attend(i, q, k, v)`` is layer ``i``'s attention; ``w8a8`` runs the
+    projections through ``_mm_w8a8``.  Returns (final-norm hidden, every
+    layer's k and v stacked [L, B, R, KH, Dh]), or with ``keep_kv`` off
+    (hidden, None): each layer's K/V is then dropped once its attention has
+    read it."""
+    mm = _mm_w8a8 if w8a8 else _mm
     H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     layers = params["layers"]
     B, R, _ = x.shape
@@ -313,12 +385,12 @@ def _forward(params: dict, cfg: LlamaConfig, x: torch.Tensor, cos, sin, attend, 
     for i in range(layers["input_ln"].shape[0]):
         lp = _layer(layers, i)
         h = rms_norm(x, lp["input_ln"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp, h, H, KH, Dh)
+        q, k, v = _qkv(lp, h, H, KH, Dh, mm)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(i, q, k, v)
-        x = x + _mm(attn.reshape(B, R, H * Dh), lp["o_proj"])
-        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps))
+        x = x + mm(attn.reshape(B, R, H * Dh), lp["o_proj"])
+        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps), mm)
         if keep_kv:
             ks.append(k)
             vs.append(v)
@@ -332,7 +404,7 @@ def _rope_tables(positions: torch.Tensor, cfg: LlamaConfig):
     return cos[:, :, None, :], sin[:, :, None, :]
 
 
-def _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv):
+def _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv, w8a8):
     S = inputs_embeds.shape[1]
 
     def attend(i, q, k, v):
@@ -342,7 +414,8 @@ def _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv):
             )
         return prefill_attention(q, k, v, causal=True, key_mask=key_mask)
 
-    return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend, keep_kv)
+    return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend, keep_kv,
+                    w8a8)
 
 
 def prefill(
@@ -365,12 +438,11 @@ def prefill(
       inputs_embeds: [B, S, D] merged (visual + text) embeddings.
       positions: [B, S] rope positions.
       key_mask: optional [B, S] padding mask (1 = real token).
+      w8a8: int8 activations for int8 projections (``_mm_w8a8``).
     Returns:
       (hidden [B, S, D] final-norm output, KVCache of [L, B, S, KH, Dh]).
     """
-    if w8a8:
-        raise NotImplementedError(_W8A8)
-    return _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv=True)
+    return _prefill(params, cfg, inputs_embeds, positions, key_mask, True, w8a8)
 
 
 def prefill_hidden(
@@ -379,12 +451,13 @@ def prefill_hidden(
     inputs_embeds: torch.Tensor,
     positions: torch.Tensor,
     key_mask: torch.Tensor | None = None,
+    w8a8: bool = False,
 ) -> torch.Tensor:
     """``prefill``'s final-norm hidden states [B, S, D] alone, for callers
     that read no cache (the probe): no layer's K/V outlives its attention,
     where ``prefill`` would stack L x B x S x KH x Dh twice (3.1 GB at
     LLaVA-NeXT's 8 x 2.95k tokens in bf16)."""
-    return _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv=False)[0]
+    return _prefill(params, cfg, inputs_embeds, positions, key_mask, False, w8a8)[0]
 
 
 def prefill_extend(
@@ -410,11 +483,10 @@ def prefill_extend(
         (``kv_int8_reader_layout``); Bp in {1, B}, Bp = 1 shared by every row
         without a copy.
       prefix_mask: optional [Bp, P] bool, False = a pad slot of the prefix.
+      w8a8: int8 activations for int8 projections (``_mm_w8a8``).
     Returns:
       (hidden [B, T, D] final-norm output, the tail's KVCache [L, B, T, KH, Dh]).
     """
-    if w8a8:
-        raise NotImplementedError(_W8A8)
     KH, Dh = cfg.num_key_value_heads, cfg.head_dim
     pk, pv = prefix
     if cache_is_quantized(prefix):
@@ -429,7 +501,8 @@ def prefill_extend(
         def attend(i, q, k, v):
             return extend_attention(q, k, v, pk[i], pv[i], prefix_mask)
 
-    return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend)
+    return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend,
+                    w8a8=w8a8)
 
 
 def kv_int8_reader_layout(x: torch.Tensor) -> dict:
@@ -459,13 +532,13 @@ def decode_step(
       position: [B] rope position of the current token.
       cache: KVCache, dense or int8, read only.
       key_mask: [B, M, Smax] bool, True = attend that cache slot.
+      w8a8: int8 activations for int8 projections (``_mm_w8a8``): the
+        decode rows are B x M.
     Returns:
       (hidden [B, M, D], k_new [L, B, M, KH, Dh], v_new [L, B, M, KH, Dh])
     """
     if tp_mesh is not None:
         raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue 1 item 16)")
-    if w8a8:
-        raise NotImplementedError(_W8A8)
     B = x.shape[0]
     KH, Dh = cfg.num_key_value_heads, cfg.head_dim
     cos, sin = rotary_embedding(position, Dh, cfg.rope_theta)
@@ -486,7 +559,7 @@ def decode_step(
                 q, cache.k[i], cache.v[i], k, v.contiguous(), key_mask
             )
 
-    hidden, kv = _forward(params, cfg, x, cos, sin, attend)
+    hidden, kv = _forward(params, cfg, x, cos, sin, attend, w8a8=w8a8)
     return hidden, kv.k, kv.v
 
 

@@ -39,15 +39,21 @@ def append_route(D: int, aligned: bool = True) -> str:
 def cache_append_int8_twin(kq, ks, vq, vs, cur_len, k_new, v_new) -> None:
     """Quantize ``k_new`` / ``v_new`` [L, B, KH, D] per (layer, row, head)
     and write them at slot ``cur_len[b]`` of the q leaves [L, B, S, KH*D]
-    and the scale leaves [L, B, KH, S], in place."""
+    and the scale leaves [L, B, KH, S], in place; a row whose slot lies
+    outside [0, S) is not written, as the kernel and an XLA scatter do."""
     L, B, KH, D = k_new.shape
+    S = kq.shape[2]
     rows = torch.arange(B, device=cur_len.device)
+    at = cur_len.clamp(0, S - 1)  # a row outside keeps its slot's old values: no
+    inside = (cur_len >= 0) & (cur_len < S)  # data-dependent shape, so a graph can hold it
     for q_leaf, s_leaf, new in ((kq, ks, k_new), (vq, vs, v_new)):
         d = quantize_kv(new)
-        q_leaf[:, rows, cur_len] = d["q"].reshape(L, B, KH * D)
-        # the advanced indices (rows, cur_len) are split by a slice, so the
+        q = d["q"].reshape(L, B, KH * D)
+        q_leaf[:, rows, at] = torch.where(inside[None, :, None], q, q_leaf[:, rows, at])
+        # the advanced indices (rows, at) are split by a slice, so the
         # indexed view is [B, L, KH]
-        s_leaf[:, rows, :, cur_len] = d["s"][..., 0].transpose(0, 1)
+        s = d["s"][..., 0].transpose(0, 1)
+        s_leaf[:, rows, :, at] = torch.where(inside[:, None, None], s, s_leaf[:, rows, :, at])
 
 
 def cache_append_int8(kq, ks, vq, vs, cur_len, k_new, v_new) -> None:

@@ -10,9 +10,9 @@ flow through the same tower code.
 
 Outputs are bit-equal to the JAX package's: fp32 true division by the
 scale, round half to even (``torch.round``, as ``jnp.round``), a clip to
-+-127 (int4: +-7), and ``s = 1`` where the amax is 0.
-
-Not ported yet: the w8a8 activation quantizer (ROADMAP Queue 1 item 12).
++-127 (int4: +-7), and ``s = 1`` where the amax is 0.  The w8a8 mode
+quantizes activation rows on the fly with the K/V quantizer
+(``quantize_activations``).
 """
 from __future__ import annotations
 
@@ -69,6 +69,21 @@ def fuse_projections(params: dict) -> dict:
         [layers.pop("q_proj"), layers.pop("k_proj"), layers.pop("v_proj")]
     )
     layers["gate_up_proj"] = _concat_leaves([layers.pop("gate_proj"), layers.pop("up_proj")])
+    return {**params, "layers": layers}
+
+
+def int8_column_major(params: dict) -> dict:
+    """A Llama parameter dict whose int8 projection leaves hold each layer's
+    "q" [D, E] column-major (the stack [L, D, E] stored as [L, E, D]), the
+    values unchanged; dense, int4 and the head's leaves as they are.  The
+    w8a8 mode's layout: cuBLASLt's int8 product (``torch._int_mm``) takes a
+    column-major right operand at 4-6x the speed of a row-major one on the
+    H100 (PERF.md, PR 13); the weight-only int8 path reads either."""
+    layers = {
+        name: {**leaf, "q": leaf["q"].mT.contiguous().mT}
+        if isinstance(leaf, dict) and "q" in leaf else leaf
+        for name, leaf in params["layers"].items()
+    }
     return {**params, "layers": layers}
 
 
@@ -190,3 +205,11 @@ def quantize_llama_params_int4(
             else quantize_matrix_int4(w, _fit_group(w.shape[-2], group_size))
         )
     return out
+
+
+def quantize_activations(x: torch.Tensor):
+    """Per-row (last-axis) symmetric int8 of activations, the "a8" half of
+    the w8a8 mode (JAX ``utils/quantize.py:245``): the K/V quantizer's
+    scheme, so the two never part.  Returns (q int8 [..., D], s f32 [..., 1])."""
+    d = quantize_kv(x)
+    return d["q"], d["s"]

@@ -7,7 +7,8 @@ own tiny engine on one set of weights (carried across by
 ``utils/convert.py``; JAX's mask draws injected into the port), behind
 that file's ``_TinyProcessor``.  Both must write the same sample log,
 caption records, self-critical JSON, CHAIR results and THRONE scores, for
-``--original``, the default Dropout Decoding arm, its int8 tier, the
+``--original``, the default Dropout Decoding arm, its int8 tier, w8a8
+(``--quantize w8a8``, and ``--quantize int8 --w8a8-decode True``), the
 fused arm with sampling and the text mask (all three of JAX's streams
 injected), and the baselines: VCD (JAX's noised pixels and draws injected),
 beam search and OPERA, serial and batched.
@@ -87,7 +88,7 @@ def _jax_make_engine(weights):
 
     def make(args):
         params = jp
-        if args.quantize == "int8":  # the JAX CLI's maybe_quantize on one device
+        if args.quantize in ("int8", "w8a8"):  # the JAX CLI's maybe_quantize on one device
             params = jp._replace(lm=jquant.fuse_projections(jquant.quantize_llama_params(jp.lm)))
         ensemble, opera = _arm(args)
         eng = JaxEngine(
@@ -96,6 +97,7 @@ def _jax_make_engine(weights):
             max_len=48, seed=args.seed, ensemble=ensemble,
             int8_kv=jcli.str2bool(args.int8_kv),
             text_logits_mask=jcli.str2bool(args.text_logit_mask),
+            w8a8_prefill=args.quantize == "w8a8", w8a8_decode=jcli.str2bool(args.w8a8_decode),
         )
         eng.param_dtype = jnp.float32
         if opera is not None:
@@ -117,6 +119,7 @@ def _port_make_engine(weights, engines=None):
             ens=tcli.build_ensemble_config(args, args.model), gen=_gen(torch_config, args),
             max_len=48, seed=args.seed, ensemble=ensemble,
             int8_kv=tcli.str2bool(args.int8_kv), uniform=jax_uniform(args.seed),
+            w8a8_prefill=args.quantize == "w8a8", w8a8_decode=tcli.str2bool(args.w8a8_decode),
             text_logits_mask=tcli.str2bool(args.text_logit_mask),
             # the JAX engine draws its text uniforms at max_len rounded up to 32
             text_uniform=jax_text_uniform(args.seed, length=64), gumbel=jax_gumbel(args.seed),
@@ -170,6 +173,7 @@ def _run(cli, coco, workdir, extra, monkeypatch, n=4, **main_kw):
 @pytest.mark.parametrize(
     "extra",
     [["--original", "True"], [], ["--quantize", "int8", "--int8-kv", "True"],
+     ["--quantize", "w8a8"], ["--quantize", "int8", "--w8a8-decode", "True"],
      ["--fused-step", "True", "--do-sample", "True", "--temperature", "0.7", "--top-p", "0.9",
       "--top-k", "5", "--text-logit-mask", "True", "--mask-policy", "epis_kl"],
      ["--vcd", "True"], ["--vcd", "True", "--batch-size", "2"],
@@ -177,7 +181,8 @@ def _run(cli, coco, workdir, extra, monkeypatch, n=4, **main_kw):
      ["--original", "True", "--num-beams", "3", "--batch-size", "3", "--length-penalty", "2.0",
       "--early-stopping", "never"],
      ["--opera", "True"], ["--opera", "True", "--num_attn_candidates", "2", "--threshold", "2"]],
-    ids=["original", "dropout-decoding", "dropout-decoding-int8", "fused-sampled-text-mask-epis_kl",
+    ids=["original", "dropout-decoding", "dropout-decoding-int8", "w8a8", "int8-w8a8-decode",
+         "fused-sampled-text-mask-epis_kl",
          "vcd", "vcd-batched", "beam", "beam-batched-knobs", "opera", "opera-fan-out-rollback"],
 )
 def test_main_writes_what_the_jax_main_writes(synthetic_coco, tmp_path, monkeypatch, weights, extra):
@@ -308,8 +313,6 @@ def test_build_ensemble_config_matches(extra):
 
 NOT_PORTED = [
     (["--spec-gamma", "3"], 14),
-    (["--quantize", "w8a8"], 12),
-    (["--w8a8-decode", "True"], 12),
     (["--consistency", "True"], 15),
     (["--consistency-im", "projection"], 15),
 ]
@@ -323,6 +326,17 @@ def test_not_ported_flag_raises_before_any_work(tmp_path, monkeypatch, extra, it
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\)"):
         tcli.main(args, device="cpu")
     assert os.listdir(tmp_path) == []  # nothing sampled, read or written
+
+
+@pytest.mark.parametrize("extra", [["--w8a8-decode", "True"],
+                                   ["--quantize", "int4", "--w8a8-decode", "True"]])
+def test_w8a8_decode_without_int8_weights_exits_as_the_jax_cli(tmp_path, monkeypatch, extra):
+    """The JAX ``make_engine``'s exit, here before the tokenizer is read."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "load_processor", lambda path: pytest.fail("tokenizer read"))
+    args = tcli.build_parser().parse_args(_argv(tmp_path / "coco", tmp_path, extra))
+    with pytest.raises(SystemExit, match="--w8a8-decode needs int8 weights"):
+        tcli.main(args, device="cpu")
 
 
 @pytest.fixture

@@ -358,11 +358,20 @@ def test_prefill_decode_and_head_int4_match_jax(rng, fused, lm_head):
     np.testing.assert_allclose(logits.numpy(), ref, rtol=1e-5, atol=atol)
 
 
-def test_w8a8_still_raises():
-    _, _, _, lm_t = _int4_params(fused=True)
-    x, pos = torch.zeros(1, 3, 48), torch.zeros(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        tllama.prefill(lm_t, tiny_config(torch_config).text, x, pos, w8a8=True)
+def test_w8a8_on_int4_weights_matches_jax(rng):
+    """w8a8 leaves int4 projections on K6 (JAX ``_mm_w8a8`` takes ``_mm``
+    for them): ``prefill`` with ``w8a8=True`` on int4 weights equals its own
+    run without, bit for bit, and JAX's within ``TOL``."""
+    tcfg, jcfg = tiny_config(torch_config).text, tiny_config(jax_config).text
+    _, _, lm_j, lm_t = _int4_params(fused=True)
+    x = rng.normal(size=(1, 7, 48)).astype(np.float32)
+    pos = np.arange(7)[None]
+    hj, kvj = jllama.prefill(lm_j, jcfg, jnp.asarray(x), jnp.asarray(pos), w8a8=True)
+    ht, kvt = tllama.prefill(lm_t, tcfg, torch.from_numpy(x), torch.from_numpy(pos), w8a8=True)
+    plain, _ = tllama.prefill(lm_t, tcfg, torch.from_numpy(x), torch.from_numpy(pos))
+    assert torch.equal(ht, plain)
+    np.testing.assert_allclose(ht.numpy(), np.asarray(hj), **TOL)
+    np.testing.assert_allclose(kvt.k.numpy(), np.asarray(kvj.k), **TOL)
 
 
 # --- the engine ----------------------------------------------------------------

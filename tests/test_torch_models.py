@@ -207,14 +207,32 @@ def test_decode_step_members_share_cache(tiny, rng):
 
 
 def test_unported_branches_raise(tiny):
-    """int8 weights and the int8 cache (``test_torch_quantize.py``) and packed
-    int4 weights (``test_torch_int4.py``) are ported; w8a8 still raises."""
+    """int8 weights and the int8 cache (``test_torch_quantize.py``), packed
+    int4 weights (``test_torch_int4.py``) and w8a8 (``test_torch_w8a8.py``)
+    are ported; tensor parallelism still raises."""
     cfg = tiny["tcfg"].text
-    x = torch.zeros(1, 3, 48)
-    pos = torch.zeros(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        tllama.prefill(tiny["tp"].lm, cfg, x, pos, w8a8=True)
+    x = torch.zeros(1, 1, 48)
     cache = tllama.empty_cache(cfg, 1, 8, torch.float32, "cpu")
     mask = torch.ones(1, 1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="w8a8"):
-        tllama.decode_step(tiny["tp"].lm, cfg, x[:, :1], pos[:, 0], cache, mask, w8a8=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
+        tllama.decode_step(tiny["tp"].lm, cfg, x, torch.zeros(1, dtype=torch.long), cache, mask,
+                           tp_mesh=object())
+
+
+def test_w8a8_on_dense_weights_matches_jax(tiny):
+    """w8a8 on dense weights is the dense path in both packages (JAX
+    ``_mm_w8a8`` takes ``_mm``): ``prefill`` and ``decode_step`` with
+    ``w8a8=True`` equal the port's own runs without, bit for bit, and JAX's
+    within ``TOL``."""
+    cfg, jcfg, lm = tiny["tcfg"].text, tiny["jcfg"].text, tiny["tp"].lm
+    x = np.random.default_rng(3).normal(size=(1, 5, 48)).astype(np.float32)
+    pos = np.arange(5)[None]
+    ht, kvt = tllama.prefill(lm, cfg, torch.from_numpy(x), torch.from_numpy(pos), w8a8=True)
+    hj, _ = jllama.prefill(tiny["jp"].lm, jcfg, jnp.asarray(x), jnp.asarray(pos), w8a8=True)
+    assert torch.equal(ht, tllama.prefill(lm, cfg, torch.from_numpy(x), torch.from_numpy(pos))[0])
+    _close(ht, hj)
+    cache = tllama.empty_cache(cfg, 1, 8, torch.float32, "cpu")
+    tllama.cache_seed(cache, kvt)
+    mask = torch.arange(8)[None, None] < 5
+    step = (lm, cfg, torch.from_numpy(x[:, :1]), torch.tensor([5]), cache, mask)
+    assert torch.equal(tllama.decode_step(*step, w8a8=True)[0], tllama.decode_step(*step)[0])

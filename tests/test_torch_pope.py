@@ -464,9 +464,13 @@ def _jax_make_engine(model, llava_weights, next_weights):
     def make(args):
         assert args.model == {"llava": "llava-1.5", "llava-next": "llava-next"}[model]
         gen = jax_config.GenerationConfig(max_new_tokens=4, eos_token_id=2, pad_token_id=2)
-        kw = dict(gen=gen, int8_prefix_cache=jchair.str2bool(args.int8_prefix_cache))
+        kw = dict(gen=gen, int8_prefix_cache=jchair.str2bool(args.int8_prefix_cache),
+                  w8a8_prefill=args.quantize == "w8a8")
         if model == "llava":
-            eng = JaxEngine(cfg=tiny_config(jax_config), params=llava_weights[0], max_len=64, **kw)
+            params = llava_weights[0]
+            if args.quantize == "w8a8":  # the JAX CLI's maybe_quantize on one device
+                params = params._replace(lm=jq.fuse_projections(jq.quantize_llama_params(params.lm)))
+            eng = JaxEngine(cfg=tiny_config(jax_config), params=params, max_len=64, **kw)
         else:
             eng = JaxNextEngine(cfg=narrow_config(jax_config), params=next_weights[0], max_len=1344,
                                 **kw)
@@ -481,9 +485,13 @@ def _port_make_engine(model, llava_weights, next_weights, engines):
         assert device == "cpu"
         gen = torch_config.GenerationConfig(max_new_tokens=4, eos_token_id=2, pad_token_id=2)
         # the real build_engine's plumbing, on the tiny model's weights
-        kw = dict(gen=gen, int8_prefix_cache=tchair.str2bool(args.int8_prefix_cache))
+        kw = dict(gen=gen, int8_prefix_cache=tchair.str2bool(args.int8_prefix_cache),
+                  w8a8_prefill=args.quantize == "w8a8")
         if model == "llava":
-            eng = LlavaEngine(cfg=tiny_config(torch_config), params=llava_weights[1], max_len=64, **kw)
+            params = llava_weights[1]
+            if args.quantize:
+                params = tchair.maybe_quantize(args, params)
+            eng = LlavaEngine(cfg=tiny_config(torch_config), params=params, max_len=64, **kw)
         else:
             eng = LlavaNextEngine(cfg=narrow_config(torch_config), params=next_weights[1],
                                   max_len=1344, **kw)
@@ -581,16 +589,23 @@ def test_int8_prefix_cache_matches_the_jax_main(synthetic_coco, tmp_path, monkey
     assert [e.int8_prefix_cache for e in engines] == [True]
 
 
-@pytest.mark.parametrize("extra,item", [(["--quantize", "w8a8"], 12)])
-def test_not_ported_raises_before_any_read(tmp_path, monkeypatch, extra, item):
-    monkeypatch.setattr(tchair, "load_processor", lambda path: pytest.fail("tokenizer read"))
-    monkeypatch.setattr(tchair, "build_engine", lambda *a, **k: pytest.fail("weights read"))
-    args = tpope.build_parser().parse_args(
-        ["--model-path", "/unused", "--coco-data-dir", str(tmp_path / "coco"),
-         "--pope-dir", str(tmp_path / "pope")] + extra)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\)"):
-        tpope.main(args, device="cpu")
-    assert os.listdir(tmp_path) == []  # no question, image or answer file
+def test_w8a8_matches_the_jax_main(synthetic_coco, tmp_path, monkeypatch, llava_weights,
+                                   next_weights):
+    """``--quantize w8a8`` on LLaVA-1.5, serial, ``--batch-size 4`` and
+    ``--prefix-cache True``: the JAX main's archives (its serial run), from
+    engines with int8 fused weights and int8 activations in every prefill."""
+    extra = ["--refresh-data", "True", "--number", "5", "--quantize", "w8a8"]
+    monkeypatch.setattr(jchair, "make_engine", _jax_make_engine("llava", llava_weights, next_weights))
+    ref = _run(jpope, synthetic_coco, tmp_path / "jax", "llava", extra)
+    engines = []
+    monkeypatch.setattr(tchair, "make_engine",
+                        _port_make_engine("llava", llava_weights, next_weights, engines))
+    for name, mode in (("serial", []), ("batch", ["--batch-size", "4"]),
+                       ("prefix", ["--prefix-cache", "True"])):
+        got = _run(tpope, synthetic_coco, tmp_path / name, "llava", extra + mode, device="cpu")
+        assert got[0] == ref[0], name
+    assert all(e.w8a8_prefill and "qkv_proj" in e.params.lm["layers"] for e in engines)
+    assert engines[0].params.lm["layers"]["qkv_proj"]["q"].dtype == torch.int8
 
 
 def test_prefix_cache_with_instructblip_exits_as_the_jax_cli(tmp_path):
