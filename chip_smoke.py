@@ -404,7 +404,8 @@ def check_decode_attention() -> dict:
          bf16, False, True),
     ]
     recorded = {  # the cases whose records the kernels line carries, by label
-        "K1": {"M=3 G=1 bf16": "K1", "B=2 M=1 G=1 bf16 (VCD)": "K1 VCD",
+        "K1": {"M=3 G=1 bf16": "K1", "M=1 G=1 bf16": "K1 speculative draft",
+               "B=2 M=1 G=1 bf16 (VCD)": "K1 VCD",
                "B=3 M=1 G=1 bf16 (beam search)": "K1 beam",
                "M=3 G=1 bf16 S=608 (InstructBLIP)": "K1 InstructBLIP",
                "M=4 G=1 bf16 S=608 (InstructBLIP fused)": "K1 InstructBLIP fused",
@@ -467,6 +468,9 @@ def check_kernels() -> dict:
     records["K4"] = check_cache_append()
     records["K5"] = check_flash_prefill()
     records["K6"] = check_int4_matmul()
+    # a draft step of the int4 self-draft: R = 1; its prefill R = 595
+    records["K6 speculative draft"] = {**records["K6"].pop("r1"),
+                                       "prefill": records["K6"]["prefill"]}
 
     records.update(check_uncertainty())
     return records
@@ -789,7 +793,8 @@ def check_int4_matmul() -> dict:
     with a bf16 matrix dequantized ahead of time (reference only; the port
     never makes that matrix).  Returns the record of the fused gate/up
     projection at 3 rows, the exact-mode decode's, with the same projection
-    at 595 rows under "prefill"."""
+    at 595 rows under "prefill" and at 1 row (a speculative draft step)
+    under "r1"."""
     from dropoutdecoding_tpu_torch.ops.cuda_int4_matmul import int4_matmul, int4_matmul_twin
     from dropoutdecoding_tpu_torch.utils.quantize import dequantize_matrix_int4
 
@@ -826,7 +831,7 @@ def check_int4_matmul() -> dict:
             raise AssertionError(f"K6 {label}: max_abs_err {err} out of bounds")
         return {"max_abs_err": err, **times}, got
 
-    record, prefill, kept = None, None, None
+    record, prefill, kept, draft_step = None, None, None, None
     shapes = [  # the fused leaves of a Vicuna-7B layer: (name, D, E)
         ("qkv", 4096, 12288), ("o", 4096, 4096), ("gate_up", 4096, 22016), ("down", 11008, 4096),
     ]
@@ -850,6 +855,8 @@ def check_int4_matmul() -> dict:
             )
             if (name, R) == ("gate_up", 3):
                 record = rec
+            if (name, R) == ("gate_up", 1):  # a draft step of the int4 self-draft
+                draft_step = rec
             if (name, R) == ("gate_up", 595):
                 prefill = {"route": route, **rec}
             if not torch.equal(got, int4_matmul(x, q4, s4)):
@@ -918,7 +925,7 @@ def check_int4_matmul() -> dict:
         print(f"K6 g=24: raises ({e})")
     else:
         raise AssertionError("K6 accepted a group size of 24")
-    return {**record, "prefill": prefill}
+    return {**record, "prefill": prefill, "r1": draft_step}
 
 
 def _narrow_config():
@@ -988,7 +995,8 @@ def small_reference(tier: str) -> None:
     the Gumbel noise injected from tables as well.  A CPU prefill in fp64
     anchors the epis of both sides, so a miss shows which side moved.
     "pope" is the POPE path on the narrow models (``small_pope``);
-    "baselines" VCD, beam search and OPERA on them (``small_baselines``)."""
+    "baselines" VCD, beam search and OPERA on them (``small_baselines``);
+    "speculative" speculative greedy decoding (``small_speculative``)."""
     if tier == "pope":
         return small_pope()
     if tier == "baselines":
@@ -997,6 +1005,8 @@ def small_reference(tier: str) -> None:
         return small_instructblip()
     if tier == "serving":
         return small_serving()
+    if tier == "speculative":
+        return small_speculative()
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
@@ -2672,6 +2682,516 @@ def serving_next(make_next, cfg, tiles, size) -> dict:
     return record
 
 
+SPEC_GAMMA = 4  # the drafts a cycle of the speculative checks, the CLI's --spec-gamma 4
+
+
+def spec_launches(n_acc: list, gamma: int, L: int, lm: bool, int4: bool) -> dict:
+    """Each kernel's launches in one speculative generation on an ``L``-layer
+    LLaVA-1.5 with a dense target cache, from its cycles' accepted counts
+    ``n_acc``: with a draft tower (``lm``) gamma draft steps a cycle, and one
+    more at the start of each cycle that follows a full acceptance (F6),
+    each one K1 a layer over the draft cache and, on an ``int4`` draft, one
+    K6 a fused projection of a layer, as is its prefill; K2 once, the
+    target's prefill; the verify runs the plain extend attention and the
+    plain block write."""
+    c = len(n_acc)
+    steps = gamma * c + sum(1 for a in n_acc[:-1] if a == gamma) if lm else 0
+    return {"K1": L * steps, "K2": 1, "K3": 0, "K4": 0, "K5": 0,
+            "K6": 4 * L * (1 + steps) if lm and int4 else 0}
+
+
+def greedy_with_logits(eng, args: tuple):
+    """The greedy run of ``eng`` on ``args`` as ``LlavaEngine``'s greedy step
+    makes it (M = 1 over the cache, then the head): its tokens [T] and each
+    decode step's fp32 logits, a list of T - 1 [V]."""
+    from dropoutdecoding_tpu_torch.models import llama
+
+    lm, cfg = eng.params.lm, eng.cfg.text
+    with torch.no_grad():
+        state = eng.prefill(*args)
+        slots = torch.arange(eng.max_len, device=eng.device)
+        cur, token = state.cur_len, state.first_token
+        tokens, logits = [token], []
+        for _ in range(1, eng.gen.max_new_tokens):
+            h, kn, vn = llama.decode_step(lm, cfg, llama.embed(lm, token)[:, None], cur,
+                                          state.cache, (slots[None] < cur[:, None])[:, None])
+            llama.cache_set_rows(state.cache, cur, kn[:, :, 0], vn[:, :, 0])
+            step = llama.lm_head(lm, h)[:, 0]
+            token, cur = step.argmax(dim=-1), cur + 1
+            tokens.append(token)
+            logits.append(step[0])
+    return torch.cat(tokens).tolist(), logits
+
+
+def spec_hold(spec, args: tuple, label: str, greedy: tuple, exact: bool) -> dict:
+    """``spec.generate_fused`` on ``args`` held to the greedy run ``greedy``
+    (``greedy_with_logits``): token-equal, or (unless ``exact``) at the first
+    differing position the greedy run's top-2 logit gap no larger than twice
+    the largest |verify - decode| logit difference over the agreeing prefix:
+    in bf16 the verify's G + 1 rows round otherwise than one-row steps, so a
+    near tie may split them.  Returns (and prints) the record: tokens equal,
+    the split, both numbers, cycles, each cycle's accepted count and the
+    tokens."""
+    eng = spec.engine
+    S = eng._prompt_lengths(*args)[0]
+    tokens_g, logits_g = greedy
+    T = len(tokens_g)
+    rows, n_acc = {}, []
+
+    def on_verify(cur, logits, n):
+        n_acc.append(n)
+        for j in range(n + 1):  # rows whose inputs the cycle accepted
+            rows[cur + j - S + 1] = logits[j]
+
+    spec.on_verify = on_verify
+    try:
+        tokens, cycles = spec.generate_fused(*args)
+    finally:
+        spec.on_verify = None
+    tokens = tokens.tolist()
+    split = next((k for k in range(min(len(tokens), T)) if tokens[k] != tokens_g[k]), None)
+    if split is None and len(tokens) != T:
+        split = min(len(tokens), T)
+    last = T - 1 if split is None else split
+    diff = max(((rows[n] - logits_g[n - 1]).abs().max().item()
+                for n in range(1, last + 1) if n in rows), default=0.0)
+    gap = None
+    if split is not None:
+        top2 = logits_g[split - 1].topk(2).values
+        gap = (top2[0] - top2[1]).item()
+    rec = {"equal": split is None, "split": split, "top2_gap": gap, "max_verify_decode_diff": diff,
+           "cycles": cycles, "n_acc": n_acc, "tokens": tokens}
+    print(f"{label}: spec tokens equal to greedy: {split is None}"
+          + ("" if split is None else f" (first split at {split}: greedy top-2 gap {gap:.4g}, "
+                                      f"bound 2 x {diff:.4g})")
+          + f"; largest |verify - decode| logit over the agreeing prefix {diff:.4g}; {cycles} "
+          f"cycles, accepted {n_acc}")
+    if split is not None and (exact or not gap <= 2 * diff):
+        raise AssertionError(f"{label}: spec splits from greedy at {split} (top-2 gap {gap}, "
+                             f"twice the verify-decode difference {2 * diff}, exact {exact})")
+    return rec
+
+
+def small_speculative() -> None:
+    """Speculative greedy decoding on the narrow fp32 LLaVA, card (kernels)
+    against CPU (plain twins): the int4 self-draft (fused), draft == target,
+    ngram, and an int8-KV target with draft == target and with ngram.
+    ``generate``'s tokens, cycles and accepted count equal on both sides,
+    ``generate_fused``'s tokens and the engine's greedy tokens equal to
+    them, draft == target accepting every draft over a dense target cache
+    (over an int8 one the draft's dense cache is not the target's), the
+    card's launches exact
+    (``spec_launches``).  Then ``cache_write_span`` at LLaVA-1.5-7B's int8
+    cache, a block of G + 1 rows, bit-equal to G + 1 appends by K4."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.speculative import SpeculativeGreedy
+    from dropoutdecoding_tpu_torch.models import llama
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig, LlavaConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+    from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params_int4
+
+    cfg = _narrow_config()
+    params = synthetic_llava_params(cfg, "cpu", torch.float32, seed=3)
+    params = LlavaParams(*(_sharpen(p, 10) for p in params))  # x10: std 0.2
+    ids = np.array([[1, 17, 29, 500, 41, 53, 67, 71, 83]])
+    pixels = np.random.default_rng(5).normal(size=(1, 3, 112, 112)).astype(np.float32)
+    gen = GenerationConfig(max_new_tokens=16, eos_token_id=-1, pad_token_id=0)
+    G, L = SPEC_GAMMA, cfg.text.num_hidden_layers
+    cases = (("int4 draft", "int4", False), ("draft == target", "target", False),
+             ("ngram", None, False), ("int8-KV target, draft == target", "target", True),
+             ("int8-KV target, ngram", None, True))
+    wrappers = _wrappers()
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = LlavaParams(*(_to(part, device) for part in params))
+        drafts = {"int4": fuse_projections(quantize_llama_params_int4(p.lm)), "target": p.lm,
+                  None: None}
+        for label, draft, int8_kv in cases:
+            eng = LlavaEngine(cfg=cfg, params=p, gen=gen, max_len=128, ensemble=False,
+                              int8_kv=int8_kv)
+            n_acc = []
+            spec = SpeculativeGreedy(engine=eng, draft_lm=drafts[draft], gamma=G,
+                                     draft="lm" if draft else "ngram",
+                                     on_verify=lambda cur, logits, n: n_acc.append(n))
+            for fn in wrappers.values():
+                fn.launches = 0
+            tokens, cycles, accepted = spec.generate(ids, pixels)
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            spec.on_verify = None
+            greedy = eng.generate(ids, pixels).tokens[0]
+            fused, _ = spec.generate_fused(ids, pixels)
+            out[device, label] = (tokens.tolist(), cycles, accepted)
+            if not (np.array_equal(tokens, greedy) and np.array_equal(fused, greedy)):
+                raise AssertionError(f"narrow speculative {label} on {device}: {tokens} / {fused} "
+                                     f"against greedy {greedy}")
+            if draft == "target" and not int8_kv and accepted != G * cycles:
+                raise AssertionError(f"narrow speculative {label}: {accepted} of {G * cycles} "
+                                     f"drafts accepted")
+            if device == "cuda":
+                want = spec_launches(n_acc, G, L, lm=draft is not None, int4=draft == "int4")
+                print(f"narrow speculative {label}: {cycles} cycles, {accepted} accepted, "
+                      f"launches {counts} (want {want})")
+                _check_counts(f"narrow speculative {label}", counts, want)
+    for label, *_ in cases:
+        if out["cuda", label] != out["cpu", label]:
+            raise AssertionError(f"narrow speculative {label}: (tokens, cycles, accepted) card "
+                                 f"{out['cuda', label]} cpu {out['cpu', label]}")
+    print(f"narrow speculative: card equal to CPU in every case: "
+          f"{ {label: out['cuda', label][1:] for label, *_ in cases} }")
+
+    # cache_write_span against K4 at the 7B int8 cache: 32 layers, 1152 slots
+    from dropoutdecoding_tpu_torch.ops.cuda_cache_append import cache_append_int8
+
+    g = torch.Generator(device="cuda").manual_seed(41)
+    L7, KH, D, S, start = 32, 32, 128, 1152, 600
+    k, v = (torch.randn(L7, 1, G + 1, KH, D, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    block = llama.empty_cache(LlavaConfig().text, 1, S, torch.bfloat16, "cuda", quantized=True)
+    rows = llama.empty_cache(LlavaConfig().text, 1, S, torch.bfloat16, "cuda", quantized=True)
+    llama.cache_write_span(block, start, llama.KVCache(k, v))
+    before = cache_append_int8.launches
+    for t in range(G + 1):
+        llama.cache_set_rows(rows, torch.tensor([start + t], device="cuda"), k[:, :, t].contiguous(),
+                             v[:, :, t].contiguous())
+    appends = cache_append_int8.launches - before
+    equal = all(torch.equal(a, b) for a, b in zip(llama._leaves(block), llama._leaves(rows)))
+    print(f"cache_write_span of {G + 1} rows at slot {start} of [32, 1, 1152, 4096] int8: "
+          f"bit-equal to {appends} K4 appends: {equal}")
+    if not equal or appends != G + 1:
+        raise AssertionError("cache_write_span differs from K4's appends")
+
+
+def speculative_full(params, cfg, ids, pixels) -> dict:
+    """Speculative greedy decoding at LLaVA-1.5-7B width, G = 4, 32 new
+    tokens.  First fp32 at full width and 4 layers (synthetic weights):
+    draft == target, the int4 self-draft and ngram, each token-equal to
+    greedy (``spec_hold`` exact), draft == target accepting every draft.
+    Then ``params``, the bf16 tower at full depth: the int4 self-draft
+    quantized as the CLI quantizes it (``cli.speculative_draft``, timed),
+    greedy, the int4 draft, ngram and draft == target, each held to greedy
+    by ``spec_hold`` (token-equal or within the margin rule), then run once
+    more with every launch counted (``spec_launches``, exact): tokens/s of
+    the decode (the cycles' wall time), alpha, tokens a cycle, ms a cycle
+    split into draft, verify and host, and the device peak.  Returns the
+    records."""
+    import dataclasses
+    from argparse import Namespace
+
+    from dropoutdecoding_tpu_torch.cli import chair_test as cli
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.speculative import SpeculativeGreedy
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+    from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params_int4
+
+    T, G = 32, SPEC_GAMMA
+    gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0)
+    args = (ids, pixels)
+    record = {}
+
+    # --- fp32 at full width, 4 layers: exact ---
+    cfg4 = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=4))
+    p4 = synthetic_llava_params(cfg4, "cuda", torch.float32, seed=7)
+    eng4 = LlavaEngine(cfg=cfg4, params=p4, gen=gen, max_len=1152, ensemble=False)
+    greedy4 = greedy_with_logits(eng4, args)
+    if greedy4[0] != eng4.generate(*args).tokens[0].tolist():
+        raise AssertionError("fp32 4-layer: the step-by-step greedy run differs from generate")
+    fp32 = {}
+    for label, draft_lm in (("draft == target", p4.lm),
+                            ("int4 draft", fuse_projections(quantize_llama_params_int4(p4.lm))),
+                            ("ngram", None)):
+        spec = SpeculativeGreedy(engine=eng4, draft_lm=draft_lm, gamma=G,
+                                 draft="ngram" if draft_lm is None else "lm")
+        fp32[label] = spec_hold(spec, args, f"speculative fp32 4-layer {label}", greedy4, exact=True)
+    if any(a != G for a in fp32["draft == target"]["n_acc"]):
+        raise AssertionError(f"fp32 draft == target: accepted {fp32['draft == target']['n_acc']}")
+    record["fp32 4-layer"] = {k: {"cycles": v["cycles"], "accepted": sum(v["n_acc"])}
+                              for k, v in fp32.items()}
+    del p4, eng4, spec
+    torch.cuda.empty_cache()
+
+    # --- bf16 at full depth ---
+    L = cfg.text.num_hidden_layers
+    eng = LlavaEngine(cfg=cfg, params=params, gen=gen, max_len=1152, ensemble=False)
+    greedy = greedy_with_logits(eng, args)
+    if greedy[0] != eng.generate(*args).tokens[0].tolist():
+        raise AssertionError("bf16: the step-by-step greedy run differs from generate")
+    state = eng.prefill(*args)
+    _, decode_s = _sync_time(lambda: eng.decode(state))
+    record["greedy_tps"] = (T - 1) / decode_s
+    del state
+    draft4, quant_s = _sync_time(
+        lambda: cli.speculative_draft(Namespace(spec_gamma=G, spec_draft="int4"), params.lm))
+    record["int4_draft_quantize_s"] = quant_s
+    print(f"speculative bf16: greedy {record['greedy_tps']:.2f} tokens/s; the int4 self-draft "
+          f"quantized from the bf16 tower in {quant_s:.2f} s")
+    wrappers = _wrappers()
+    for label, draft_lm, int4 in (("int4 draft", draft4, True), ("ngram", None, False),
+                                  ("draft == target", params.lm, False)):
+        times = []
+        spec = SpeculativeGreedy(engine=eng, draft_lm=draft_lm, gamma=G,
+                                 draft="ngram" if draft_lm is None else "lm", cycle_ms=times)
+        hold = spec_hold(spec, args, f"speculative bf16 {label}", greedy, exact=False)
+        hold.pop("tokens")
+        times.clear()
+        n_acc = []
+        spec.on_verify = lambda cur, logits, n: n_acc.append(n)
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        tokens, cycles = spec.generate_fused(*args)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        want = spec_launches(n_acc, G, L, lm=draft_lm is not None, int4=int4)
+        ms = {part: statistics.mean(t[i] for t in times)
+              for i, part in enumerate(("draft", "verify", "wall"))}
+        ms["host"] = ms["wall"] - ms["draft"] - ms["verify"]
+        rec = {"hold": hold, "tps": (len(tokens) - 1) / (sum(t[2] for t in times) / 1e3),
+               "alpha": sum(n_acc) / (G * cycles), "tokens_per_cycle": (len(tokens) - 1) / cycles,
+               "cycles": cycles, "ms_per_cycle": ms, "launches": counts,
+               "device_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"speculative bf16 {label}: {rec['tps']:.2f} tokens/s (greedy "
+              f"{record['greedy_tps']:.2f}), alpha {rec['alpha']:.3f}, "
+              f"{rec['tokens_per_cycle']:.2f} tokens a cycle over {cycles} cycles, ms a cycle "
+              f"{json.dumps(ms)}, launches {counts} (want {want}), device peak "
+              f"{rec['device_peak_gib']:.2f} GiB")
+        _check_counts(f"speculative bf16 {label}", counts, want)
+        record[label] = rec
+    return record
+
+
+def clip_zero_shot_check(vcfg=None, tcfg=None) -> dict:
+    """``ClipZeroShot`` at CLIP ViT-L/14-336 and its text tower's widths
+    (``ClipVisionConfig()``, ``ClipTextConfig()``) on synthetic fp32 weights,
+    the card (fp32 matmuls, TF32 off) against the CPU: the 80 COCO classes'
+    normalised text embeddings within 1e-4, two images' cosine similarities
+    within 1e-4 and its top-10 labels equal (unless the 10th and 11th
+    similarities lie closer than the two sides' difference).  ``vcfg`` /
+    ``tcfg`` make a narrow rehearsal on the CPU possible."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.evalsuite.im_classifier import ClipZeroShot, coco_class_words
+    from dropoutdecoding_tpu_torch.models import clip_text
+    from dropoutdecoding_tpu_torch.utils.config import ClipTextConfig, LlamaConfig, LlavaConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+
+    vcfg, tcfg = vcfg or LlavaConfig().vision, tcfg or ClipTextConfig()
+    one = LlavaConfig(text=LlamaConfig(vocab_size=8, hidden_size=8, intermediate_size=8,
+                                       num_hidden_layers=1, num_attention_heads=1,
+                                       num_key_value_heads=1, head_dim=8),
+                      vision=vcfg)  # the vision tower, beside an LM of nothing
+    vision = synthetic_llava_params(one, "cpu", torch.float32, seed=9).vision
+    text = clip_text.init_params(tcfg, "cpu", torch.float32, seed=9)
+    g = torch.Generator().manual_seed(9)
+    post_ln = (1 + 0.1 * torch.randn(vcfg.hidden_size, generator=g),
+               0.1 * torch.randn(vcfg.hidden_size, generator=g))
+    proj = 0.02 * torch.randn(vcfg.hidden_size, tcfg.projection_dim, generator=g)
+    names = sorted(coco_class_words())
+    tok = _StandInClipTokenizer(tcfg.vocab_size)
+    px = vcfg.image_size
+    pixels = np.random.default_rng(9).normal(size=(1, 1, 3, px, px)).astype(np.float32)
+    sides = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        zs = ClipZeroShot(vcfg, _to(vision, device), tuple(x.to(device) for x in post_ln),
+                          proj.to(device), tcfg, _to(text, device), tok, names)
+        sims, labels = [], []
+        for px in pixels:
+            labels.append(zs.labels(px, top_n=10))
+            sims.append(zs.similarities(px))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        sides[device] = (zs._text_embeds.cpu(), np.stack(sims), labels, time.perf_counter() - t0)
+    (te_g, s_g, l_g, secs_g), (te_c, s_c, l_c, secs_c) = sides["cuda"], sides["cpu"]
+    text_err = (te_g - te_c).abs().max().item()
+    sim_err = float(np.abs(s_g - s_c).max())
+    margins = [float(np.sort(s)[::-1][9] - np.sort(s)[::-1][10]) for s in s_c]
+    same = [a == b or m < sim_err for a, b, m in zip(l_g, l_c, margins)]
+    print(f"ClipZeroShot ViT-L/14-336 + text tower, 80 classes, fp32: text embeddings card vs CPU "
+          f"{text_err:.2e}, similarities {sim_err:.2e} (bounds 1e-4), top-10 labels equal "
+          f"{[a == b for a, b in zip(l_g, l_c)]} (10th-11th margins {margins}); card {secs_g:.2f} s, "
+          f"CPU {secs_c:.2f} s; labels {sorted(l_g[0])}")
+    if not (text_err <= 1e-4 and sim_err <= 1e-4 and all(same)):
+        raise AssertionError("ClipZeroShot: card and CPU differ")
+    return {"text_err": text_err, "sim_err": sim_err, "card_s": secs_g, "cpu_s": secs_c}
+
+
+class _StandInClipTokenizer:
+    """CLIP's tokenizer surface over words: BOS 49406, a word's id a hash of
+    it below ``vocab``, EOS 49407."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def __call__(self, text):
+        import zlib
+
+        return {"input_ids": [self.vocab - 2] + [zlib.crc32(w.encode()) % (self.vocab - 2)
+                                                for w in text.split()] + [self.vocab - 1]}
+
+
+def spec_consistency_cli(ckpt: str, coco: str, files: list, images: list, processor,
+                         device: str, check_counts, max_new: int, whole: bool) -> dict:
+    """The CHAIR CLI's last flags on the LLaVA-1.5-7B checkpoint at
+    ``ckpt``.  ``--original True --spec-gamma 4``: ``build_engine`` loads
+    the checkpoint and quantizes the int4 self-draft from the loaded tower
+    (timed), then the two images are captioned with ``--spec-draft int4``
+    and ``ngram`` (``max_new`` tokens, no eos), each caption equal to
+    ``generate_fused`` made directly, which ``spec_hold`` holds to the
+    greedy run, the CLI's launches exact (``spec_launches`` a caption).
+    Then the consistency analyses over the int4 arm's captions and their
+    CHAIR results (``ChairEvaluator`` on the written annotations):
+    ``--consistency`` (``lm_consistency_report``: a distribution for every
+    caption word, no kernel launched) and ``--consistency-im projection``
+    (``im_consistency_report``: K2 once an image, labels equal to those of
+    the plain top-k table of the same logits).  Returns the records."""
+    import dataclasses
+    import shutil
+
+    from dropoutdecoding_tpu_torch.cli import chair_test as cli
+    from dropoutdecoding_tpu_torch.evalsuite.chair import ChairEvaluator
+    from dropoutdecoding_tpu_torch.evalsuite.im_classifier import (
+        class_token_table,
+        coco_class_words,
+        projection_labels,
+    )
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import exact_top_k_ids
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    model, prompt, G = "llava-1.5", cli.PROMPTS["llava-1.5"], SPEC_GAMMA
+    cuda = device == "cuda"
+    work = os.path.join(ckpt, "spec_run")
+    argv = ["--coco-data-dir", coco, "--model-path", ckpt, "--image-numbers", "2", "--seed", "0",
+            "--method", "smoke", "--output-dir", os.path.join(work, "out"), "--sample-save-name",
+            os.path.join(work, "sample.log"), "--original", "True", "--spec-gamma", str(G)]
+    t0 = time.perf_counter()
+    built = cli.build_engine(cli.build_parser().parse_args(argv), device, cache=False)
+    if cuda:
+        torch.cuda.synchronize()
+    record = {"build_with_int4_draft_s": time.perf_counter() - t0}
+    draft_lm = built._spec.draft_lm
+    eng = dataclasses.replace(  # the CLI's engine, max_new tokens and no eos
+        built, gen=GenerationConfig(max_new_tokens=max_new, eos_token_id=-1, pad_token_id=0))
+    del built
+    L = eng.cfg.text.num_hidden_layers
+    inputs = [processor(prompt, image) for image in images]
+    direct_args = [(x["input_ids"], x["pixel_values"]) for x in inputs]
+    greedy = [greedy_with_logits(eng, a) for a in direct_args]
+    wrappers = _wrappers()
+    captions_by_arm = {}
+    for draft in ("int4", "ngram"):
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        arm_args = cli.build_parser().parse_args(argv + ["--spec-draft", draft])
+        cli.attach_speculative(eng, arm_args, draft_lm if draft == "int4" else None)
+        seen = []  # (cur, accepted) of every cycle of the CLI's run
+        eng._spec.on_verify = lambda cur, logits, n: seen.append((cur, n))
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        if whole:
+            make_engine = cli.make_engine
+            cli.make_engine = lambda a, device="cuda": (eng, processor)
+            cwd = os.getcwd()
+            os.chdir(work)
+            try:
+                cli.main(arm_args, device=device)
+            finally:
+                os.chdir(cwd)
+                cli.make_engine = make_engine
+            (captions,) = [f for f in os.listdir(arm_args.output_dir) if f.startswith("smoke")]
+            captions = os.path.join(arm_args.output_dir, captions)
+        else:
+            captions = os.path.join(work, "captions.jsonl")
+            for img_file, image in zip(files, images):
+                cli.emit_caption(captions, model, img_file,
+                                 cli.run_engine(eng, processor, model, prompt, image))
+        if cuda:
+            torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        eng._spec.on_verify = None
+        gens = [[]]  # the cycles of each caption: inside one, cur rises every cycle
+        for i, (cur, n) in enumerate(seen):
+            if i and cur <= seen[i - 1][0]:
+                gens.append([])
+            gens[-1].append(n)
+        want = {k: sum(spec_launches(g, G, L, lm=draft == "int4", int4=True)[k] for g in gens)
+                for k in wrappers}
+        want["K2"] = len(files)  # the target's prefill, once a caption
+        holds, direct = [], os.path.join(work, "direct.jsonl")
+        for img_file, a, gr in zip(files, direct_args, greedy):
+            hold = spec_hold(eng._spec, a, f"chair_cli --spec-draft {draft} {img_file}", gr,
+                             exact=False)
+            holds.append({k: v for k, v in hold.items() if k != "tokens"})
+            cli.emit_caption(direct, model, img_file, processor.decode(hold["tokens"]))
+        recs = sorted((json.loads(line) for line in open(captions)), key=lambda r: r["image_id"])
+        same = recs == [json.loads(line) for line in open(direct)]  # files are in id order
+        print(f"chair_cli --original --spec-gamma {G} --spec-draft {draft}: {len(recs)} captions "
+              f"in {cli_s:.2f} s, equal to generate_fused made directly: {same}; launches {counts} "
+              f"(want {want}); first caption: {recs[0]['caption']!r}")
+        if not same or len(recs) != len(files):
+            raise AssertionError(f"chair_cli --spec-draft {draft}: CLI captions differ")
+        (check_counts or _check_counts)(f"chair_cli --spec-draft {draft}", counts, want)
+        record[f"--spec-draft {draft}"] = {"captions_s": cli_s, "launches": counts, "holds": holds}
+        captions_by_arm[draft] = recs
+
+    # --- the consistency analyses over the int4 arm's captions ---
+    recs = captions_by_arm["int4"]
+    if not os.path.isdir(os.path.join(coco, "annotations")):
+        _write_coco(coco, files, images)
+    ev = ChairEvaluator([r["image_id"] for r in recs])
+    ev.load_annotations(os.path.join(coco, "annotations"))
+    cap_dict = ev.compute(recs)
+    hallucinated = sum(len(s["hallucination_idxs"]) for s in cap_dict["sentences"])
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    lm = cli.lm_consistency_report(eng, processor, model, recs, cap_dict,
+                                   os.path.join(work, "smoke_lm_consistency.json"))
+    lm_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    words = {r["image_id"]: len(r["caption"].split()) for r in recs}
+    if {k: len(v) for k, v in lm["distributions"].items()} != words or any(
+            not d for v in lm["distributions"].values() for d in v.values()):
+        raise AssertionError("--consistency: a caption word without its distribution")
+    (check_counts or _check_counts)("chair_cli --consistency", counts, dict.fromkeys(wrappers, 0))
+    print(f"chair_cli --consistency: {hallucinated} hallucinated words in {len(recs)} captions, "
+          f"mean blank-image rank {lm['mean_rank']:.2f}, per image {lm['per_image']}; {lm_s:.2f} s, "
+          f"launches {counts}")
+    record["--consistency"] = {"mean_rank": lm["mean_rank"], "hallucinated": hallucinated,
+                               "seconds": lm_s}
+    tables = []
+    eng.on_prefill = lambda logits, st: tables.append(exact_top_k_ids(logits, eng.ens.topk)[0])
+    for fn in wrappers.values():
+        fn.launches = 0
+    by_id = {int(f[-10:-4]): image for f, image in zip(files, images)}
+    t0 = time.perf_counter()
+    try:
+        im = cli.im_consistency_report(eng, processor, "projection", recs, cap_dict, by_id.get,
+                                       os.path.join(work, "smoke_im_consistency.json"))
+    finally:
+        eng.on_prefill = None
+    im_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    token_table = class_token_table(processor.tokenizer, coco_class_words())
+    twin = [projection_labels(t, token_table) for t in tables]
+    print(f"chair_cli --consistency-im projection: {im['consistency']:.3f} of {im['hallucinated']} "
+          f"hallucinated objects fired, labels {[sorted(v) for v in im['labels'].values()]}, equal "
+          f"to the plain table's: {list(im['labels'].values()) == twin}; {im_s:.2f} s, launches "
+          f"{counts}")
+    if list(im["labels"].values()) != twin:
+        raise AssertionError("--consistency-im: labels differ from the plain top-k table's")
+    (check_counts or _check_counts)("chair_cli --consistency-im", counts,
+                                    {**dict.fromkeys(wrappers, 0), "K2": len(files)})
+    record["--consistency-im projection"] = {"consistency": im["consistency"],
+                                             "hallucinated": im["hallucinated"], "seconds": im_s}
+    return record
+
+
 def end_to_end() -> tuple:
     """The main paths at full width and depth: LlavaEngine.generate at
     LLaVA-1.5-7B with synthetic bf16 weights and a bf16 cache, then with
@@ -2680,10 +3200,12 @@ def end_to_end() -> tuple:
     LlavaNextEngine.generate at LLaVA-v1.6-Mistral-7B with synthetic bf16
     weights; on bf16, int4 and NeXT, POPE (``pope_full``); serving on bf16
     (``serving_full``), w8a8 on the int8 weights (``w8a8_full``) and on
-    NeXT (``serving_next``).  Returns each kernel's launch count from the
+    NeXT (``serving_next``); speculative greedy decoding on bf16
+    (``speculative_full``).  Returns each kernel's launch count from the
     exact K=3 run of the path that runs it (the server's K1 from its exact
-    and fused runs), ``pope_full``'s records by tier and the serving
-    records."""
+    and fused runs, the int4 self-draft's K1 and K6 from its speculative
+    run), ``pope_full``'s records by tier, the serving records and the
+    speculative ones."""
     import gc
 
     import numpy as np
@@ -2733,6 +3255,8 @@ def end_to_end() -> tuple:
     step_costs(cfg.vision.num_patches, cfg.text.vocab_size)
     batch_of_two(llava_pair_engine(params, False), llava_pair(cfg), "bf16", int8_kv=False)
     base = baselines_full(llava(params, False), (ids, pixels), "bf16")
+    speculative, spec_s = _wall(lambda: speculative_full(params, cfg, ids, pixels))
+    speculative["seconds"] = spec_s
     # POPE (one token a question): two images of their own
     prng = np.random.default_rng(23)
     pope_pixels = prng.normal(size=(2, 3, 336, 336)).astype(np.float32)
@@ -2801,8 +3325,10 @@ def end_to_end() -> tuple:
         "K2": nxt["K2"], "K3": int8["K3"], "K4": int8["K4"], "K5": nxt["K5"], "K6": int4["K6"],
         "K1 serving": serving["bf16"]["exact"]["launches"]["K1"],
         "K1 serving fused": serving["bf16"]["fused"]["launches"]["K1"],
+        "K1 speculative draft": speculative["int4 draft"]["launches"]["K1"],
+        "K6 speculative draft": speculative["int4 draft"]["launches"]["K6"],
     }
-    return launches, pope, serving
+    return launches, pope, serving, speculative
 
 
 def vit_flops(vc, images: int) -> float:
@@ -3275,16 +3801,16 @@ class _StandInTokenizer:
     def __init__(self, image_token_index: int, vocab: int):
         self.image, self.vocab = image_token_index, vocab
 
-    def __call__(self, text, return_tensors="np"):
+    def __call__(self, text, return_tensors=None, add_special_tokens=True):
         import zlib
 
         import numpy as np
 
-        ids = [1] + [
+        ids = [1] * add_special_tokens + [
             self.image if w == "<image>" else 3 + zlib.crc32(w.encode()) % (min(self.vocab, 32000) - 3)
             for w in text.split()
         ]
-        return {"input_ids": np.array([ids], np.int64)}
+        return {"input_ids": np.array([ids], np.int64) if return_tensors == "np" else ids}
 
     def decode(self, ids, skip_special_tokens=True):
         return " ".join(self.WORDS[int(i) % len(self.WORDS)] for i in ids
@@ -3344,7 +3870,8 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
     beam search (over 3), 64 on the default arm and none under OPERA, K2
     once a prefill (twice a caption under VCD).  Then the POPE CLI on the
     same engine (``pope_cli``) and, on LLaVA-1.5, the serve CLI
-    (``serve_cli``).  ``cfg`` / ``config`` / ``device`` make a
+    (``serve_cli``), then ``--spec-gamma`` and the consistency analyses
+    (``spec_consistency_cli``).  ``cfg`` / ``config`` / ``device`` make a
     narrow rehearsal on the CPU possible.  Returns the phase's numbers."""
     import dataclasses
     import importlib.util
@@ -3573,6 +4100,13 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
         if not ib:  # the serve CLI serves LLaVA-1.5 and NeXT only
             record["serve_cli"] = serve_cli(engine, processor, ckpt, device, check_counts,
                                             max_new)
+            del engine, eng  # the speculative engine loads the checkpoint anew
+            if cuda:
+                torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            record["spec_consistency_cli"] = spec_consistency_cli(
+                ckpt, coco, files, images, processor, device, check_counts, max_new, whole)
+            record["spec_consistency_cli"]["seconds"] = time.perf_counter() - t0
         record.update(write_s=write_s, load_s=load_s, host_peak_gib=host_peak,
                       device_peak_gib=dev_peak, whole_main=whole)
         return record
@@ -3915,6 +4449,13 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
     },
+    "K1 speculative draft": {
+        "name": "ensemble_decode_attention (speculative int4 self-draft step: M = 1 over the "
+                "1152-slot dense draft cache)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
     "K2": {
         "name": "vision_uncertainty",
         "route": "cuda",
@@ -3952,6 +4493,12 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
     },
+    "K6 speculative draft": {
+        "name": "int4_matmul (the int4 self-draft: R = 1 a draft step, 595 its prefill)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
+    },
 }
 
 
@@ -3980,12 +4527,23 @@ def main() -> int:
     (_, ib_s["narrow"]) = _wall(lambda: small_reference("instructblip"))
     serve_s = {}
     (_, serve_s["narrow"]) = _wall(lambda: small_reference("serving"))
-    (launches, pope, serving), e2e_s = _wall(end_to_end)
+    spec_s = {}
+    (_, spec_s["narrow"]) = _wall(lambda: small_reference("speculative"))
+    (launches, pope, serving, speculative), e2e_s = _wall(end_to_end)
+    spec_s["speculative_full"] = speculative.pop("seconds")
     print(f"serving phase: {json.dumps(serving)}; card {card}")
+    print(f"speculative phase: {json.dumps(speculative, default=str)}; card {card}")
+    from dropoutdecoding_tpu_torch.cli import spec_bench
+
+    (_, spec_s["spec_bench"]) = _wall(
+        lambda: spec_bench.main(["--layers", "32", "--tokens", "64", "--prompts", "2"]))
+    torch.cuda.empty_cache()
     (ib_launches, ib_pope, towers), ib_s["full width"] = _wall(instructblip_full)
     launches.update(ib_launches)
     cli_record, serve_s["chair_cli (with serve_cli)"] = _wall(chair_cli)
+    spec_s["chair_cli spec and consistency"] = cli_record["spec_consistency_cli"]["seconds"]
     print(f"chair_cli phase: {json.dumps(cli_record)}; card {card}")
+    clip, spec_s["ClipZeroShot"] = _wall(clip_zero_shot_check)
     ib_cli, ib_s["CLI"] = _wall(lambda: chair_cli(model="instructblip"))
     print(f"chair_cli instructblip phase: {json.dumps(ib_cli)}; towers {json.dumps(towers)}; "
           f"POPE {json.dumps(ib_pope)}; card {card}")
@@ -3995,6 +4553,8 @@ def main() -> int:
     print(f"InstructBLIP phases, s: {json.dumps(ib_s)}, {sum(ib_s.values()):.1f} s added")
     print(f"serving phases, s: {json.dumps(serve_s)}; end_to_end with serving_full "
           f"{e2e_s:.1f} s")
+    print(f"speculative and consistency phases, s: {json.dumps(spec_s)}, "
+          f"{sum(spec_s.values()):.1f} s added; ClipZeroShot {json.dumps(clip)}")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

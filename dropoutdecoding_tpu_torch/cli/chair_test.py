@@ -20,9 +20,14 @@ on all three models (``--model llava-1.5``, ``llava-next`` and
 ``instructblip``, whose Q-Former reads the instruction through
 ``qformer_ids_for``), and every tier: ``--quantize int8``, ``w8a8`` (int8
 activations in the prefills' projections) and ``int4``, ``--w8a8-decode``
-and ``--int8-kv``.  Flags whose engine is not ported yet raise
-``NotImplementedError`` naming their ROADMAP Queue 1 item when the engine
-is built, before any image is read (``NOT_PORTED``).
+and ``--int8-kv``.  Speculative greedy decoding (``--original True
+--spec-gamma N``, LLaVA-1.5, one image at a time) drafts with the int4
+self-draft of the loaded weights (``--spec-draft int4``) or by prompt
+lookup (``ngram``), and captions through ``SpeculativeGreedy.
+generate_fused``: the greedy captions.  After the CHAIR scoring,
+``--consistency True`` and ``--consistency-im projection|clip`` (LLaVA-1.5)
+write the two consistency analyses (``lm_consistency_report``,
+``im_consistency_report``).  Every flag of the JAX CLI runs.
 """
 from __future__ import annotations
 
@@ -60,14 +65,6 @@ def str2bool(v) -> bool:
     return str(v).lower() not in ("false", "0", "no", "none", "")
 
 
-# (flag, whether args ask for it, ROADMAP Queue 1 item that ports its engine)
-NOT_PORTED = (
-    ("--spec-gamma", lambda a: bool(getattr(a, "spec_gamma", None)), 14),
-    ("--consistency", lambda a: str2bool(getattr(a, "consistency", False)), 15),
-    ("--consistency-im", lambda a: bool(getattr(a, "consistency_im", None)), 15),
-)
-
-
 def beam_count(args) -> int:
     """The JAX CLI's beam count: --opera defaults to 3 beams (the
     reference's OPERA arm)."""
@@ -76,12 +73,15 @@ def beam_count(args) -> int:
     return 3 if str2bool(args.opera) else 1
 
 
-def check_ported(args) -> None:
+def check_args(args) -> None:
     """Exit, as the JAX CLI does, on ``--do-sample`` with beams, on
-    ``--w8a8-decode`` without int8 weights and on ``--opera`` with
-    ``--original``, ``--vcd`` or a batch; then raise
-    ``NotImplementedError`` for the first flag in ``args`` whose engine the
-    port does not have yet."""
+    ``--w8a8-decode`` without int8 weights, on ``--spec-gamma`` outside
+    single-image greedy LLaVA-1.5, on ``--opera`` with ``--original``,
+    ``--vcd`` or a batch, and on the consistency analyses outside LLaVA-1.5
+    or ``clip`` without ``--clip-path``: before the tokenizer, the weights
+    or an image is read (the JAX CLI reaches the last two after
+    captioning)."""
+    model = args.model
     if str2bool(getattr(args, "do_sample", False)) and beam_count(args) > 1:
         raise SystemExit(
             "--do-sample with --num-beams > 1 (beam-sample) is not "
@@ -91,6 +91,19 @@ def check_ported(args) -> None:
         "int8", "w8a8",
     ):
         raise SystemExit("--w8a8-decode needs int8 weights: pass --quantize int8 or w8a8")
+    if getattr(args, "spec_gamma", None):
+        if not str2bool(args.original) or model != "llava-1.5":
+            raise SystemExit(
+                "--spec-gamma accelerates the greedy baseline: pass "
+                "--original True with --model llava-1.5"
+            )
+        if str2bool(getattr(args, "do_sample", False)) or beam_count(args) > 1:
+            raise SystemExit(
+                "--spec-gamma is plain greedy "
+                "(drop --do-sample / --num-beams)"
+            )
+        if (getattr(args, "batch_size", 1) or 1) > 1:
+            raise SystemExit("--spec-gamma is single-stream (B=1); drop --batch-size")
     if str2bool(args.opera):
         if str2bool(args.original) or str2bool(args.vcd):
             raise SystemExit("--opera excludes --original/--vcd")
@@ -99,9 +112,23 @@ def check_ported(args) -> None:
                 "--opera rollback makes per-image steps diverge; it runs "
                 "one image per program (drop --batch-size)"
             )
-    for flag, asked, item in NOT_PORTED:
-        if asked(args):
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+    if str2bool(getattr(args, "consistency", False)) and model != "llava-1.5":
+        raise SystemExit(
+            "--consistency is defined for llava-1.5 (the reference "
+            "analysis was written against LLaVA captions)"
+        )
+    im_mode = getattr(args, "consistency_im", None)
+    if im_mode and model != "llava-1.5":
+        raise SystemExit(
+            "--consistency-im is defined for llava-1.5 (the "
+            "reference analysis was written against LLaVA captions)"
+        )
+    if im_mode == "clip" and not getattr(args, "clip_path", None):
+        raise SystemExit(
+            "--consistency-im clip needs --clip-path pointing at "
+            "a FULL CLIP checkpoint (e.g. openai/clip-vit-large-"
+            "patch14-336); LLaVA ships only the vision encoder"
+        )
 
 
 def build_ensemble_config(args, model: str) -> EnsembleConfig:
@@ -172,7 +199,7 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
     weights; ``eos_token_id`` is the tokenizer's, 2 for LLaVA's Llama and
     Mistral tokenizers).  ``cache`` keeps the converted weights between
     runs (``utils/cache.py``)."""
-    check_ported(args)
+    check_args(args)
     model = args.model
     use_opera = str2bool(args.opera)
     es = getattr(args, "early_stopping", "false")
@@ -196,7 +223,7 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
         seed=args.seed if args.seed is not None else REFERENCE_SEEDS[model],
         text_logits_mask=str2bool(getattr(args, "text_logit_mask", False)),
         # w8a8: int8 activations in the prefills' projections; --w8a8-decode
-        # in the decode steps' (check_ported asks for int8 weights)
+        # in the decode steps' (check_args asks for int8 weights)
         w8a8_prefill=getattr(args, "quantize", None) == "w8a8",
         w8a8_decode=str2bool(getattr(args, "w8a8_decode", False)),
         int8_kv=str2bool(getattr(args, "int8_kv", False)),
@@ -207,12 +234,15 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
         from ..models import llava as llava_mod
 
         cfg, params = llava_mod.load(args.model_path, torch.bfloat16, device, cache)
+        # the int4 self-draft comes from the loaded weights, before --quantize
+        draft_lm = speculative_draft(args, params.lm)
         engine = LlavaEngine(
             cfg=cfg,
             params=maybe_quantize(args, params),
             max_len=cfg.vision.num_patches + 64 + 512,
             **common,
         )
+        attach_speculative(engine, args, draft_lm)
     elif model == "instructblip":
         from ..engine.instructblip_engine import InstructBlipEngine
         from ..models import instructblip as ib_mod
@@ -242,6 +272,52 @@ def build_engine(args, device="cuda", eos_token_id: int = 2, cache: bool = True)
     return engine
 
 
+def speculative_draft(args, raw_lm: dict):
+    """``--spec-gamma`` with ``--spec-draft int4``: the int4 self-draft of
+    the loaded LM tower (``quantize_llama_params_int4``, int8 head), its
+    projections fused as the int4 tier's are (K6 4 launches a layer, not
+    7); None otherwise."""
+    if not getattr(args, "spec_gamma", None) or (getattr(args, "spec_draft", "int4") or "int4") != "int4":
+        return None
+    from ..utils.quantize import fuse_projections, quantize_llama_params_int4
+
+    return fuse_projections(quantize_llama_params_int4(raw_lm))
+
+
+def attach_speculative(engine, args, draft_lm) -> None:
+    """``--spec-gamma``: ``engine._spec``, the ``SpeculativeGreedy`` that
+    ``run_engine`` captions through, with the int4 ``draft_lm`` or
+    (``--spec-draft ngram``) prompt lookup; prints the JAX CLI's note."""
+    gamma = getattr(args, "spec_gamma", None)
+    if not gamma:
+        return
+    from ..engine.speculative import SpeculativeGreedy
+
+    if (getattr(args, "spec_draft", "int4") or "int4") == "ngram":
+        engine._spec = SpeculativeGreedy(engine=engine, draft_lm=None, gamma=int(gamma),
+                                         draft="ngram")
+        print(
+            "--spec-draft ngram note: output is exactly the "
+            "greedy sequence; speed scales with how often the "
+            "output repeats its own bigrams (measured win on "
+            "repetitive decode, see STATUS.md / "
+            "cli/spec_bench.py).",
+            file=sys.stderr,
+        )
+    else:
+        engine._spec = SpeculativeGreedy(engine=engine, draft_lm=draft_lm, gamma=int(gamma))
+        print(
+            "--spec-gamma note: output is exactly the greedy "
+            "sequence; SPEED depends on the int4 self-draft's "
+            "acceptance rate (alpha).  Trained checkpoints sit "
+            "at the literature's 0.7-0.9 (projected ~1.3-1.5x "
+            "greedy); on uncorrelated/random weights alpha~0 "
+            "and speculation LOSES to plain --original "
+            "(STATUS.md, cli/spec_bench.py).",
+            file=sys.stderr,
+        )
+
+
 def opera_knobs(args, num_beams: int) -> dict:
     """``opera_generate``'s keywords from the flags: the reference's OPERA
     arm runs scale 5, threshold 15, one attention candidate and penalty
@@ -259,7 +335,7 @@ def opera_knobs(args, num_beams: int) -> dict:
 def make_engine(args, device="cuda"):
     """(engine, processor) for ``args``: the JAX CLI's ``make_engine`` for
     the arms the port has."""
-    check_ported(args)  # before the tokenizer files are read
+    check_args(args)  # before the tokenizer files are read
     processor = load_processor(args.model_path)
     engine = build_engine(args, device, eos_token_id=processor.tokenizer.eos_token_id)
     return engine, processor
@@ -330,6 +406,9 @@ def run_engine(engine, processor, model, prompt, image):
                               qformer_ids_for(processor, prompt, inputs))
     else:
         inputs = processor(prompt, image)
+        if getattr(engine, "_spec", None) is not None:  # --spec-gamma: the greedy tokens
+            tokens, _ = engine._spec.generate_fused(inputs["input_ids"], inputs["pixel_values"])
+            return processor.decode(tokens)
         result = generate_arm(engine, model, inputs["input_ids"], inputs["pixel_values"])
     return processor.decode(result.tokens[0][: result.num_tokens[0]])
 
@@ -528,6 +607,30 @@ def main(args, device="cuda"):
         verbosity=True,
     )
 
+    chair_json = os.path.join(
+        "./results", args.method, f"llava_{model}", "coco",
+        f"llava_{model}_coco_num_images_500_chair_results.json",
+    )
+    im_mode = getattr(args, "consistency_im", None)
+    if str2bool(getattr(args, "consistency", False)) or im_mode:
+        with open(chair_json) as f:
+            cap_dict = json.load(f)
+    if str2bool(getattr(args, "consistency", False)):
+        lm_consistency_report(
+            engine, processor, model, deduped, cap_dict,
+            os.path.join(args.output_dir, f"{args.method}_lm_consistency.json"),
+        )
+    if im_mode:
+        def image_of(image_id):
+            name = coco.loadImgs(image_id)[0]["file_name"]
+            return load(os.path.join(args.coco_data_dir, "val2014", name))
+
+        im_consistency_report(
+            engine, processor, im_mode, deduped, cap_dict, image_of,
+            os.path.join(args.output_dir, f"{args.method}_im_consistency.json"),
+            getattr(args, "clip_path", None),
+        )
+
     if str2bool(getattr(args, "throne", False)):
         # THRONE-format export + class-wise P/R scoring
         from ..evalsuite.throne import evaluate_throne_file
@@ -552,14 +655,92 @@ def main(args, device="cuda"):
         )
 
 
+def lm_consistency_report(engine, processor, model, deduped, cap_dict, path) -> dict:
+    """``--consistency``: each caption's blank-image next-word distributions
+    (``evalsuite/consistency_producer.py``) and the mean blank-image rank of
+    its hallucinated words (``lm_consistency`` of the CHAIR results
+    ``cap_dict``), written to ``path`` as the JAX CLI writes them.  Returns
+    the result with the distributions."""
+    from ..evalsuite.consistency import lm_consistency
+    from ..evalsuite.consistency_producer import blank_image_distributions
+
+    dists = {rec["image_id"]: blank_image_distributions(engine, processor, PROMPTS[model],
+                                                        rec["caption"])
+             for rec in deduped}
+    result = lm_consistency(cap_dict, dists)
+    with open(path, "w") as f:
+        json.dump({"mean_rank": result["mean_rank"], "per_image": result["per_image"],
+                   "distributions_topk": {str(k): v for k, v in dists.items()}}, f)
+    print(f"LM consistency: mean hallucinated-word blank-image rank "
+          f"{result['mean_rank']:.2f} -> {path}")
+    return {**result, "distributions": dists}
+
+
+def clip_zero_shot(clip_path: str, class_names: list, device):
+    """(``ClipZeroShot`` over a full CLIP checkpoint at ``clip_path``, its
+    image preprocessor): ViT-L/14-336 and its text tower, bf16 on
+    ``device``.  ``transformers``' ``CLIPTokenizer`` is imported here only,
+    for this branch alone reads it."""
+    from transformers import CLIPTokenizer
+
+    from ..evalsuite.im_classifier import ClipZeroShot
+    from ..models import clip_text, clip_vit
+    from ..utils.config import ClipTextConfig, ClipVisionConfig
+    from ..utils.hf_io import load_state_dict
+    from ..utils.processor import ClipImagePreprocessor
+
+    sd = load_state_dict(clip_path)
+    vcfg, tcfg = ClipVisionConfig(), ClipTextConfig()
+    post_ln = tuple(torch.as_tensor(sd[f"vision_model.post_layernorm.{n}"]).to(device)
+                    for n in ("weight", "bias"))
+    vproj = torch.as_tensor(sd["visual_projection.weight"]).to(device).t()
+    zs = ClipZeroShot(
+        vcfg, clip_vit.params_from_hf(vcfg, sd, device=device), post_ln, vproj, tcfg,
+        clip_text.params_from_hf(tcfg, sd, device=device), CLIPTokenizer.from_pretrained(clip_path),
+        class_names,
+    )
+    return zs, ClipImagePreprocessor(size=vcfg.image_size)
+
+
+def im_consistency_report(engine, processor, mode, deduped, cap_dict, image_of, path,
+                          clip_path=None) -> dict:
+    """``--consistency-im``: each captioned image's classifier labels, from
+    the engine's visual-token projection table (``projection``: one prefill
+    an image, the table K2 makes) or CLIP zero-shot (``clip``), and the share
+    of hallucinated objects the classifier also fires for
+    (``image_consistency`` of the CHAIR results ``cap_dict``), written to
+    ``path`` as the JAX CLI writes them.  ``image_of(image_id)`` gives an
+    image.  Returns the result with the labels."""
+    from ..evalsuite.consistency import image_consistency
+    from ..evalsuite.im_classifier import class_token_table, coco_class_words, projection_labels
+
+    class_words = coco_class_words()
+    labels = {}
+    if mode == "projection":
+        table = class_token_table(processor.tokenizer, class_words)
+        for rec in deduped:
+            inputs = processor(PROMPTS["llava-1.5"], image_of(rec["image_id"]))
+            st = engine.prefill(inputs["input_ids"], inputs["pixel_values"])
+            labels[rec["image_id"]] = projection_labels(st.topk_ids[0], table)
+    else:
+        zs, clip_prep = clip_zero_shot(clip_path, sorted(class_words), engine.device)
+        for rec in deduped:
+            labels[rec["image_id"]] = zs.labels(clip_prep(image_of(rec["image_id"]))[None])
+    result = image_consistency(cap_dict, labels)
+    with open(path, "w") as f:
+        json.dump({"mode": mode, "consistency": result["consistency"],
+                   "hallucinated": result["hallucinated"],
+                   "labels": {str(k): sorted(v) for k, v in labels.items()}}, f)
+    print(f"IM consistency ({mode}): {result['consistency']:.3f} of "
+          f"{result['hallucinated']} hallucinated objects also fired "
+          f"in the image classifier -> {path}")
+    return {**result, "labels": labels}
+
+
 def build_parser():
     """The JAX CLI's parser, flag for flag, name for name, default for
-    default; the flags in ``NOT_PORTED`` parse and then raise when the
-    engine is built."""
-    p = argparse.ArgumentParser(
-        description="CHAIR captioning with the PyTorch port (flags whose engine "
-        "is not ported yet raise NotImplementedError naming their ROADMAP item)"
-    )
+    default."""
+    p = argparse.ArgumentParser(description="CHAIR captioning with the PyTorch port")
     p.add_argument("--method", type=str, default="None")
     p.add_argument("--use-prev-sample", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)

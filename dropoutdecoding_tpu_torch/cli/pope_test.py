@@ -288,7 +288,7 @@ def main(args, device="cuda"):
     if str2bool(args.prefix_cache) and model_key == "instructblip":
         raise SystemExit(NO_SHARED_PREFIX)  # before the model loads: the constraint is structural
     eng_args = engine_args(args, model_key)
-    chair_test.check_ported(eng_args)  # before any question, weight or image is read
+    chair_test.check_args(eng_args)  # before any question, weight or image is read
 
     question_dir = os.path.join(args.pope_dir, "output", "coco")
     if str2bool(args.refresh_data):

@@ -29,9 +29,10 @@ quantizes its activation rows and multiplies int8 by int8 into int32
 sums (``_mm_w8a8``); the head keeps its own path.
 
 Unlike the JAX package, the cache is updated in place: ``cache_seed``,
-``cache_set_rows``, ``cache_reorder_rows`` (beam search's reorder) and
-``cache_copy_slot`` / ``cache_copy_slots`` (the serving layer's placement)
-write into the KVCache's tensors.  On an int8 cache ``cache_set_rows`` is
+``cache_write_span`` (the speculative verify's block), ``cache_set_rows``,
+``cache_reorder_rows`` (beam search's reorder) and ``cache_copy_slot`` /
+``cache_copy_slots`` (the serving layer's placement) write into the
+KVCache's tensors.  On an int8 cache ``cache_set_rows`` is
 K4 (``ops/cuda_cache_append.py``).
 
 Not ported yet (raises ``NotImplementedError``): tensor parallelism
@@ -156,18 +157,31 @@ def _quantize_new(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor):
     return flat(quantize_kv(k_new)), flat(quantize_kv(v_new))
 
 
-def cache_seed(cache: KVCache, kv: KVCache) -> KVCache:
-    """Write the prefill K/V ([L, B, S0, KH, D], dense) at slot 0, in place;
-    quantized per (token, head) for an int8 cache."""
-    S0 = kv.k.shape[2]
+def cache_write_span(cache: KVCache, start: int, kv: KVCache) -> KVCache:
+    """Write a dense K/V block ([L, B, T, KH, D]) at slots ``start`` ..
+    ``start + T - 1``, in place (JAX ``models/llama.py:170``: the
+    speculative verify's block append); quantized per (token, head) for an
+    int8 cache, so the block is bit-equal to T sequential ``cache_set_rows``
+    appends.  Where JAX's ``dynamic_update_slice`` clamps a start past
+    ``S - T`` (and so overwrites earlier rows), this raises."""
+    T = kv.k.shape[2]
+    S = _leaves(cache)[0].shape[2]
+    if not 0 <= start <= S - T:
+        raise ValueError(f"cache_write_span: slots [{start}, {start + T}) outside a cache of {S}")
     kn, vn = _quantize_new(cache, kv.k, kv.v)
+    span = slice(start, start + T)
     for leaf, new in ((cache.k, kn), (cache.v, vn)):
         if isinstance(leaf, dict):
-            leaf["q"][:, :, :S0] = new["q"]
-            leaf["s"][..., :S0] = new["s"][..., 0].transpose(2, 3)  # [L, B, KH, S0]
+            leaf["q"][:, :, span] = new["q"]
+            leaf["s"][..., span] = new["s"][..., 0].transpose(2, 3)  # [L, B, KH, T]
         else:
-            leaf[:, :, :S0] = new
+            leaf[:, :, span] = new
     return cache
+
+
+def cache_seed(cache: KVCache, kv: KVCache) -> KVCache:
+    """Write the prefill K/V ([L, B, S0, KH, D], dense) at slot 0, in place."""
+    return cache_write_span(cache, 0, kv)
 
 
 def cache_set_rows(

@@ -1,5 +1,5 @@
 """Frozen configuration dataclasses of the LLaVA-1.5, LLaVA-NeXT and
-InstructBLIP Dropout Decoding paths.
+InstructBLIP Dropout Decoding paths, and of the CLIP text tower.
 
 A copy of the matching dataclasses in ``dropoutdecoding_tpu/utils/config.py``
 with the same fields and defaults (LLaVA-1.5-7B, LLaVA-v1.6-Mistral-7B,
@@ -93,6 +93,24 @@ class ClipVisionConfig:
             hidden_act=d.get("hidden_act", "quick_gelu"),
             projection_dim=d.get("projection_dim", 768),
         )
+
+
+@dataclass(frozen=True)
+class ClipTextConfig:
+    """CLIP text tower, the zero-shot classifier of the CHAIR CLI's
+    ``--consistency-im clip`` (``models/clip_text.py``); the defaults are
+    CLIP ViT-L/14's text side (full CLIP checkpoints only: LLaVA ships the
+    vision encoder alone)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    intermediate_size: int = 3072
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+    hidden_act: str = "quick_gelu"
+    projection_dim: int = 768
 
 
 @dataclass(frozen=True)

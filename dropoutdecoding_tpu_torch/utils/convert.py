@@ -13,7 +13,7 @@ from ..models.instructblip import InstructBlipParams
 from ..models.llava import LlavaParams
 from ..models.llavanext import LlavaNextParams
 from .config import InstructBlipConfig, LlamaConfig, LlavaConfig, LlavaNextConfig
-from .quantize import INT4_GROUP
+from .quantize import INT4_GROUP, _fit_group, quantize_matrix, quantize_matrix_int4
 
 
 def _to_torch(tree, device, dtype):
@@ -316,3 +316,65 @@ def synthetic_int4_lm(cfg: LlamaConfig, device: torch.device | str, seed: int = 
         return {"q": q, "s": torch.full((1, V), 0.02 / 73.9, device=device)}
 
     return _synthetic_lm(cfg, device, gen, projections, head8)
+
+
+def _dual_base(cfg: LlamaConfig, device, gen):
+    """The bf16 base of ``synthetic_llava_dual_lm``, one matrix at a time:
+    (fused leaf, layer, output column, w [D, E] fp32 holding bf16 values)
+    for q, k, v, o, gate, up and down of every layer, normal(0, 0.02)."""
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    parts = {  # fused leaf -> (in-dim, its projections' out-dims)
+        "qkv_proj": (D, (H * Dh, KH * Dh, KH * Dh)),
+        "o_proj": (H * Dh, (D,)),
+        "gate_up_proj": (D, (I, I)),
+        "down_proj": (I, (D,)),
+    }
+    for name, (d, widths) in parts.items():
+        for layer in range(L):
+            col = 0
+            for e in widths:
+                w = torch.empty(d, e, device=device).normal_(0.0, 0.02, generator=gen)
+                yield name, layer, col, w.to(torch.bfloat16).float()
+                col += e
+
+
+def synthetic_llava_dual_lm(cfg: LlamaConfig, device: torch.device | str,
+                            seed: int = 0) -> tuple[dict, dict]:
+    """(int8 tower, int4 tower) quantized from one seeded bf16 base
+    (counterpart of ``dropoutdecoding_tpu/utils/synthetic.py:186``): the
+    speculative bench's target and its int4 self-draft.  The base is made
+    one [D, E] matrix at a time on ``device`` and quantized at once by
+    ``quantize_matrix`` and ``quantize_matrix_int4`` (group fitted as
+    ``quantize_llama_params_int4`` fits it), so the bf16 tower (13.5 GB at
+    Vicuna-7B) is never resident.  Projections come fused
+    (``fuse_projections`` layout); the embeddings, norms and the int8
+    ``lm_head`` are one set of tensors that both towers share.  At the
+    Vicuna-7B defaults the towers are about 6.6 and 3.6 GB."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    D, I, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_hidden_layers
+    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    shapes = {"qkv_proj": (D, (H + 2 * KH) * Dh), "o_proj": (H * Dh, D),
+              "gate_up_proj": (D, 2 * I), "down_proj": (I, D)}
+    l8, l4 = {}, {}
+    for name, (d, e) in shapes.items():
+        g = _fit_group(d, INT4_GROUP)
+        l8[name] = {"q": torch.empty(L, d, e, dtype=torch.int8, device=device),
+                    "s": torch.empty(L, 1, e, device=device)}
+        l4[name] = {"q4": torch.empty(L, d // 2, e, dtype=torch.int8, device=device),
+                    "s4": torch.empty(L, d // g, e, device=device)}
+    for name, layer, col, w in _dual_base(cfg, device, gen):
+        cols = slice(col, col + w.shape[1])
+        q8 = quantize_matrix(w)
+        q4 = quantize_matrix_int4(w, _fit_group(w.shape[0], INT4_GROUP))
+        for leaf, q in ((l8[name], q8), (l4[name], q4)):
+            for k, v in q.items():
+                leaf[k][layer, :, cols] = v
+
+    def head8():
+        w = torch.empty(D, cfg.vocab_size, device=device).normal_(0.0, 0.02, generator=gen)
+        return quantize_matrix(w.to(torch.bfloat16).float())
+
+    lm8 = _synthetic_lm(cfg, device, gen, l8, head8)
+    return lm8, {**lm8, "layers": {**lm8["layers"], **l4}}

@@ -11,7 +11,10 @@ caption records, self-critical JSON, CHAIR results and THRONE scores, for
 (``--quantize w8a8``, and ``--quantize int8 --w8a8-decode True``), the
 fused arm with sampling and the text mask (all three of JAX's streams
 injected), and the baselines: VCD (JAX's noised pixels and draws injected),
-beam search and OPERA, serial and batched.
+beam search and OPERA, serial and batched.  ``--spec-gamma`` (both
+drafts) writes what the JAX CLI's ``--original`` writes, and
+``--consistency`` / ``--consistency-im projection`` write the JAX CLI's
+two analysis files (probabilities within rtol 1e-5).
 """
 import dataclasses
 import json
@@ -83,7 +86,7 @@ def _arm(args):
     return not (jcli.str2bool(args.original) or jcli.str2bool(args.vcd) or opera), knobs
 
 
-def _jax_make_engine(weights):
+def _jax_make_engine(weights, processor=_TinyProcessor):
     jp, _ = weights
 
     def make(args):
@@ -102,17 +105,17 @@ def _jax_make_engine(weights):
         eng.param_dtype = jnp.float32
         if opera is not None:
             eng._opera = opera
-        return eng, _TinyProcessor(eng.cfg)
+        return eng, processor(eng.cfg)
 
     return make
 
 
-def _port_make_engine(weights, engines=None):
+def _port_make_engine(weights, engines=None, processor=_TinyProcessor):
     _, tp = weights
 
     def make(args, device="cuda"):
         assert device == "cpu"
-        tcli.check_ported(args)
+        tcli.check_args(args)
         ensemble, opera = _arm(args)
         eng = LlavaEngine(
             cfg=tiny_config(torch_config), params=tcli.maybe_quantize(args, tp),
@@ -128,9 +131,10 @@ def _port_make_engine(weights, engines=None):
         if opera is not None:
             assert opera == tcli.opera_knobs(args, tcli.beam_count(args))
             eng._opera = opera
+        tcli.attach_speculative(eng, args, tcli.speculative_draft(args, tp.lm))
         if engines is not None:
             engines.append(eng)
-        return eng, _TinyProcessor(eng.cfg)
+        return eng, processor(eng.cfg)
 
     return make
 
@@ -156,7 +160,8 @@ def _run(cli, coco, workdir, extra, monkeypatch, n=4, **main_kw):
     args = cli.build_parser().parse_args(_argv(coco, workdir, extra, n))
     cli.main(args, **main_kw)
     outputs = workdir / "outputs"
-    (captions,) = [f for f in os.listdir(outputs) if f.startswith(METHOD)]
+    (captions,) = [f for f in os.listdir(outputs)
+                   if f.startswith(METHOD) and not f.endswith("_consistency.json")]
     (throne,) = [f for f in os.listdir(outputs) if f.startswith("throne_")]
     m = args.model
     return {
@@ -248,7 +253,7 @@ def test_llavanext_caption_equals_engine_generate(synthetic_coco, tmp_path, monk
     extra = NEXT_ARMS[arm]
 
     def make(args, device="cuda"):
-        tcli.check_ported(args)
+        tcli.check_args(args)
         ensemble, opera = _arm(args)
         eng = LlavaNextEngine(
             cfg=cfg, params=params, ens=tcli.build_ensemble_config(args, args.model),
@@ -309,23 +314,6 @@ def test_build_ensemble_config_matches(extra):
     got = tcli.build_ensemble_config(targs, targs.model)
     want = jcli.build_ensemble_config(jargs, jargs.model)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
-
-
-NOT_PORTED = [
-    (["--spec-gamma", "3"], 14),
-    (["--consistency", "True"], 15),
-    (["--consistency-im", "projection"], 15),
-]
-
-
-@pytest.mark.parametrize("extra,item", NOT_PORTED, ids=[" ".join(e) for e, _ in NOT_PORTED])
-def test_not_ported_flag_raises_before_any_work(tmp_path, monkeypatch, extra, item):
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setattr(tcli, "load_processor", lambda path: pytest.fail("tokenizer read"))
-    args = tcli.build_parser().parse_args(_argv(tmp_path / "coco", tmp_path, extra))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}\\)"):
-        tcli.main(args, device="cpu")
-    assert os.listdir(tmp_path) == []  # nothing sampled, read or written
 
 
 @pytest.mark.parametrize("extra", [["--w8a8-decode", "True"],
@@ -526,3 +514,147 @@ def test_stage_timer_and_profile_trace(tmp_path):
     with profile_trace(str(tmp_path / "prof")):
         torch.ones(4) @ torch.ones(4)
     assert json.load(open(tmp_path / "prof" / "trace.json"))["traceEvents"]
+
+
+# --- speculative decoding (--spec-gamma) -------------------------------------------------
+
+
+@pytest.mark.parametrize("extra", [["--spec-gamma", "3"], ["--spec-gamma", "3", "--spec-draft", "ngram"],
+                                   ["--spec-gamma", "4", "--int8-kv", "True"]],
+                         ids=["int4-draft", "ngram", "int4-draft-int8-kv"])
+def test_spec_captions_equal_the_jax_original(synthetic_coco, tmp_path, monkeypatch, weights, extra):
+    """--original True --spec-gamma N through the port's main writes every
+    file the JAX CLI's --original run writes (the greedy captions): with the
+    int4 self-draft of the tiny tower (its projections fused) and with
+    the ngram draft, each caption through ``generate_fused``."""
+    engines = []
+    kv = ["--int8-kv", "True"] if "--int8-kv" in extra else []
+    monkeypatch.setattr(jcli, "make_engine", _jax_make_engine(weights))
+    ref = _run(jcli, synthetic_coco, tmp_path / "jax", ["--original", "True"] + kv, monkeypatch)
+    monkeypatch.setattr(tcli, "make_engine", _port_make_engine(weights, engines))
+    got = _run(tcli, synthetic_coco, tmp_path / "port", ["--original", "True"] + extra, monkeypatch,
+               device="cpu")
+    assert got == ref
+    (eng,) = engines
+    spec = eng._spec
+    assert spec.gamma == int(extra[1]) and spec.draft == ("ngram" if "ngram" in extra else "lm")
+    if spec.draft == "lm":
+        assert set(spec.draft_lm["layers"]["qkv_proj"]) == {"q4", "s4"}  # int4, fused
+        assert set(spec.draft_lm["lm_head"]) == {"q", "s"}
+
+
+SPEC_EXITS = [  # (flags beside --spec-gamma 3, the JAX CLI's message)
+    ([], "accelerates the greedy baseline"),
+    (["--original", "True", "--model", "llava-next"], "accelerates the greedy baseline"),
+    (["--original", "True", "--do-sample", "True"], "is plain greedy"),
+    (["--original", "True", "--num-beams", "3"], "is plain greedy"),
+    (["--original", "True", "--batch-size", "2"], "single-stream"),
+]
+
+
+@pytest.mark.parametrize("extra,message", SPEC_EXITS,
+                         ids=["no-original", "llava-next", "do-sample", "beams", "batched"])
+def test_spec_exits_as_the_jax_cli(tmp_path, monkeypatch, extra, message):
+    """Each of the JAX CLI's three --spec-gamma exits, with its message,
+    before the tokenizer, a weight or an image is read."""
+    from dropoutdecoding_tpu.utils import processor as jproc
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "load_processor", lambda path: pytest.fail("tokenizer read"))
+    monkeypatch.setattr(jproc.VlmProcessor, "from_checkpoint",
+                        classmethod(lambda cls, path: _TinyProcessor(tiny_config(jax_config))))
+    argv = _argv(tmp_path / "coco", tmp_path, ["--spec-gamma", "3"] + extra)
+    with pytest.raises(SystemExit, match=message) as want:
+        jcli.make_engine(jcli.build_parser().parse_args(argv))
+    with pytest.raises(SystemExit, match=message) as got:
+        tcli.main(tcli.build_parser().parse_args(argv), device="cpu")
+    assert str(got.value) == str(want.value)
+    assert os.listdir(tmp_path) == []
+
+
+def test_spec_draft_is_the_int4_of_the_loaded_tower(fake_load, weights, capsys):
+    """``build_engine``'s --spec-gamma wiring: the int4 self-draft quantized
+    from the loaded tower before --quantize (the target int8 here), fused;
+    ngram has no tower; the JAX CLI's stderr notes."""
+    from dropoutdecoding_tpu_torch.utils.quantize import fuse_projections, quantize_llama_params_int4
+
+    _, tp = weights
+    eng, _ = _make(["--original", "True", "--spec-gamma", "4", "--quantize", "int8"])
+    assert set(eng.params.lm["layers"]["qkv_proj"]) == {"q", "s"}  # the target: int8
+    want = fuse_projections(quantize_llama_params_int4(tp.lm))
+    got = eng._spec.draft_lm
+    for name in ("qkv_proj", "o_proj", "gate_up_proj", "down_proj"):
+        for k in ("q4", "s4"):
+            assert torch.equal(got["layers"][name][k], want["layers"][name][k])
+    assert (eng._spec.gamma, eng._spec.draft, eng.ensemble) == (4, "lm", False)
+    assert "--spec-gamma note: output is exactly the greedy sequence" in capsys.readouterr().err
+    eng, _ = _make(["--original", "True", "--spec-gamma", "2", "--spec-draft", "ngram"])
+    assert eng._spec.draft == "ngram" and eng._spec.draft_lm is None
+    assert "--spec-draft ngram note" in capsys.readouterr().err
+    assert not hasattr(_make(["--original", "True"])[0], "_spec")
+
+
+# --- the consistency analyses (--consistency, --consistency-im) -------------------------
+
+
+class _WordProcessor(_TinyProcessor):
+    """_TinyProcessor with a word-level tokenizer (one token a word), which
+    the analyses call, and captions that name a cat and a table beside the
+    synthetic COCO's dog and chair (two hallucinated objects a caption)."""
+
+    def __init__(self, cfg):
+        from test_torch_consistency import StubTokenizer
+
+        super().__init__(cfg)
+        self.tokenizer = StubTokenizer(cfg.text.vocab_size)
+
+    def decode(self, token_ids, skip_special_tokens=True):
+        return "a cat on a table by a dog" + "".join(f" t{int(t)}" for t in token_ids)
+
+
+def test_consistency_files_equal_the_jax_clis(synthetic_coco, tmp_path, monkeypatch, weights):
+    """--consistency True and --consistency-im projection write the JAX
+    CLI's two files: the same ranks, labels and words, the blank-image
+    probabilities within rtol 1e-5 (fp32 through two frameworks)."""
+    from test_torch_consistency import assert_distributions_equal
+
+    extra = ["--original", "True", "--consistency", "True", "--consistency-im", "projection"]
+    out = {}
+    for name, cli, make, kw in (("jax", jcli, _jax_make_engine(weights, _WordProcessor), {}),
+                                ("port", tcli, _port_make_engine(weights, processor=_WordProcessor),
+                                 {"device": "cpu"})):
+        monkeypatch.setattr(cli, "make_engine", make)
+        files = _run(cli, synthetic_coco, tmp_path / name, extra, monkeypatch, **kw)
+        outputs = tmp_path / name / "outputs"
+        for what in ("lm", "im"):
+            files[what] = json.load(open(outputs / f"{METHOD}_{what}_consistency.json"))
+        out[name] = files
+    got, want = out["port"], out["jax"]
+    assert want["lm"]["per_image"] and want["im"]["hallucinated"] == 8  # not vacuous
+    assert got["im"] == want["im"] and want["im"]["mode"] == "projection"
+    assert len(got["im"]["labels"]) == 4
+    dists = got["lm"].pop("distributions_topk"), want["lm"].pop("distributions_topk")
+    assert got["lm"] == want["lm"]
+    assert list(dists[0]) == list(dists[1]) and len(dists[0]) == 4
+    for image in dists[1]:
+        assert_distributions_equal(dists[0][image], dists[1][image])
+    assert got["captions"] == want["captions"]
+
+
+@pytest.mark.parametrize(
+    "extra,message",
+    [(["--consistency", "True", "--model", "llava-next"], "--consistency is defined for llava-1.5"),
+     (["--consistency-im", "projection", "--model", "instructblip"],
+      "--consistency-im is defined for llava-1.5"),
+     (["--consistency-im", "clip"], "--consistency-im clip needs --clip-path")],
+    ids=["consistency-next", "consistency-im-instructblip", "clip-without-path"],
+)
+def test_consistency_exits_before_any_work(tmp_path, monkeypatch, extra, message):
+    """The JAX CLI's exits (it reaches them after captioning), here before
+    the tokenizer, a weight or an image is read."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tcli, "load_processor", lambda path: pytest.fail("tokenizer read"))
+    args = tcli.build_parser().parse_args(_argv(tmp_path / "coco", tmp_path, extra))
+    with pytest.raises(SystemExit, match=message):
+        tcli.main(args, device="cpu")
+    assert os.listdir(tmp_path) == []

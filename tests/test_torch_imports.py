@@ -75,6 +75,7 @@ def test_no_source_line_imports_jax():
     [
         "LlamaConfig", "ClipVisionConfig", "LlavaConfig", "LlavaNextConfig", "EnsembleConfig",
         "GenerationConfig", "QFormerConfig", "BlipVisionConfig", "InstructBlipConfig",
+        "ClipTextConfig",
     ],
 )
 def test_config_copies_agree(name):

@@ -690,7 +690,7 @@ def _jax_make_engine(weights, engines=None):
 def _port_make_engine(weights, engines):
     def make(args, device="cuda"):
         assert device == "cpu" and args.model == "instructblip"
-        tcli.check_ported(args)
+        tcli.check_args(args)
         ensemble, opera = _arm(args)
         eng = InstructBlipEngine(
             cfg=narrow_config(torch_config), params=tcli.maybe_quantize(args, weights[1]),
