@@ -124,6 +124,18 @@ Phases, each fatal on failure:
    (``chair_cli(model="instructblip")``): its config.json and BlipImageProcessor config, a
    stand-in tokenizer pair, the five arms, and the POPE CLI serial and
    batched (its ``--prefix-cache`` must exit with the JAX CLI's message).
+7. The harness tools.  ``cli/fused_gap.py``: ``run_study`` (epis),
+   ``run_int4_study`` and ``run_int8_study`` on a narrow fp32 LLaVA, card
+   against CPU with the same host draws, reports equal
+   (``fused_gap_narrow``); the production study at LLaVA-1.5-7B width and
+   depth (synthetic int8 weights, int8 KV, K=3, epis, 2 prompts x 24
+   tokens, every arm through the engine's own decode loop), then
+   ``int4prod`` (1 prompt; ``fused_gap_full``).  ``cli/stall_probe.py`` at 32 layers, a
+   one-shot and a 512-token chunked NeXT join (``stall_probe_full``).
+   ``cli/baseline_batch_bench.py`` at 32 layers, its batched / serial
+   ratios printed, not gated (``baseline_bench_full``).  Launch counts
+   exact in each, and in the kernels line beside the kernel's check at the
+   tool's shapes.
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -402,6 +414,16 @@ def check_decode_attention() -> dict:
          False, True),
         ("B=8 M=4 G=1 bf16, eight fills (serving fused)", 8, 4, 32, 32, 128, 1152, SERVING_FILLS,
          bf16, False, True),
+        # the harness tools: fused_gap's production study (a 607-token prompt
+        # and 24 tokens in 632 slots), stall_probe's two NeXT slots (a 2367-
+        # token prompt in 2992 slots, fused M = 4), baseline_batch_bench's
+        # batched VCD (2 x 4 rows) and beam search (2 x 3 rows) over 640 slots
+        ("M=3 G=1 bf16 S=632 (fused_gap)", 1, 3, 32, 32, 128, 632, 615, bf16, False, True),
+        ("B=2 M=4 G=4 bf16 S=2992 (stall_probe)", 2, 4, 32, 8, 128, 2992, [2395, 2371], bf16,
+         False, True),
+        ("B=8 M=1 G=1 bf16 S=640 (batched VCD)", 8, 1, 32, 32, 128, 640, 620, bf16, False, True),
+        ("B=6 M=1 G=1 bf16 S=640 (batched beam search)", 6, 1, 32, 32, 128, 640, 620, bf16, False,
+         True),
     ]
     recorded = {  # the cases whose records the kernels line carries, by label
         "K1": {"M=3 G=1 bf16": "K1", "M=1 G=1 bf16": "K1 speculative draft",
@@ -412,8 +434,11 @@ def check_decode_attention() -> dict:
                "B=2 M=1 G=1 bf16 S=608 (InstructBLIP VCD)": "K1 InstructBLIP VCD",
                "B=3 M=1 G=1 bf16 S=608 (InstructBLIP beam search)": "K1 InstructBLIP beam",
                "B=8 M=3 G=1 bf16, eight fills (serving)": "K1 serving",
-               "B=8 M=4 G=1 bf16, eight fills (serving fused)": "K1 serving fused"},
-        "K3": {"M=3 G=1 bf16": "K3"},
+               "B=8 M=4 G=1 bf16, eight fills (serving fused)": "K1 serving fused",
+               "B=8 M=1 G=1 bf16 S=640 (batched VCD)": "K1 baseline_batch_bench VCD",
+               "B=6 M=1 G=1 bf16 S=640 (batched beam search)": "K1 baseline_batch_bench beam"},
+        "K3": {"M=3 G=1 bf16": "K3", "M=3 G=1 bf16 S=632 (fused_gap)": "K3 fused_gap",
+               "B=2 M=4 G=4 bf16 S=2992 (stall_probe)": "K3 stall_probe"},
     }
     attention = (  # (kernel, wrapper, plain twin, int8 cache, seed base)
         ("K1", ensemble_decode_attention_fused, ensemble_decode_attention, False, 100),
@@ -465,14 +490,20 @@ def check_kernels() -> dict:
     """Each kernel against its plain twin on the card; returns the JSON
     records of the slice-shape cases, keyed by kernel."""
     records = check_decode_attention()
-    records["K4"] = check_cache_append()
-    records["K5"] = check_flash_prefill()
+    records.update(check_cache_append())
+    records.update(check_flash_prefill())
     records["K6"] = check_int4_matmul()
     # a draft step of the int4 self-draft: R = 1; its prefill R = 595
     records["K6 speculative draft"] = {**records["K6"].pop("r1"),
                                        "prefill": records["K6"]["prefill"]}
 
     records.update(check_uncertainty())
+    # the harness tools' calls at shapes checked above: fused_gap's prefill
+    # table [1, 576, 32064] k = 5 and its one-row append, its int4 tower's
+    # products (R = 595 and R <= 4)
+    records["K2 fused_gap"] = records["K2"]
+    records["K4 fused_gap"] = records["K4"]
+    records["K6 fused_gap int4prod"] = records["K6"]
     return records
 
 
@@ -528,8 +559,8 @@ def check_uncertainty() -> dict:
     raised.  Beside the first and the LLaVA-NeXT case the time of
     ``exact_top_k_ids`` alone (the table as the main path made it before the
     kernel did) and of pass C after the first launch and after an L2 flush.
-    Returns the records of the first case ("K2") and of InstructBLIP's ("K2
-    InstructBLIP")."""
+    Returns the records of the first case ("K2"), of InstructBLIP's ("K2
+    InstructBLIP") and of LLaVA-NeXT's ("K2 stall_probe")."""
     from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
         exact_top_k_ids,
         launch_phases,
@@ -600,6 +631,10 @@ def check_uncertainty() -> dict:
             }
         if i == 2:
             records["K2"]["next"] = {"ms": ms, "two_reads_ms": two_reads_ms, **extra}
+            records["K2 stall_probe"] = {  # stall_probe's NeXT prefills
+                "kernel_route": route, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **bound, "two_reads_ms": two_reads_ms, "library_ms": None, **extra,
+            }
         del logits, got, again, ref
     if failed:
         raise AssertionError(f"K2: {failed}")
@@ -608,14 +643,15 @@ def check_uncertainty() -> dict:
 
 def check_cache_append() -> dict:
     """K4 against its twin from the same random int8 cache: the whole q and
-    s buffers must be bit-equal.  Returns the record of the 7B-shape case."""
+    s buffers must be bit-equal.  Returns the records of the 7B-shape case
+    ("K4") and of its B = 2 case ("K4 stall_probe": the probe's two slots)."""
     from dropoutdecoding_tpu_torch.ops.cuda_cache_append import (
         cache_append_floor,
         cache_append_int8,
         cache_append_int8_twin,
     )
 
-    record = None
+    records = {}
     # (label, L, B, S, KH, D, cur_len, dtype)
     cases = [
         ("[32, 1, 1152, 4096] bf16", 32, 1, 1152, 32, 128, [620], torch.bfloat16),
@@ -651,22 +687,22 @@ def check_cache_append() -> dict:
         )
         if sum(diff) or not changed:
             raise AssertionError(f"K4 {label}: {diff} elements differ, {changed} written")
-        if record is None:
+        if i in (0, 1):
             # the launch floor: the same grid, cur_len read, a word a warp written
             words = cache_append_floor(cur_len, L, KH)
-            if not bool((words == cur[0]).all()):
+            if not bool((words.view(2, L, B, KH) == cur_len.view(1, 1, B, 1)).all()):
                 raise AssertionError("K4 floor kernel: wrong words")
             floor_ms = time_ms(lambda: cache_append_floor(cur_len, L, KH))
             print(f"K4 {label}: launch floor {floor_ms * 1e3:.1f} us")
             # the new rows read; the int8 rows and their scales written
             written = 2 * L * B * KH * (D + 4)
-            record = {
+            records["K4" if i == 0 else "K4 stall_probe"] = {
                 "launch_floor_ms": floor_ms,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **least_time(_nbytes(k_new, v_new, cur_len) + written, 8 * k_new.numel(), "fp32"),
                 "library_ms": None,
             }
-    return record
+    return records
 
 
 def check_flash_prefill() -> dict:
@@ -684,14 +720,18 @@ def check_flash_prefill() -> dict:
     in every later row.  Each case must take the kernel named beside it.  No
     output may be NaN or Inf.  Operations are counted from the mask: a (query,
     key) pair for each attendable key at or before the query.  Returns the
-    record of the first case."""
+    records of the main path's NeXT prefill (the first case) and of
+    stall_probe's one-shot join, by kernels-line key."""
     from dropoutdecoding_tpu_torch.ops.attention import chunked_prefill_attention
     from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
 
-    record = None
+    records = {}
+    recorded = {"S=2950 G=4 bf16": "K5", "S=2955 G=4 bf16 (stall_probe)": "K5 stall_probe"}
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [  # (label, B, S, H, KH, D, dtype, real keys per row of B, masked leading keys, kernel)
         ("S=2950 G=4 bf16", 1, 2950, 32, 8, 128, bf16, [2362], 0, "wgmma"),
+        # stall_probe's 600 x 800 image: 27 text and 2340 of 2928 visual slots real
+        ("S=2955 G=4 bf16 (stall_probe)", 1, 2955, 32, 8, 128, bf16, [2367], 0, "wgmma"),
         ("S=2950 G=1 bf16", 1, 2950, 32, 32, 128, bf16, [2362], 0, "wgmma"),
         ("S=1024 G=4 bf16", 1, 1024, 32, 8, 128, bf16, [1024], 0, "wgmma"),
         ("S=1025 G=1 bf16", 1, 1025, 8, 8, 128, bf16, [1000], 0, "wgmma"),
@@ -743,7 +783,7 @@ def check_flash_prefill() -> dict:
         line = (f"K5 {label} ({'/'.join(took)}): max_abs_err {err:.3e} (bound {atol:g} "
                 f"{f'row max|ref| (at most {K5_ATOL_CAP:g}) ' if dtype == bf16 else ''}+ {rtol:g} |ref|; the least atol "
                 f"that passes: {max(needs, 0.0):.2e}), finite {finite}")
-        timed = S == 2950 and H == 32
+        timed = S in (2950, 2955) and H == 32
         if timed:
             # causal QK^T and PV over the pairs the mask leaves
             flops = 4 * H * D * mask.cumsum(1).sum().item()
@@ -756,7 +796,7 @@ def check_flash_prefill() -> dict:
             raise AssertionError(f"K5 {label}: took {took}, not the {kernel} kernel")
         if not finite or not within:
             raise AssertionError(f"K5 {label}: finite {finite}, max_abs_err {err} out of bounds")
-        if record is None:
+        if label in recorded:
             # the one PyTorch call of the same function: causal and key mask
             # as one boolean mask (built outside the timed call), GQA inside
             allowed = mask[:, None, None, :] & torch.ones(
@@ -767,11 +807,11 @@ def check_flash_prefill() -> dict:
             print(f"K5 {label}: scaled_dot_product_attention {library_ms * 1e3:.1f} us "
                   "(reference only)")
             del allowed
-            record = {
+            records[recorded[label]] = {
                 "kernel_route": kernel, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 **least_time(_nbytes(q, k, v, mask, got), flops, "bf16"), "library_ms": library_ms,
             }
-    return record
+    return records
 
 
 def check_int4_matmul() -> dict:
@@ -4369,6 +4409,187 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
     return record
 
 
+def _table_uniform(seed: int):
+    """Members' mask draws from the host, keyed by (seed, step, row, member):
+    the same numbers on the card and on the CPU (``LlavaEngine.uniform``)."""
+    import numpy as np
+
+    def uniform(step, row, member, n):
+        rng = np.random.default_rng([seed, step, row, member])
+        return torch.from_numpy(rng.random(n, dtype=np.float32))
+
+    return uniform
+
+
+def _zero_counts(wrappers: dict) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def _rates(report, label: str) -> None:
+    """Every match rate and prefix length of a ``fused_gap`` report in
+    range, and every winner distribution a distribution."""
+    T = report["config"]["tokens"]
+    for key, v in report.items():
+        if isinstance(v, dict) and "mean_match_rate" in v:
+            if not (0.0 <= v["mean_match_rate"] <= 1.0 and 0.0 <= v["mean_prefix_len"] <= T):
+                raise AssertionError(f"{label}: {key} out of range: {v}")
+        if key.startswith("winner_dist") and abs(sum(v) - 1.0) > 1e-3:
+            raise AssertionError(f"{label}: {key} {v} is not a distribution")
+    if not 0.0 <= report["winner_tv_distance"] <= 1.0:
+        raise AssertionError(f"{label}: winner TV {report['winner_tv_distance']}")
+
+
+def fused_gap_narrow() -> dict:
+    """``fused_gap``'s ``run_study`` (epis), ``run_int4_study`` and
+    ``run_int8_study`` on a narrow fp32 LLaVA (h256, 2 layers, V 512; weights
+    x10 as in ``small_reference``), 2 prompts x 12 tokens, on the card
+    (kernels) and on the CPU (plain twins) with the same host draws: the
+    reports must be equal.  Returns the card's reports."""
+    from dropoutdecoding_tpu_torch.cli import fused_gap
+    from dropoutdecoding_tpu_torch.models.llava import LlavaParams
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+
+    H, L, V = 256, 2, 512
+    cfg = fused_gap._tiny_config(H, L, V)
+    base = synthetic_llava_params(cfg, "cpu", torch.float32, seed=3)
+    base = LlavaParams(*(_sharpen(p, 10) for p in base))
+    build, reports = fused_gap._build, {}
+    fused_gap._build = lambda h, l, v, seed, device: (cfg, LlavaParams(*(_to(p, device) for p in base)))
+    try:
+        for name in ("run_study", "run_int4_study", "run_int8_study"):
+            study = getattr(fused_gap, name)
+            card, cpu = (study(H, L, V, 2, 1, 12, device=dev, uniform=_table_uniform)
+                         for dev in ("cuda", "cpu"))
+            print(f"fused_gap narrow {name}: card {json.dumps(card)}")
+            if card != cpu:
+                raise AssertionError(f"fused_gap {name}: the card's report differs from the CPU's "
+                                     f"{json.dumps(cpu)}")
+            reports[name] = card
+    finally:
+        fused_gap._build = build
+    return reports
+
+
+def fused_gap_full(P: int = 2, T: int = 24) -> tuple:
+    """``fused_gap``'s production study at LLaVA-1.5-7B width and depth
+    (synthetic int8 weights, int8 KV, K = 3, epis, ``P`` prompts x ``T``
+    tokens; every arm the engine's own decode loop), then
+    ``int4prod`` (1 prompt), each with its launches checked exactly.
+    Returns (launches by kernels-line key, the two reports, their s)."""
+    from dropoutdecoding_tpu_torch.cli import fused_gap
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig
+
+    wrappers = _wrappers()
+    L = 32
+    probs = EnsembleConfig.voting_probs_for(3)
+    _zero_counts(wrappers)
+    prod, prod_s = _sync_time(lambda: fused_gap.run_production_study(P, T, probs))
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    # a prompt: exact (2 forwards a step), fused (1), the reseeded exact
+    # (2), greedy (1)
+    want = dict.fromkeys(wrappers, 0)
+    want.update(K2=P, K3=6 * P * L * (T - 1), K4=4 * P * (T - 1))
+    print(f"fused_gap production (int8, K=3, epis, {P} x {T}): {prod_s:.1f} s, launches {counts}; "
+          f"{json.dumps(prod)}")
+    _check_counts("fused_gap production", counts, want)
+    _rates(prod, "fused_gap production")
+    torch.cuda.empty_cache()
+    _zero_counts(wrappers)
+    int4, int4_s = _sync_time(lambda: fused_gap.run_int4_production_study(1, T, probs))
+    counts4 = {k: fn.launches for k, fn in wrappers.items()}
+    # two prefills; exact int8 and int4 (2 forwards a step), the reseeded
+    # int8 (2), greedy int8 and int4 (1 each); K6 in every int4 forward's
+    # four fused projections
+    want4 = dict.fromkeys(wrappers, 0)
+    want4.update(K2=2, K3=8 * L * (T - 1), K4=5 * (T - 1), K6=4 * L * (1 + 3 * (T - 1)))
+    print(f"fused_gap int4prod (1 x {T}): {int4_s:.1f} s, launches {counts4}; {json.dumps(int4)}")
+    _check_counts("fused_gap int4prod", counts4, want4)
+    _rates(int4, "fused_gap int4prod")
+    torch.cuda.empty_cache()
+    launches = {"K2 fused_gap": counts["K2"] + counts4["K2"],
+                "K3 fused_gap": counts["K3"] + counts4["K3"],
+                "K4 fused_gap": counts["K4"] + counts4["K4"], "K6 fused_gap int4prod": counts4["K6"]}
+    return launches, {"production": prod, "int4prod": int4}, prod_s + int4_s
+
+
+def stall_probe_full() -> tuple:
+    """``stall_probe.main(["--layers", "32", "--chunks", "512"])``: LLaVA-NeXT
+    int8 at full depth, one-shot and chunked joins, launches checked exactly
+    (K5 32 a one-shot prefill, K2 one a prefill, K3 32 and K4 one a server
+    step).  Returns (launches by kernels-line key, the JSON line's object)."""
+    from dropoutdecoding_tpu_torch.cli import stall_probe
+    from dropoutdecoding_tpu_torch.engine import serving
+
+    wrappers = _wrappers()
+    L = 32
+    steps = [0]
+    step = serving.DecodeServer.step
+
+    def counted(self, n=1):
+        steps[0] += n
+        return step(self, n)
+
+    _zero_counts(wrappers)
+    serving.DecodeServer.step = counted
+    try:
+        out = stall_probe.main(["--layers", str(L), "--chunks", "512"])
+    finally:
+        serving.DecodeServer.step = step
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    # one-shot case: four one-shot prefills; chunked: two one-shot, two chunked
+    want = dict.fromkeys(wrappers, 0)
+    want.update(K2=8, K3=L * steps[0], K4=steps[0], K5=6 * L)
+    print(f"stall_probe: {json.dumps(out)}, {steps[0]} server steps, launches {counts}")
+    _check_counts("stall_probe", counts, want)
+    torch.cuda.empty_cache()
+    return {"K2 stall_probe": counts["K2"], "K3 stall_probe": counts["K3"],
+            "K4 stall_probe": counts["K4"], "K5 stall_probe": counts["K5"]}, out
+
+
+def baseline_bench_full() -> tuple:
+    """``baseline_batch_bench.main(["--layers", "32"])``: batched VCD (4
+    images) and beam search (2 images x 3 beams) against one image, three
+    calls each (a warm-up and two timed), K1 32 a decode step of each call,
+    counted by baseline.  The ratios are printed, not gated.  Returns
+    (launches by kernels-line key, the results)."""
+    from dropoutdecoding_tpu_torch.cli import baseline_batch_bench
+    from dropoutdecoding_tpu_torch.engine import baselines
+
+    wrappers = _wrappers()
+    L, T = 32, 32
+    by = {"vcd_generate": 0, "beam_generate": 0}
+    saved = {name: getattr(baselines, name) for name in by}
+
+    def counting(name):
+        def call(*args, **kw):
+            before = wrappers["K1"].launches
+            out = saved[name](*args, **kw)
+            by[name] += wrappers["K1"].launches - before
+            return out
+        return call
+
+    _zero_counts(wrappers)
+    for name in by:
+        setattr(baselines, name, counting(name))
+    try:
+        res = baseline_batch_bench.main(["--layers", str(L)])
+    finally:
+        for name, fn in saved.items():
+            setattr(baselines, name, fn)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    # six calls of each (three batched, three serial), T - 1 steps of L layers
+    want = dict.fromkeys(wrappers, 0)
+    want["K1"] = 2 * 6 * (T - 1) * L
+    print(f"baseline_batch_bench: {json.dumps(res)}; K1 by baseline {by}, launches {counts}")
+    _check_counts("baseline_batch_bench", counts, want)
+    _check_counts("baseline_batch_bench, K1 by baseline", by,
+                  {"vcd_generate": 6 * (T - 1) * L, "beam_generate": 6 * (T - 1) * L})
+    torch.cuda.empty_cache()
+    return {"K1 baseline_batch_bench VCD": by["vcd_generate"],
+            "K1 baseline_batch_bench beam": by["beam_generate"]}, res
+
+
 def _check_counts(label: str, counts: dict, want: dict) -> None:
     if counts != want:
         raise AssertionError(f"{label}: launch counts {counts} != {want}")
@@ -4499,6 +4720,66 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
     },
+    "K2 fused_gap": {
+        "name": "vision_uncertainty (fused_gap's 7B prefills: [1, 576, 32064] k = 5)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
+    },
+    "K3 fused_gap": {
+        "name": "ensemble_decode_attention_int8kv (fused_gap at 7B: M = 1 / 3 exact, 4 fused, 632-slot int8 cache)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:234",
+    },
+    "K4 fused_gap": {
+        "name": "cache_append_int8 (fused_gap at 7B: the winner's row, B = 1)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/cache_append.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:605",
+    },
+    "K6 fused_gap int4prod": {
+        "name": "int4_matmul (fused_gap int4prod: R = 595 prefill, R = 1 / 3 decode)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
+    },
+    "K2 stall_probe": {
+        "name": "vision_uncertainty (stall_probe's NeXT prefills: [1, 2928, 32064] k = 10, valid)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/uncertainty.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_uncertainty.py:101",
+    },
+    "K3 stall_probe": {
+        "name": "ensemble_decode_attention_int8kv (stall_probe: NeXT fused M = 4, G = 4, 2 slots)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:234",
+    },
+    "K4 stall_probe": {
+        "name": "cache_append_int8 (stall_probe: 2 slots)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/cache_append.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:605",
+    },
+    "K5 stall_probe": {
+        "name": "flash_prefill_attention (stall_probe's one-shot NeXT joins, S = 2955, 2367 real keys)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/flash_prefill.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_attention.py:66",
+    },
+    "K1 baseline_batch_bench VCD": {
+        "name": "ensemble_decode_attention (baseline_batch_bench VCD: M = 1 over 2 x 4 rows, and 2 rows serial)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 baseline_batch_bench beam": {
+        "name": "ensemble_decode_attention (baseline_batch_bench beam search: M = 1 over 2 x 3 rows, and 3 serial)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
 }
 
 
@@ -4547,6 +4828,15 @@ def main() -> int:
     ib_cli, ib_s["CLI"] = _wall(lambda: chair_cli(model="instructblip"))
     print(f"chair_cli instructblip phase: {json.dumps(ib_cli)}; towers {json.dumps(towers)}; "
           f"POPE {json.dumps(ib_pope)}; card {card}")
+    tools_s = {}
+    _, tools_s["fused_gap narrow"] = _wall(fused_gap_narrow)
+    (gap_launches, gap, _), tools_s["fused_gap 7B"] = _wall(fused_gap_full)
+    (stall_launches, stall), tools_s["stall_probe"] = _wall(stall_probe_full)
+    (bench_launches, bench), tools_s["baseline_batch_bench"] = _wall(baseline_bench_full)
+    for more in (gap_launches, stall_launches, bench_launches):
+        launches.update(more)
+    print(f"harness tools: fused_gap {json.dumps(gap)}; stall_probe {json.dumps(stall)}; "
+          f"baseline_batch_bench {json.dumps(bench)}; card {card}")
     pope_s = {"small": t_pope, **{k: v["seconds"] for k, v in pope.items()},
               "cli": cli_record["pope_cli"]["seconds"]}
     print(f"POPE phases: {json.dumps(pope_s)}, {sum(pope_s.values()):.1f} s added")
@@ -4555,6 +4845,7 @@ def main() -> int:
           f"{e2e_s:.1f} s")
     print(f"speculative and consistency phases, s: {json.dumps(spec_s)}, "
           f"{sum(spec_s.values()):.1f} s added; ClipZeroShot {json.dumps(clip)}")
+    print(f"harness tool phases, s: {json.dumps(tools_s)}, {sum(tools_s.values()):.1f} s added")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

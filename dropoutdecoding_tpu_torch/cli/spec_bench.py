@@ -2,7 +2,7 @@
 ``dropoutdecoding_tpu/cli/spec_bench.py``.
 
 Both LM towers come from one synthetic bf16 base
-(``utils/convert.synthetic_llava_dual_lm``): the int8 tower is the target,
+(``utils/convert.synthetic_llava_7b_dual``): the int8 tower is the target,
 the int4 tower the self-draft, the pairing ``--spec-gamma`` deploys.
 Random weights are the worst case for a draft's agreement, so beside each
 measured rate stand:
@@ -55,9 +55,8 @@ def main(argv=None, device="cuda", cfg=None) -> dict:
 
     from ..engine.generate import LlavaEngine
     from ..engine.speculative import SpeculativeGreedy
-    from ..models.llava import LlavaParams
     from ..utils.config import GenerationConfig, LlavaConfig
-    from ..utils.convert import synthetic_llava_dual_lm, synthetic_llava_params
+    from ..utils.convert import synthetic_llava_7b_dual
 
     args = build_parser().parse_args(argv)
     if cfg is None:
@@ -67,22 +66,19 @@ def main(argv=None, device="cuda", cfg=None) -> dict:
     T, G = args.tokens, max(args.gammas)
     _sync(device)
     t0 = time.perf_counter()
-    lm8, lm4 = synthetic_llava_dual_lm(cfg.text, device, seed=0)
+    # the int8 target and its int4 draft, with the bf16 vision tower and projector
+    cfg, params, draft = synthetic_llava_7b_dual(device, cfg, seed=0)
+    lm8, lm4 = params.lm, draft.lm
     _sync(device)
     dual_s = time.perf_counter() - t0
-    # the vision tower and projector in bf16, beside a one-layer LM that is dropped
-    one = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=1))
-    shell = synthetic_llava_params(one, device, torch.bfloat16, seed=1)
-    params = LlavaParams(shell.vision, shell.projector, lm8)
-    del shell
     eng = LlavaEngine(
         cfg=cfg, params=params,
         gen=GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0),
         # the verify writes gamma rows past prompt + T (``_check_headroom``)
         max_len=cfg.vision.num_patches + 32 + T + G + 1, ensemble=False, seed=24,
     )
-    print(f"dual towers (int8 target, int4 draft) of {cfg.text.num_hidden_layers} layers made "
-          f"in {dual_s:.1f} s", file=sys.stderr, flush=True)
+    print(f"dual towers (int8 target, int4 draft) of {cfg.text.num_hidden_layers} layers and "
+          f"the vision tower made in {dual_s:.1f} s", file=sys.stderr, flush=True)
 
     rng = np.random.default_rng(0)
     vocab = min(cfg.text.vocab_size, 30000)

@@ -198,6 +198,7 @@ class _Carry(NamedTuple):
     tm: TextMaskState | None  # None unless a text policy is on
     prev_argmax0: torch.Tensor  # [B] member 0's argmax (fused mode's overlap source)
     prev_logits0: torch.Tensor | None  # [B, V] member 0's logits (lagged epis_kl only)
+    winner: torch.Tensor | None = None  # [B] the step's winning member (ensemble only)
 
 
 @dataclass
@@ -552,7 +553,7 @@ class LlavaEngine:
             logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
             argmax0 = logits0.argmax(dim=-1)
             if not self.ensemble:
-                next_token, winner_logits = argmax0, logits0
+                winner, next_token, winner_logits = None, argmax0, logits0
                 kw, vw = k0[:, :, 0], v0[:, :, 0]
             else:
                 drop_slots = self._member_drop_slots(
@@ -579,7 +580,7 @@ class LlavaEngine:
         at = steps.clamp(max=tokens.shape[1] - 1)
         keep = done | (steps >= tokens.shape[1])  # done, or past the buffer
         tokens[rows, at] = torch.where(keep, tokens[rows, at], next_token)
-        carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None)
+        carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None, winner)
         live = (~done).long()
         return (
             next_token,
@@ -590,9 +591,11 @@ class LlavaEngine:
         )
 
     @torch.no_grad()
-    def decode(self, state: PrefillState) -> torch.Tensor:
+    def decode(self, state: PrefillState, winners: list | None = None) -> torch.Tensor:
         """The decode loop from a prefill state; returns tokens [B, T].
-        Updates ``state.cache`` in place."""
+        Updates ``state.cache`` in place.  ``winners``, a list, gets each
+        step's winning member [B] (the one whose K/V the cache keeps) in
+        ensemble mode."""
         B = state.first_token.shape[0]
         T = self.gen.max_new_tokens
         if self.gen.do_sample:  # every token is sampled: the first at step 0
@@ -621,6 +624,8 @@ class LlavaEngine:
             token, cur_len, steps, done, carry = self._one_step(
                 state, steps, step, token, cur_len, done, tokens, carry
             )
+            if winners is not None:
+                winners.append(carry.winner)
         return tokens
 
     # ------------------------------------------------------------------

@@ -378,3 +378,39 @@ def synthetic_llava_dual_lm(cfg: LlamaConfig, device: torch.device | str,
 
     lm8 = _synthetic_lm(cfg, device, gen, l8, head8)
     return lm8, {**lm8, "layers": {**lm8["layers"], **l4}}
+
+
+def _llava_shell(cfg: LlavaConfig, device, seed: int) -> tuple[dict, dict]:
+    """(vision tower, projector) in bf16 at ``cfg``'s widths, made beside a
+    one-layer LM that is dropped."""
+    import dataclasses
+
+    one = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=1))
+    shell = synthetic_llava_params(one, device, torch.bfloat16, seed=seed)
+    return shell.vision, shell.projector
+
+
+def synthetic_llava_7b(device: torch.device | str, cfg: LlavaConfig | None = None,
+                       seed: int = 0) -> tuple[LlavaConfig, LlavaParams]:
+    """(cfg, params) of a synthetic LLaVA-1.5-7B (counterpart of
+    ``dropoutdecoding_tpu/utils/synthetic.py:153``): the LM tower made
+    directly in int8 (``synthetic_int8_lm``), the ViT-L/336 vision tower
+    and the projector in bf16.  ``cfg``: ``LlavaConfig()`` when None; a
+    narrower one for a rehearsal on the CPU."""
+    cfg = LlavaConfig() if cfg is None else cfg
+    lm = synthetic_int8_lm(cfg.text, device, seed=seed)
+    return cfg, LlavaParams(*_llava_shell(cfg, device, seed + 1), lm)
+
+
+def synthetic_llava_7b_dual(device: torch.device | str, cfg: LlavaConfig | None = None,
+                            seed: int = 0) -> tuple[LlavaConfig, LlavaParams, LlavaParams]:
+    """(cfg, int8 params, int4 params): both LM towers quantized from one
+    seeded bf16 base (``synthetic_llava_dual_lm``; counterpart of
+    ``dropoutdecoding_tpu/utils/synthetic.py:186``), sharing the bf16
+    vision tower, projector, embeddings and int8 head: the paired arms of a
+    drift study between the two weight tiers.  ``cfg`` as
+    ``synthetic_llava_7b``'s."""
+    cfg = LlavaConfig() if cfg is None else cfg
+    lm8, lm4 = synthetic_llava_dual_lm(cfg.text, device, seed=seed)
+    vision, projector = _llava_shell(cfg, device, seed + 1)
+    return cfg, LlavaParams(vision, projector, lm8), LlavaParams(vision, projector, lm4)
