@@ -136,6 +136,28 @@ Phases, each fatal on failure:
    ratios printed, not gated (``baseline_bench_full``).  Launch counts
    exact in each, and in the kernels line beside the kernel's check at the
    tool's shapes.
+8. Tensor and data parallelism (``parallel_phase``): TP params under an
+   NCCL world of one, LLaVA-1.5-7B bf16 at full width and depth, greedy /
+   exact / fused tokens and the prefill bit-equal to the unsharded engine
+   (the sharding and the engine's plumbing: over a one-rank axis the
+   helpers issue no collective, so NCCL is checked by one sum of its own);
+   then two gloo ranks on the one card, spawned as processes of this
+   script after the build (``parallel_rank``): in fp32 at full width and 4
+   layers, TP (1 x 2) tokens equal to unsharded for LLaVA-1.5 dense, int8
+   with an int8 cache and int4 (K6 on the column shards), and NeXT (K5 in
+   its 2947-token prefill), DP (2 x 1) at B = 2 each row equal to its
+   unsharded run; at full 7B depth in bf16 (LLaVA-1.5 and NeXT) the
+   prefill's last logits and epis within ``TP_BF16_LOGITS_RTOL`` and
+   ``TP_BF16_EPIS_RTOL`` of unsharded, and a planted fault (a layer's
+   down_proj all-reduce dropped) outside them, tokens reported beside the
+   unsharded ones; collectives counted exactly
+   (2 all-reduces a decoder layer and 1 logits gather a decode forward, 2
+   a CLIP layer and 1 in the projector), K1 32 / 64 / 32 a greedy / exact
+   / fused step per rank, ms a step and one collective's ms.  Two
+   processes share the card and gloo stages each collective through host
+   memory: no number of this phase is a multi-GPU speed.  The kernels
+   line carries K1, K5 and K6 at a rank's shard shapes (checked in
+   phase 3).
 
 Prints the kernels' JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result, when no
@@ -143,6 +165,7 @@ GPU is present or the port is missing.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -424,6 +447,11 @@ def check_decode_attention() -> dict:
         ("B=8 M=1 G=1 bf16 S=640 (batched VCD)", 8, 1, 32, 32, 128, 640, 620, bf16, False, True),
         ("B=6 M=1 G=1 bf16 S=640 (batched beam search)", 6, 1, 32, 32, 128, 640, 620, bf16, False,
          True),
+        # a TP rank's heads at n_model = 2: LLaVA-1.5's 16 of 32 (G = 1), NeXT's
+        # 16 over 4 KV heads (G = 4)
+        ("M=3 G=1 bf16 H=16 (TP shard)", 1, 3, 16, 16, 128, 640, 607, bf16, False, True),
+        ("M=3 G=4 bf16 H=16 KH=4 S=2992 (TP shard, NeXT)", 1, 3, 16, 4, 128, 2992, 2365, bf16,
+         False, True),
     ]
     recorded = {  # the cases whose records the kernels line carries, by label
         "K1": {"M=3 G=1 bf16": "K1", "M=1 G=1 bf16": "K1 speculative draft",
@@ -436,7 +464,9 @@ def check_decode_attention() -> dict:
                "B=8 M=3 G=1 bf16, eight fills (serving)": "K1 serving",
                "B=8 M=4 G=1 bf16, eight fills (serving fused)": "K1 serving fused",
                "B=8 M=1 G=1 bf16 S=640 (batched VCD)": "K1 baseline_batch_bench VCD",
-               "B=6 M=1 G=1 bf16 S=640 (batched beam search)": "K1 baseline_batch_bench beam"},
+               "B=6 M=1 G=1 bf16 S=640 (batched beam search)": "K1 baseline_batch_bench beam",
+               "M=3 G=1 bf16 H=16 (TP shard)": "K1 TP",
+               "M=3 G=4 bf16 H=16 KH=4 S=2992 (TP shard, NeXT)": "K1 TP NeXT"},
         "K3": {"M=3 G=1 bf16": "K3", "M=3 G=1 bf16 S=632 (fused_gap)": "K3 fused_gap",
                "B=2 M=4 G=4 bf16 S=2992 (stall_probe)": "K3 stall_probe"},
     }
@@ -493,6 +523,8 @@ def check_kernels() -> dict:
     records.update(check_cache_append())
     records.update(check_flash_prefill())
     records["K6"] = check_int4_matmul()
+    for key, rec in records["K6"].pop("tp").items():  # a TP rank's column shards
+        records[f"K6 TP {key}"] = rec
     # a draft step of the int4 self-draft: R = 1; its prefill R = 595
     records["K6 speculative draft"] = {**records["K6"].pop("r1"),
                                        "prefill": records["K6"]["prefill"]}
@@ -726,10 +758,13 @@ def check_flash_prefill() -> dict:
     from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
 
     records = {}
-    recorded = {"S=2950 G=4 bf16": "K5", "S=2955 G=4 bf16 (stall_probe)": "K5 stall_probe"}
+    recorded = {"S=2950 G=4 bf16": "K5", "S=2955 G=4 bf16 (stall_probe)": "K5 stall_probe",
+                "S=2950 G=4 bf16 H=16 (TP shard)": "K5 TP"}
     bf16, fp32 = torch.bfloat16, torch.float32
     cases = [  # (label, B, S, H, KH, D, dtype, real keys per row of B, masked leading keys, kernel)
         ("S=2950 G=4 bf16", 1, 2950, 32, 8, 128, bf16, [2362], 0, "wgmma"),
+        # a TP rank's NeXT prefill at n_model = 2: 16 heads over 4 KV heads
+        ("S=2950 G=4 bf16 H=16 (TP shard)", 1, 2950, 16, 4, 128, bf16, [2362], 0, "wgmma"),
         # stall_probe's 600 x 800 image: 27 text and 2340 of 2928 visual slots real
         ("S=2955 G=4 bf16 (stall_probe)", 1, 2955, 32, 8, 128, bf16, [2367], 0, "wgmma"),
         ("S=2950 G=1 bf16", 1, 2950, 32, 32, 128, bf16, [2362], 0, "wgmma"),
@@ -783,7 +818,7 @@ def check_flash_prefill() -> dict:
         line = (f"K5 {label} ({'/'.join(took)}): max_abs_err {err:.3e} (bound {atol:g} "
                 f"{f'row max|ref| (at most {K5_ATOL_CAP:g}) ' if dtype == bf16 else ''}+ {rtol:g} |ref|; the least atol "
                 f"that passes: {max(needs, 0.0):.2e}), finite {finite}")
-        timed = S in (2950, 2955) and H == 32
+        timed = (S in (2950, 2955) and H == 32) or label in recorded
         if timed:
             # causal QK^T and PV over the pairs the mask leaves
             flops = 4 * H * D * mask.cumsum(1).sum().item()
@@ -957,6 +992,23 @@ def check_int4_matmul() -> dict:
         compare(f"ragged [{x.shape[0]}, {x.shape[1]}, 2752] x [2752, 130] g=32 "
                 f"{str(dtype).split('.')[-1]}", x, q4, s4, None, K6_TOL[dtype], timed=False,
                 route="mma" if dtype == torch.bfloat16 else "fma")
+    # a TP rank's column shards at n_model = 2, as the parallel phase's fp32
+    # int4 run gives them: q / k / v [4096, 2048] and gate / up [4096, 5504],
+    # at the exact decode's 3 rows (the FMA kernel)
+    tp = {}
+    for key, E in (("q/k/v shard", 2048), ("gate/up shard", 5504)):
+        q4, s4 = packed(D=4096, E=E, group=128)
+        x = torch.randn(3, 4096, generator=g, device="cuda")
+        rec, got = compare(f"TP {key} [3, 4096] x [4096, {E}] fp32 (fma)", x, q4, s4, None,
+                           K6_TOL[torch.float32], route="fma")
+        dense = dequantize_matrix_int4({"q4": q4, "s4": s4}, torch.float32)
+        rec["library_ms"] = time_ms(lambda: torch.matmul(x, dense))
+        rec.update(least_time(_nbytes(x, q4, s4, got), 2 * 3 * 4096 * E, "fp32"))
+        print(f"K6 TP {key}: bound {rec['bound_ms'] * 1e3:.1f} us by {rec['bound_by']}, fp32 "
+              f"matmul on the dequantized matrix {rec['library_ms'] * 1e3:.1f} us "
+              "(reference only)")
+        tp[key] = rec
+        del q4, s4, dense
     bad = torch.randn(3, 96, device="cuda")
     try:  # a group the kernel's k-step does not divide must raise, never fall back
         int4_matmul(bad, torch.zeros(48, 8, dtype=torch.int8, device="cuda"),
@@ -965,7 +1017,7 @@ def check_int4_matmul() -> dict:
         print(f"K6 g=24: raises ({e})")
     else:
         raise AssertionError("K6 accepted a group size of 24")
-    return {**record, "prefill": prefill, "r1": draft_step}
+    return {**record, "prefill": prefill, "r1": draft_step, "tp": tp}
 
 
 def _narrow_config():
@@ -4615,6 +4667,518 @@ def _write_coco(data_dir: str, files: list, images: list) -> None:
             json.dump(d, f)
 
 
+# ---------------------------------------------------------------------------
+# the parallel phase: tensor and data parallelism (parallel/)
+# ---------------------------------------------------------------------------
+
+PARALLEL_DIR = ".smoke_parallel"  # the ranks' file rendezvous and reports; removed after
+PARALLEL_T = 12  # new tokens a run of the parallel phase
+PARALLEL_TIMEOUT_S = 600  # both ranks, from spawn to their reports
+# Full 7B depth in bf16, TP against unsharded: the prefill's last logits and
+# epis each within its own share of their largest |value|.  A TP rank rounds
+# its share of each row-parallel product to bf16 and the all-reduce rounds the
+# sum again, where one unsharded product rounds once: the two runs part by a
+# bf16 step in the o_proj and down_proj outputs of every layer, and 32 layers
+# of the synthetic 7B grow that step to 4.8% of the largest logit.  Each bound
+# lies between the sound TP reading and the planted fault's (``_planted_fault``:
+# one layer's down_proj all-reduce dropped, each rank keeping its partial sum),
+# which the phase reads every run and requires to exceed the bound.  Readings
+# on an H100 (the same to the last digit in four runs), LLaVA-1.5 / NeXT:
+#   logits: sound 4.764e-2 / 4.517e-2; layer 31 dropped 1.142e-1 / 1.370e-1,
+#           layer 16 1.908e-1 / 2.249e-1, layer 0 1.157 / 1.202;
+#   epis:   sound 8.304e-3 / 8.874e-3; layer 31 dropped 1.558e-2 / 1.831e-2,
+#           layer 16 2.221e-2 / 3.676e-2, layer 0 1.007e-1 / 1.332e-1.
+# logits keep the earlier shared bound, 2^-4: 1.3x over the largest sound
+# reading, 1.8x under the smallest fault.  epis, whose faults lie closer, gets
+# about the geometric mean of the two: 1.35x over sound, 1.3x under the fault.
+TP_BF16_LOGITS_RTOL = 2.0**-4
+TP_BF16_EPIS_RTOL = 0.012
+TP_FAULT_LAYERS = (0, 31)  # the layers whose down_proj reduce a planted fault drops
+PARALLEL_MODES = (("greedy", False, {}), ("exact K=3", True, {}),
+                  ("fused K=3", True, {"fused_step": True}))
+
+
+def _tp_want(T: int, L: int, forwards: int, S: int, int8_kv: bool, int4: bool) -> dict:
+    """``want_counts`` for split (unfused) projections, the TP layout: K6
+    runs q, k, v, o, gate, up and down, 7 a layer of every forward."""
+    want = want_counts(T, L, forwards, S, int8_kv, False)
+    want["K6"] = 7 * L * (1 + (T - 1) * forwards) if int4 else 0
+    return want
+
+
+@contextlib.contextmanager
+def _planted_fault(layer: int):
+    """While open, the decoder drops layer ``layer``'s down_proj all-reduce:
+    each rank goes on with its own partial sum, as a TP layer that forgot
+    its reduce would.  Every rank must open it at the same point, since
+    the dropped call pairs the ranks no more."""
+    from dropoutdecoding_tpu_torch.models import llama as llama_mod
+
+    real = llama_mod.all_reduce
+    seen = [0]
+
+    def dropping(x, mesh, *a, **kw):
+        if mesh is None:
+            return real(x, mesh, *a, **kw)
+        k, seen[0] = seen[0], seen[0] + 1  # o_proj 2i, down_proj 2i + 1 of layer i
+        return x if k == 2 * layer + 1 else real(x, mesh, *a, **kw)
+
+    llama_mod.all_reduce = dropping
+    try:
+        yield
+    finally:
+        llama_mod.all_reduce = real
+
+
+def _collective_counts(eng, args) -> dict:
+    """The collectives of one decode forward (``decode_step`` + ``lm_head``,
+    M = 3) and of the vision path on ``eng``'s TP params, counted at the
+    helpers, with the numbers the design says."""
+    from dropoutdecoding_tpu_torch.models import llama as llama_mod
+    from dropoutdecoding_tpu_torch.parallel import mesh as pm
+
+    cfg = eng.cfg
+    lm = eng.params.lm
+    st = eng.prefill(*args)
+    x = llama_mod.embed(lm, st.first_token)[:, None].expand(1, 3, -1)
+    mask = (torch.arange(eng.max_len, device="cuda")[None] < st.cur_len[:, None])[:, None]
+    pm.reset_counts()
+    llama_mod.lm_head(lm, llama_mod.decode_step(lm, cfg.text, x, st.cur_len, st.cache,
+                                                mask.expand(1, 3, -1), tp_mesh=eng.tp_mesh)[0])
+    decode = [pm.all_reduce.calls, pm.all_gather.calls]
+    pm.reset_counts()
+    if hasattr(eng, "_prep_images"):  # LLaVA-NeXT: every tile through the tower
+        tiles = eng._prep_images(args[1], args[2], 1)[0][0]
+    else:
+        tiles = torch.as_tensor(args[1][:1], device="cuda")
+    from dropoutdecoding_tpu_torch.models.llava import image_features
+
+    image_features(cfg, eng.params, tiles)
+    vision = [pm.all_reduce.calls, pm.all_gather.calls]
+    L = cfg.text.num_hidden_layers
+    Lv = cfg.vision.num_hidden_layers + 1 + cfg.vision_feature_layer
+    want = {"decode forward": [2 * L, 1], "vision": [2 * Lv + 1, 0]}
+    got = {"decode forward": decode, "vision": vision}
+    if got != want:
+        raise AssertionError(f"collectives {got}, want {want}")
+    return got
+
+
+def _time_collectives(mesh, rows: int, width: int, vocab: int, dtype) -> dict:
+    """Median wall ms of one all-reduce of a decode forward's residual
+    [rows, width] and of the gather of its logits blocks [rows, vocab / 2]
+    fp32, over the gloo group (host-staged), 20 of each."""
+    from dropoutdecoding_tpu_torch.parallel import mesh as pm
+
+    x = torch.randn(rows, width, device="cuda").to(dtype)
+    logits = torch.randn(rows, vocab // mesh.n_model, device="cuda")
+
+    def median_ms(fn):
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    n = pm.all_reduce.calls, pm.all_gather.calls
+    out = {"all_reduce_ms": median_ms(lambda: pm.all_reduce(x, mesh)),
+           "gather_ms": median_ms(lambda: pm.all_gather(logits, mesh))}
+    pm.all_reduce.calls, pm.all_gather.calls = n  # timing calls are not the path's
+    return out
+
+
+@contextlib.contextmanager
+def _int4_by_shape(shapes: dict):
+    """K6's launches by product shape: while open, the models' calls of the
+    int4 wrapper go through a tally that adds, under "R x D x E", the
+    launches the wrapper itself counted in that call."""
+    from dropoutdecoding_tpu_torch.models import llama as llama_mod
+
+    real = llama_mod.int4_matmul
+
+    def tally(x, q4, s4, *a, **kw):
+        before = real.launches
+        out = real(x, q4, s4, *a, **kw)
+        key = f"{x.numel() // x.shape[-1]}x{x.shape[-1]}x{out.shape[-1]}"
+        shapes[key] = shapes.get(key, 0) + real.launches - before
+        return out
+
+    llama_mod.int4_matmul = tally
+    try:
+        yield shapes
+    finally:
+        llama_mod.int4_matmul = real
+
+
+def _rank_runs(rank: int, label: str, make, params, args, runs, int8_kv=False,
+               int4=False, ref=None) -> dict:
+    """Each of ``runs`` through ``generate`` on TP params, with the kernels' launch counts set to 0 just before and read
+    just after; on rank 0 the same on the unsharded ``ref`` params when given,
+    tokens equal.  Returns {run: {"tokens", "launches", "seconds"}}."""
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig
+
+    wrappers = _wrappers()
+    out = {}
+    for mode, ensemble, ens_kw in runs:
+        eng = make(params, ensemble, EnsembleConfig(**ens_kw))
+        _zero_counts(wrappers)
+        shapes = {}
+        with _int4_by_shape(shapes):
+            result, secs = _sync_time(lambda: eng.generate(*args))
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        S = eng._prompt_lengths(*args)[1]
+        forwards = 2 if ensemble and not ens_kw.get("fused_step") else 1
+        want = _tp_want(PARALLEL_T, eng.cfg.text.num_hidden_layers, forwards, S, int8_kv, int4)
+        _check_counts(f"rank {rank} {label} {mode}", counts, want)
+        tokens = result.tokens.tolist()
+        if rank == 0 and ref is not None:
+            want_tokens = make(ref, ensemble, EnsembleConfig(**ens_kw)).generate(*args).tokens
+            if want_tokens.tolist() != tokens:
+                raise AssertionError(f"{label} {mode}: TP tokens {tokens} != unsharded "
+                                     f"{want_tokens.tolist()}")
+        out[mode] = {"tokens": tokens, "launches": counts, "seconds": secs, "K6 by shape": shapes}
+        print(f"rank {rank} {label} {mode}: {secs:.2f} s, launches {counts}, tokens "
+              f"{tokens[0][:8]}...", flush=True)
+    return out
+
+
+def _free() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def parallel_rank(rank: int, workdir: str) -> int:
+    """One of the two gloo ranks on the one card (``parallel_phase``).  Every
+    rank makes the same seeded weights on the card and keeps its slice.
+    fp32 at full width and 4 layers: TP (1 x 2) generate of LLaVA-1.5 dense,
+    int8 with an int8 cache and int4, then LLaVA-NeXT (K5 in its 2947-token
+    prefill), greedy / exact / fused, tokens equal to rank 0's unsharded
+    runs; DP (2 x 1) exact at B = 2, each row equal to its unsharded run.
+    bf16 at full 7B depth, LLaVA-1.5 and NeXT: the prefill's last logits and
+    epis within ``TP_BF16_LOGITS_RTOL`` / ``TP_BF16_EPIS_RTOL`` of rank 0's
+    unsharded prefill and each planted fault (``TP_FAULT_LAYERS``) outside
+    them, tokens of the three modes reported beside the unsharded ones,
+    launch and collective counts exact, ms a step.  Writes its report to
+    ``workdir``."""
+    import dataclasses
+
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import GenerationResult, LlavaEngine
+    from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
+    from dropoutdecoding_tpu_torch.models import llavanext
+    from dropoutdecoding_tpu_torch.parallel import distributed as pd
+    from dropoutdecoding_tpu_torch.parallel import mesh as pm
+    from dropoutdecoding_tpu_torch.utils.config import (
+        EnsembleConfig,
+        GenerationConfig,
+        LlavaConfig,
+        LlavaNextConfig,
+    )
+    from dropoutdecoding_tpu_torch.utils.convert import (
+        synthetic_llava_params,
+        synthetic_llavanext_params,
+    )
+    from dropoutdecoding_tpu_torch.utils.quantize import (
+        quantize_llama_params,
+        quantize_llama_params_int4,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pd.init_multihost(coordinator_address=f"file://{os.path.join(workdir, 'store')}",
+                      num_processes=2, process_id=rank, backend="gloo")
+    tp = pm.make_mesh(n_data=1, n_model=2)
+    dp = pm.make_mesh(n_data=2, n_model=1)
+    gen = GenerationConfig(max_new_tokens=PARALLEL_T, eos_token_id=-1, pad_token_id=0)
+    report = {"rank": rank}
+
+    def depth(c, L):
+        return dataclasses.replace(c, text=dataclasses.replace(c.text, num_hidden_layers=L))
+
+    cfg, ncfg = LlavaConfig(), LlavaNextConfig()
+    ids, pixels = llava_pair(cfg)
+    one = (ids[:1], pixels[:1])
+    size = (480, 640)
+    rng = np.random.default_rng(11)
+    tiles = rng.normal(size=(llavanext.image_geometry(size, ncfg)["n_tiles"], 3, 336, 336)
+                       ).astype(np.float32)
+    nids = ids[:1].copy()
+    nids[0, 5] = ncfg.image_token_index
+    nargs = (nids, tiles, size)
+
+    def llava(c, int8_kv=False):
+        return lambda params, ensemble, ens: LlavaEngine(
+            cfg=c, params=params, gen=gen, ens=ens, max_len=640, ensemble=ensemble,
+            int8_kv=int8_kv)
+
+    def nxt(c):
+        ens0 = dict(mask_accumulate=False, topk=10)  # the reference's NeXT settings
+        return lambda params, ensemble, ens: LlavaNextEngine(
+            cfg=c, params=params, gen=gen, ens=dataclasses.replace(ens, **ens0), seed=506,
+            max_len=llavanext.max_image_tokens(c) + 64, ensemble=ensemble)
+
+    # --- fp32, full width, 4 layers: TP and DP tokens equal to unsharded ---
+    # The LM's matrices x10, as the narrow checks do: at the recipe's std of
+    # 0.02 a 4-layer tower's members nearly tie, and fp32 summation order
+    # (K6's contraction splits differ between a column shard and the whole
+    # matrix) parted fused int4 TP from unsharded at its 8th token once.
+    t0 = time.perf_counter()
+    c4 = depth(cfg, 4)
+    base = synthetic_llava_params(c4, "cuda", torch.float32, seed=0)
+    base = base._replace(lm=_sharpen(base.lm, 10))
+    fp32 = {}
+    tiers = (("dense", lambda lm: lm, False, False), ("int8", quantize_llama_params, True, False),
+             ("int4", quantize_llama_params_int4, True, True))
+    for tier, quantize, int8_kv, int4 in tiers:
+        p = base._replace(lm=quantize(base.lm))
+        fp32[tier] = _rank_runs(rank, f"fp32 4-layer {tier}", llava(c4, int8_kv),
+                                pm.shard_llava_params(p, tp), one, PARALLEL_MODES,
+                                int8_kv=int8_kv, int4=int4, ref=p)
+        del p
+        _free()
+    # DP: each data rank decodes its row of the B = 2 batch with its global rng_id
+    eng = llava(c4)(pm.shard_llava_params(base, dp), True, EnsembleConfig())
+    local = eng.generate(pm.data_split(ids, dp), pm.data_split(pixels, dp))
+    got = pm.gather_results(local, dp).tokens
+    solo = llava(c4)(base, True, EnsembleConfig())
+    row = dp.data_rank
+    st = solo.prefill(ids[row:row + 1], pixels[row:row + 1])
+    ref_row = solo.decode(st._replace(rng_id=torch.tensor([row]))).cpu().numpy()
+    want = pm.gather_results(GenerationResult(ref_row, np.array([PARALLEL_T])), dp).tokens
+    if not np.array_equal(got, want):
+        raise AssertionError(f"DP rows {got.tolist()} != their unsharded runs {want.tolist()}")
+    fp32["dp B=2"] = {"tokens": got.tolist()}
+    print(f"rank {rank} fp32 DP (2 x 1) B=2: rows equal to their unsharded runs", flush=True)
+    del base, eng, solo, st
+    _free()
+    nbase = synthetic_llavanext_params(depth(ncfg, 4), "cuda", torch.float32, seed=0)
+    nbase = nbase._replace(lm=_sharpen(nbase.lm, 10))
+    fp32["next"] = _rank_runs(rank, "fp32 4-layer NeXT", nxt(depth(ncfg, 4)),
+                              pm.shard_llavanext_params(nbase, tp), nargs, PARALLEL_MODES,
+                              ref=nbase)
+    del nbase
+    _free()
+    report["fp32"] = fp32
+    report["fp32_seconds"] = time.perf_counter() - t0
+
+    # --- bf16, full 7B width and depth ---
+    bf16 = {}
+    for label, make_params, make, args, c in (
+        ("LLaVA-1.5-7B", lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0),
+         llava(cfg), one, cfg),
+        ("LLaVA-v1.6-Mistral-7B",
+         lambda: synthetic_llavanext_params(ncfg, "cuda", torch.bfloat16, seed=0), nxt(ncfg),
+         nargs, ncfg),
+    ):
+        t0 = time.perf_counter()
+        p = make_params()
+        ref = {}
+        if rank == 0:  # the unsharded reference, before the whole weights go
+            st = make(p, True, EnsembleConfig()).prefill(*args)
+            ref = {"logits": st.last_logits.float(), "epis": st.epis.float()}
+            for mode, ensemble, ens_kw in PARALLEL_MODES:
+                ref[mode] = make(p, ensemble, EnsembleConfig(**ens_kw)).generate(
+                    *args).tokens.tolist()
+            del st
+        sp = (pm.shard_llavanext_params if c is ncfg else pm.shard_llava_params)(p, tp)
+        del p
+        _free()
+        eng = make(sp, True, EnsembleConfig())
+        readings = {"sound": eng.prefill(*args)}
+        for layer in TP_FAULT_LAYERS:
+            with _planted_fault(layer):
+                readings[f"fault layer {layer}"] = eng.prefill(*args)
+        record = {"collectives": _collective_counts(eng, args)}
+        if rank == 0:
+            bounds = {"logits": TP_BF16_LOGITS_RTOL, "epis": TP_BF16_EPIS_RTOL}
+            shares = {(reading, key): ((got_v.float() - ref[key]).abs().max()
+                                       / ref[key].abs().max()).item()
+                      for reading, st in readings.items()
+                      for key, got_v in (("logits", st.last_logits), ("epis", st.epis))}
+            print(f"rank 0 bf16 {label}: TP prefill's share of the largest value from unsharded "
+                  f"{ {f'{k} {r}': f'{v:.3e}' for (r, k), v in shares.items()} }", flush=True)
+            for (reading, key), share in shares.items():
+                record[f"{key}_share" + ("" if reading == "sound" else f" {reading}")] = share
+                if (share <= bounds[key]) != (reading == "sound"):
+                    raise AssertionError(f"{label} TP {key}, {reading}: {share:.3e} of the "
+                                         f"largest value, bound {bounds[key]:g}")
+        del readings
+        runs = _rank_runs(rank, f"bf16 {label}", make, sp, args, PARALLEL_MODES)
+        prefill_s = _sync_time(lambda: eng.prefill(*args))[1]
+        record["prefill_ms"] = prefill_s * 1e3
+        for mode, run in runs.items():
+            run["ms_a_step"] = (run["seconds"] - prefill_s) / (PARALLEL_T - 1) * 1e3
+            if rank == 0:
+                a, b = run["tokens"][0], ref[mode][0]
+                run["unsharded"] = b
+                run["common_prefix"] = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                                            len(a))
+        record["runs"] = runs
+        record["collective_ms"] = _time_collectives(tp, 3, c.text.hidden_size, c.text.vocab_size,
+                                                    torch.bfloat16)
+        record["seconds"] = time.perf_counter() - t0
+        bf16[label] = record
+        del sp, eng
+        _free()
+    report["bf16"] = bf16
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _nccl_world_of_one(card: str) -> dict:
+    """TP params under NCCL over a one-rank group on the card, LLaVA-1.5-7B
+    bf16 at full width and depth: greedy, exact and fused tokens and the
+    prefill's logits bit-equal to the unsharded engine's.  This checks the
+    sharding and the engine's plumbing: over a one-rank axis the helpers
+    issue no collective (none is counted), so NCCL itself is checked by one
+    sum of a tensor on the card over the group."""
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.parallel import distributed as pd
+    from dropoutdecoding_tpu_torch.parallel import mesh as pm
+    from dropoutdecoding_tpu_torch.utils.config import (
+        EnsembleConfig,
+        GenerationConfig,
+        LlavaConfig,
+    )
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+
+    os.makedirs(PARALLEL_DIR, exist_ok=True)
+    store = os.path.abspath(os.path.join(PARALLEL_DIR, "nccl_store"))
+    pd.init_multihost(coordinator_address=f"file://{store}", num_processes=1, process_id=0,
+                      backend="nccl")
+    try:
+        mesh = pm.make_mesh(n_data=1, n_model=1)
+        probe = torch.arange(4.0, device="cuda")
+        torch.distributed.all_reduce(probe, group=mesh.group("model"))
+        if not torch.equal(probe, torch.arange(4.0, device="cuda")):
+            raise AssertionError(f"NCCL sum over a world of one: {probe.tolist()}")
+        cfg = LlavaConfig()
+        ids, pixels = llava_pair(cfg)
+        args = (ids[:1], pixels[:1])
+        gen = GenerationConfig(max_new_tokens=PARALLEL_T, eos_token_id=-1, pad_token_id=0)
+        p = synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0)
+        sp = pm.shard_llava_params(p, mesh)
+
+        def make(params, ensemble, ens):
+            return LlavaEngine(cfg=cfg, params=params, gen=gen, ens=ens, max_len=640,
+                               ensemble=ensemble)
+
+        ref_st = make(p, True, EnsembleConfig()).prefill(*args)
+        pm.reset_counts()
+        st = make(sp, True, EnsembleConfig()).prefill(*args)
+        prefill_collectives = [pm.all_reduce.calls, pm.all_gather.calls]
+        if prefill_collectives != [0, 0]:
+            raise AssertionError(f"a one-rank mesh issued collectives {prefill_collectives}")
+        if not (torch.equal(st.last_logits, ref_st.last_logits) and torch.equal(st.epis,
+                                                                               ref_st.epis)):
+            raise AssertionError("NCCL world of one: TP prefill not bit-equal to unsharded")
+        out = {"prefill collectives": prefill_collectives}
+        runs = _rank_runs(0, "NCCL world of one, bf16 LLaVA-1.5-7B", make, sp, args,
+                          PARALLEL_MODES, ref=p)
+        for mode, run in runs.items():
+            out[mode] = {"launches": run["launches"], "tokens": run["tokens"][0][:8]}
+        print(f"NCCL world of one: tokens and prefill bit-equal to unsharded, no collective "
+              f"issued over the one-rank axes, NCCL's own sum on the card exact; "
+              f"{json.dumps(out)}; card {card}", flush=True)
+        del p, sp, ref_st, st
+        return out
+    finally:
+        torch.distributed.destroy_process_group()
+        _free()
+
+
+def parallel_phase(card: str) -> tuple:
+    """TP and DP on the one card: NCCL over a world of one in this process
+    (bit-equal to unsharded), then two gloo ranks spawned as processes of
+    this script (``parallel_rank``), which load the kernels this process
+    built.  Both share the card, and gloo stages each collective through host
+    memory: no number here is a multi-GPU speed.  A rank that fails ends
+    the phase: the other is killed and this raises.  Returns (the
+    kernels-line launches of the TP records, the phase's summary)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    summary = {"nccl_world_of_one": _nccl_world_of_one(card)}
+    workdir = os.path.abspath(PARALLEL_DIR)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(r), workdir]) for r in (0, 1)]
+    try:
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                raise AssertionError(f"parallel ranks {failed or 'timed out'}: exit codes "
+                                     f"{[p.poll() for p in procs]}")
+            time.sleep(0.5)
+        codes = [p.returncode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"parallel ranks exited {codes}")
+        reports = []
+        for r in (0, 1):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0, r1 = reports
+    for tier, runs in r0["fp32"].items():  # the ranks agree token for token
+        for mode, run in (runs.items() if "tokens" not in runs else [("", runs)]):
+            other = r1["fp32"][tier][mode] if mode else r1["fp32"][tier]
+            if run["tokens"] != other["tokens"]:
+                raise AssertionError(f"fp32 {tier} {mode}: rank tokens differ")
+    for label, rec in r0["bf16"].items():
+        for mode, run in rec["runs"].items():
+            if run["tokens"] != r1["bf16"][label]["runs"][mode]["tokens"]:
+                raise AssertionError(f"bf16 {label} {mode}: rank tokens differ")
+        faults = {k: f"{v:.3e}" for k, v in rec.items() if " fault layer " in k}
+        print(f"parallel bf16 {label} (two processes on one card through host-staged gloo; no "
+              f"multi-GPU speed): logits {rec['logits_share']:.3e} (bound "
+              f"{TP_BF16_LOGITS_RTOL:g}) and epis {rec['epis_share']:.3e} (bound "
+              f"{TP_BF16_EPIS_RTOL:g}) of their largest value from unsharded; planted faults "
+              f"{faults}; collectives {rec['collectives']}, one all-reduce "
+              f"{rec['collective_ms']['all_reduce_ms']:.3f} ms, one logits gather "
+              f"{rec['collective_ms']['gather_ms']:.3f} ms; card {card}")
+        for mode, run in rec["runs"].items():
+            print(f"  {mode}: {run['ms_a_step']:.1f} ms a step, launches a rank "
+                  f"{run['launches']}, common prefix with unsharded {run['common_prefix']} of "
+                  f"{PARALLEL_T}: {run['tokens'][0]} vs {run['unsharded']}")
+    summary["fp32 4-layer seconds"] = r0["fp32_seconds"]
+    summary["bf16"] = {label: {k: v for k, v in rec.items() if k != "runs"}
+                       | {mode: {"ms_a_step": run["ms_a_step"],
+                                 "common_prefix": run["common_prefix"]}
+                          for mode, run in rec["runs"].items()}
+                       for label, rec in r0["bf16"].items()}
+    summary["seconds"] = time.perf_counter() - t0
+    llava7, next7 = r0["bf16"]["LLaVA-1.5-7B"]["runs"], r0["bf16"]["LLaVA-v1.6-Mistral-7B"]["runs"]
+    launches = {
+        "K1 TP": llava7["exact K=3"]["launches"]["K1"],
+        "K1 TP NeXT": next7["exact K=3"]["launches"]["K1"],
+        "K5 TP": next7["exact K=3"]["launches"]["K5"],
+    }
+    # K6 at the records' shapes, the exact run's member forward (R = 3):
+    # q / k / v and gate / up column shards, each layer of each step
+    by_shape = r0["fp32"]["int4"]["exact K=3"]["K6 by shape"]
+    for key, E, per_layer in (("q/k/v shard", 2048, 3), ("gate/up shard", 5504, 2)):
+        n = by_shape.get(f"3x4096x{E}", 0)
+        if n != per_layer * 4 * (PARALLEL_T - 1):
+            raise AssertionError(f"K6 TP {key}: {n} launches at [3, 4096] x [4096, {E}], want "
+                                 f"{per_layer * 4 * (PARALLEL_T - 1)}; by shape {by_shape}")
+        launches[f"K6 TP {key}"] = n
+    print(f"parallel fp32 int4 exact K=3, K6 launches a rank by R x D x E: {by_shape}")
+    return launches, summary
+
+
 KERNELS = {
     "K1": {
         "name": "ensemble_decode_attention",
@@ -4774,6 +5338,39 @@ KERNELS = {
         "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
         "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
     },
+    "K1 TP": {
+        "name": "ensemble_decode_attention (a TP rank of LLaVA-1.5-7B at n_model = 2: 16 of 32 "
+                "heads, G = 1)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K1 TP NeXT": {
+        "name": "ensemble_decode_attention (a TP rank of LLaVA-v1.6-Mistral-7B at n_model = 2: "
+                "16 heads over 4 KV heads)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_decode_attention.py:166",
+    },
+    "K5 TP": {
+        "name": "flash_prefill_attention (a TP rank's NeXT prefill at n_model = 2: 16 heads over "
+                "4 KV heads, S = 2950)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/flash_prefill.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_attention.py:66",
+    },
+    "K6 TP q/k/v shard": {
+        "name": "int4_matmul (a TP rank's q / k / v column shard [4096, 2048], fp32, R = 3)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
+    },
+    "K6 TP gate/up shard": {
+        "name": "int4_matmul (a TP rank's gate / up column shard [4096, 5504], fp32, R = 3)",
+        "route": "cuda",
+        "source": "dropoutdecoding_tpu_torch/csrc/int4_matmul.cu",
+        "replaces": "dropoutdecoding_tpu/ops/pallas_int4_matmul.py:236",
+    },
     "K1 baseline_batch_bench beam": {
         "name": "ensemble_decode_attention (baseline_batch_bench beam search: M = 1 over 2 x 3 rows, and 3 serial)",
         "route": "cuda",
@@ -4846,6 +5443,11 @@ def main() -> int:
     print(f"speculative and consistency phases, s: {json.dumps(spec_s)}, "
           f"{sum(spec_s.values()):.1f} s added; ClipZeroShot {json.dumps(clip)}")
     print(f"harness tool phases, s: {json.dumps(tools_s)}, {sum(tools_s.values()):.1f} s added")
+    torch.cuda.empty_cache()
+    par_launches, parallel = parallel_phase(card)
+    launches.update(par_launches)
+    print(f"parallel phase (two processes on one card through host-staged gloo; no multi-GPU "
+          f"speed): {json.dumps(parallel)}, {parallel['seconds']:.1f} s added; card {card}")
     kernels = [{**KERNELS[k], "launches": launches[k], **records[k]} for k in KERNELS]
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
@@ -4862,4 +5464,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of parallel_phase
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

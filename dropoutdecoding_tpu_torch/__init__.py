@@ -14,6 +14,8 @@ Layout:
   decoding/  dropout-mask policies, vote / average aggregation
   engine/    LlavaEngine: prefill, exact ensemble / greedy decode loop;
              LlavaNextEngine: its anyres prefill
+  parallel/  the ("data", "model") mesh over torch.distributed ranks, the
+             shard functions, and the collectives tensor parallelism issues
   utils/     config dataclasses, PRNG key tree, weight conversion
   csrc/      CUDA sources (sm_90a)
 """

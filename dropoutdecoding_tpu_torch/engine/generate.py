@@ -87,6 +87,7 @@ from ..ops.uncertainty import (
     lowest_percent_kl_indices_mask,
     vision_uncertainty_auto,
 )
+from ..parallel.mesh import mesh_of
 from ..utils.config import EnsembleConfig, GenerationConfig, LlavaConfig
 from ..utils.prng import (
     PhiloxGumbel,
@@ -252,6 +253,10 @@ class LlavaEngine:
         self._lag_kl = self.ensemble and self.ens.fused_step and self.ens.mask_policy == "epis_kl"
         embed = self.params.lm["embed_tokens"]
         self.device, self.dtype = embed.device, embed.dtype
+        # TP / DP: params cut by parallel/mesh.shard_* before construction
+        # carry their mesh; decode_step gets it, and under DP a row keeps its
+        # global rng_id (_assemble_state)
+        self.tp_mesh = mesh_of(self.params)
         if self.uniform is None:
             self.uniform = PhiloxUniform(self.seed, self.device)
         if self.text_uniform is None:
@@ -324,7 +329,8 @@ class LlavaEngine:
         D], KVCache [L, 1, S, KH, Dh])."""
         lm, cfg = self.params.lm, self.cfg.text
         B, S, _ = merged.shape
-        shape = (cfg.num_hidden_layers, B, S, cfg.num_key_value_heads, cfg.head_dim)
+        KH = llama_mod.local_heads(cfg, self.tp_mesh)[1]
+        shape = (cfg.num_hidden_layers, B, S, KH, cfg.head_dim)
         kbuf, vbuf = merged.new_zeros(shape), merged.new_zeros(shape)
         live = torch.as_tensor(real_len, device=self.device).reshape(-1, 1)
         hidden = []
@@ -397,7 +403,8 @@ class LlavaEngine:
         topk_ids = uncert.pop("topk_ids")
 
         cache = llama_mod.empty_cache(
-            self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv
+            self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv,
+            tp_mesh=self.tp_mesh,
         )
         llama_mod.cache_seed(cache, kv)
         if visual_mask is None:
@@ -413,7 +420,7 @@ class LlavaEngine:
             image_pos=image_pos,
             visual_mask=visual_mask,
             probe_ids=extract_probe_ids(input_ids, text_lens=text_lens),
-            rng_id=torch.arange(B),
+            rng_id=torch.arange(B) + B * (self.tp_mesh.data_rank if self.tp_mesh else 0),
             uncertainty=uncert,
         )
         if self.on_prefill is not None:
@@ -537,7 +544,7 @@ class LlavaEngine:
             M = masks.shape[1]
             ha, ka, va = llama_mod.decode_step(
                 lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks,
-                w8a8=self.w8a8_decode,
+                tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
             )
             logits_all = llama_mod.lm_head(lm, ha)  # [B, K+1, V]
             logits0 = logits_all[:, 0]
@@ -548,7 +555,7 @@ class LlavaEngine:
         else:
             h0, k0, v0 = llama_mod.decode_step(
                 lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None],
-                w8a8=self.w8a8_decode,
+                tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
             )
             logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
             argmax0 = logits0.argmax(dim=-1)
@@ -563,7 +570,8 @@ class LlavaEngine:
                 K = member_mask.shape[1]
                 xk = x[:, None].expand(B, K, x.shape[-1])
                 hk, kk, vk = llama_mod.decode_step(
-                    lm, cfg.text, xk, cur_len, cache, member_mask, w8a8=self.w8a8_decode
+                    lm, cfg.text, xk, cur_len, cache, member_mask, tp_mesh=self.tp_mesh,
+                    w8a8=self.w8a8_decode,
                 )
                 winner, next_token, winner_logits = self._aggregate(llama_mod.lm_head(lm, hk))
                 rows = torch.arange(B, device=self.device)

@@ -63,7 +63,7 @@ class DecodeServer:
         self._track_kl = eng.ens.mask_policy == "epis_kl"
         self._state = PrefillState(
             cache=llama_mod.empty_cache(eng.cfg.text, S, eng.max_len, eng.dtype, dev,
-                                        quantized=eng.int8_kv),
+                                        quantized=eng.int8_kv, tp_mesh=eng.tp_mesh),
             cur_len=torch.ones(S, **i64),  # >= 1 so that an empty slot's mask is sane
             last_logits=torch.zeros(S, V, **f32),
             first_token=torch.zeros(S, **i64),

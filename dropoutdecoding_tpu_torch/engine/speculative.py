@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..models import llama as llama_mod
+from ..parallel.mesh import mesh_of
 
 
 def _stamp(device: torch.device):
@@ -110,6 +111,12 @@ class SpeculativeGreedy:
                 "draft='lm' is implemented for LlavaEngine; use "
                 "draft='ngram' for LLaVA-NeXT / InstructBLIP engines"
             )
+        if self.draft == "lm" and mesh_of(self.draft_lm) is not self.engine.tp_mesh:
+            # the draft's cache is allocated with the target's local heads
+            raise ValueError(
+                "the draft tower must be cut for the target's mesh "
+                "(parallel/mesh.shard_llama_params), or neither be sharded"
+            )
         # slot ids: positions and masks are views and comparisons of it, so a
         # host-side ``cur`` reaches the device without a copy
         self._slots = torch.arange(self.engine.max_len, device=self.engine.device)
@@ -124,7 +131,8 @@ class SpeculativeGreedy:
         _, merged, _ = eng._merge_inputs(input_ids, pixel_values)
         B, S, _ = merged.shape
         _, kv = llama_mod.prefill(self.draft_lm, eng.cfg.text, merged, eng._positions(B, S))
-        cache = llama_mod.empty_cache(eng.cfg.text, B, eng.max_len, eng.dtype, eng.device)
+        cache = llama_mod.empty_cache(eng.cfg.text, B, eng.max_len, eng.dtype, eng.device,
+                                      tp_mesh=eng.tp_mesh)
         return llama_mod.cache_seed(cache, kv)
 
     def _draft_step(self, dcache, pos: int, token: torch.Tensor, head: bool = True):

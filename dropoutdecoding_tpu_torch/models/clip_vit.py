@@ -12,6 +12,7 @@ import torch
 
 from ..ops.attention import prefill_attention
 from ..ops.basic import act_fn, layer_norm
+from ..parallel.mesh import all_reduce, mesh_of
 from ..utils.config import ClipVisionConfig
 from ..utils.hf_io import hf_leaf, hf_stacked
 
@@ -83,6 +84,10 @@ def apply(
     """Run the tower up to ``feature_layer`` (HF hidden_states indexing:
     0 is the pre-layernorm embedding, i the output of layer i).
 
+    Under tensor parallelism (params cut by ``parallel/mesh.py``) each
+    rank runs its heads and its fc1 columns; out_w and fc2_w are
+    row-parallel, each product all-reduced before its whole bias is added.
+
     Returns:
       [B, 1 + num_patches, D] hidden states (CLS first).
     """
@@ -98,8 +103,13 @@ def apply(
     n_run = (
         cfg.num_hidden_layers + 1 + feature_layer if feature_layer < 0 else feature_layer
     )
+    mesh = mesh_of(params)
     H = cfg.num_attention_heads
     Dh = D // H
+    if mesh is not None:
+        if H % mesh.n_model:
+            raise ValueError(f"{H} heads do not split over {mesh.n_model} model ranks")
+        H //= mesh.n_model
     act = act_fn(cfg.hidden_act)
     layers = params["layers"]
     for i in range(n_run):
@@ -110,8 +120,8 @@ def apply(
         k = (r @ lp["k_w"] + lp["k_b"]).reshape(B, S, H, Dh)
         v = (r @ lp["v_w"] + lp["v_b"]).reshape(B, S, H, Dh)
         attn = prefill_attention(q, k, v, causal=False)
-        x = x + attn.reshape(B, S, D) @ lp["out_w"] + lp["out_b"]
+        x = x + all_reduce(attn.reshape(B, S, H * Dh) @ lp["out_w"], mesh) + lp["out_b"]
         r = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.layer_norm_eps)
         r = act(r @ lp["fc1_w"] + lp["fc1_b"])
-        x = x + r @ lp["fc2_w"] + lp["fc2_b"]
+        x = x + all_reduce(r @ lp["fc2_w"], mesh) + lp["fc2_b"]
     return x

@@ -35,8 +35,14 @@ Unlike the JAX package, the cache is updated in place: ``cache_seed``,
 KVCache's tensors.  On an int8 cache ``cache_set_rows`` is
 K4 (``ops/cuda_cache_append.py``).
 
-Not ported yet (raises ``NotImplementedError``): tensor parallelism
-(ROADMAP Queue 1 item 16).
+Tensor parallelism: params cut by ``parallel/mesh.shard_*`` carry their
+mesh, and every forward here finds it (``mesh_of``).  Each rank then holds
+its heads, its MLP columns and its vocabulary block; the collectives sit in
+``_forward`` alone, which every entry shares: one all-reduce after o_proj
+and one after down_proj (before an int8 leaf's whole-row scale, as GSPMD
+orders them), or, for a packed int4 row-parallel leaf kept whole, a gather
+of its input instead.  ``lm_head`` gathers the vocabulary blocks into whole
+fp32 logits on every rank.
 """
 from __future__ import annotations
 
@@ -60,6 +66,7 @@ from ..ops.cuda_decode_attention import (
 )
 from ..ops.cuda_flash_prefill import flash_prefill_attention
 from ..ops.cuda_int4_matmul import int4_matmul
+from ..parallel.mesh import all_gather, all_reduce, mesh_of
 from ..utils.config import LlamaConfig
 from ..utils.hf_io import hf_leaf, hf_stacked
 from ..utils.quantize import quantize_activations, quantize_kv
@@ -114,6 +121,18 @@ def params_from_hf(
     }
 
 
+def local_heads(cfg: LlamaConfig, mesh=None) -> tuple[int, int]:
+    """(query heads, KV heads) of this rank: all of them without a mesh,
+    the model axis's share under tensor parallelism."""
+    H, KH = cfg.num_attention_heads, cfg.num_key_value_heads
+    if mesh is None:
+        return H, KH
+    n = mesh.n_model
+    if H % n or KH % n:
+        raise ValueError(f"{H} heads / {KH} KV heads do not split over {n} model ranks")
+    return H // n, KH // n
+
+
 def empty_cache(
     cfg: LlamaConfig,
     batch: int,
@@ -121,10 +140,13 @@ def empty_cache(
     dtype: torch.dtype,
     device: torch.device | str,
     quantized: bool = False,
+    tp_mesh=None,
 ) -> KVCache:
     """Allocate the canonical cache; the int8 layout when ``quantized``,
-    with scales 1 so that untouched slots dequantize to 0."""
-    L, KH, D = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    with scales 1 so that untouched slots dequantize to 0.  Under
+    ``tp_mesh`` it holds this rank's KV heads."""
+    L, D = cfg.num_hidden_layers, cfg.head_dim
+    KH = local_heads(cfg, tp_mesh)[1]
     if not quantized:
         shape = (L, batch, max_len, KH, D)
         return KVCache(
@@ -299,8 +321,13 @@ def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits from operands in the weights' dtype.  A quantized head
     runs in bf16 whatever the activations' dtype, as the JAX package does
     (``models/llama.py:518-529``): int8 with the scale applied to the fp32
-    product, int4 through K6 with an fp32 output."""
-    w = params["lm_head"]
+    product, int4 through K6 with an fp32 output.  Under tensor parallelism
+    each rank computes its vocabulary block and the blocks are gathered, so
+    every rank holds the whole logits."""
+    return all_gather(_head_block(params["lm_head"], hidden), mesh_of(params))
+
+
+def _head_block(w, hidden: torch.Tensor) -> torch.Tensor:
     if isinstance(w, dict):
         if "q4" in w:
             x = hidden.to(torch.bfloat16).contiguous()
@@ -310,19 +337,21 @@ def lm_head(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     return _mm_f32(hidden.to(w.dtype), w)
 
 
-def _mm(x: torch.Tensor, w) -> torch.Tensor:
+def _mm(x: torch.Tensor, w, reduce_over=None) -> torch.Tensor:
     """``x @ w`` for dense, int8 {"q", "s"} or packed int4 {"q4", "s4"}
     weights.  int8 multiplies in the activation dtype, rounds to it, then
     applies the per-channel scale in it, as the JAX package does
     (``models/llama.py:375-379``), from a row-major copy whatever the
     leaf's layout (w8a8's is column-major), so that the sums keep their
-    order; int4 is K6."""
+    order; int4 is K6.  ``reduce_over``: the mesh of a row-parallel
+    projection, whose partial sums are all-reduced over the model axis
+    before the int8 scale (dot, reduce, scale: GSPMD's order)."""
     if isinstance(w, dict):
         if "q4" in w:
             return int4_matmul(x.contiguous(), w["q4"], w["s4"])
         wq = w["q"].to(x.dtype, memory_format=torch.contiguous_format)
-        return (x @ wq) * w["s"][0].to(x.dtype)
-    return x @ w
+        return all_reduce(x @ wq, reduce_over) * w["s"][0].to(x.dtype)
+    return all_reduce(x @ w, reduce_over)
 
 
 INT_MM_MIN_ROWS = 32  # rows of an int8 product on the card; fewer are zero-padded
@@ -340,26 +369,43 @@ def _int_mm(qx: torch.Tensor, qw: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(qx, qw)
 
 
-def _mm_w8a8(x: torch.Tensor, w) -> torch.Tensor:
+def _mm_w8a8(x: torch.Tensor, w, reduce_over=None) -> torch.Tensor:
     """``x @ w`` with int8 activations for int8 {"q", "s"} weights (JAX
     ``models/llama.py:538``): the rows quantized per row
     (``quantize_activations``), s8 x s8 -> s32, then ``(y * sx * s)`` in
     fp32, in JAX's order, rounded to x's dtype.  Dense and int4 weights take
     ``_mm`` (int4 is K6, as in JAX).  The product is ``torch._int_mm``: the
-    JAX op is plain XLA, not a TPU kernel."""
+    JAX op is plain XLA, not a TPU kernel.  A row-parallel projection
+    (``reduce_over``) holds a shard of each row: its scale comes from the
+    row max all-reduced over the model axis, and the int32 sums are
+    all-reduced before the rescale, as GSPMD reduces a sharded axis."""
     if not isinstance(w, dict) or "q4" in w:
-        return _mm(x, w)
-    qx, sx = quantize_activations(x)
+        return _mm(x, w, reduce_over)
+    qx, sx = quantize_activations(
+        x, None if reduce_over is None else lambda amax: all_reduce(amax, reduce_over, op="max")
+    )
     y = _int_mm(qx.reshape(-1, qx.shape[-1]), w["q"]).reshape(*x.shape[:-1], w["q"].shape[-1])
+    y = all_reduce(y, reduce_over)
     return (y.float() * sx * w["s"].float()[0]).to(x.dtype)
 
 
-def _mlp(lp: dict, x: torch.Tensor, mm=_mm) -> torch.Tensor:
+def _row_parallel(mm, x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """A projection back to the residual width (o_proj, down_proj): ``x``
+    holds this rank's heads or MLP columns under ``mesh``.  A packed int4
+    leaf stays whole (byte d packs rows d and d + D/2, so its rows cannot
+    be split): its input is gathered and K6 runs on the whole matrix with
+    no reduce; every other leaf multiplies its rows and all-reduces."""
+    if mesh is not None and isinstance(w, dict) and "q4" in w:
+        return mm(all_gather(x, mesh), w)
+    return mm(x, w, mesh)
+
+
+def _mlp(lp: dict, x: torch.Tensor, mm=_mm, mesh=None) -> torch.Tensor:
     if "gate_up_proj" in lp:
         gate, up = mm(x, lp["gate_up_proj"]).chunk(2, dim=-1)
     else:
         gate, up = mm(x, lp["gate_proj"]), mm(x, lp["up_proj"])
-    return mm(F.silu(gate) * up, lp["down_proj"])
+    return _row_parallel(mm, F.silu(gate) * up, lp["down_proj"], mesh)
 
 
 def _qkv(lp: dict, h: torch.Tensor, H: int, KH: int, Dh: int, mm=_mm):
@@ -383,16 +429,18 @@ def _layer(layers: dict, i: int) -> dict:
 
 
 def _forward(params: dict, cfg: LlamaConfig, x: torch.Tensor, cos, sin, attend, keep_kv=True,
-             w8a8=False):
+             w8a8=False, mesh=None):
     """The decoder's layer loop over activations ``x`` [B, R, D] with rope
     tables ``cos`` / ``sin`` that broadcast against [B, R, heads, Dh];
     ``attend(i, q, k, v)`` is layer ``i``'s attention; ``w8a8`` runs the
     projections through ``_mm_w8a8``.  Returns (final-norm hidden, every
     layer's k and v stacked [L, B, R, KH, Dh]), or with ``keep_kv`` off
     (hidden, None): each layer's K/V is then dropped once its attention has
-    read it."""
+    read it.  Under ``mesh`` (tensor parallelism) q/k/v hold this rank's
+    heads and each layer makes its two all-reduces (``_row_parallel``)."""
     mm = _mm_w8a8 if w8a8 else _mm
-    H, KH, Dh = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    H, KH = local_heads(cfg, mesh)
+    Dh = cfg.head_dim
     layers = params["layers"]
     B, R, _ = x.shape
     ks, vs = [], []
@@ -403,8 +451,8 @@ def _forward(params: dict, cfg: LlamaConfig, x: torch.Tensor, cos, sin, attend, 
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         attn = attend(i, q, k, v)
-        x = x + mm(attn.reshape(B, R, H * Dh), lp["o_proj"])
-        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps), mm)
+        x = x + _row_parallel(mm, attn.reshape(B, R, H * Dh), lp["o_proj"], mesh)
+        x = x + _mlp(lp, rms_norm(x, lp["post_attn_ln"], cfg.rms_norm_eps), mm, mesh)
         if keep_kv:
             ks.append(k)
             vs.append(v)
@@ -429,7 +477,7 @@ def _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv, w8a8):
         return prefill_attention(q, k, v, causal=True, key_mask=key_mask)
 
     return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend, keep_kv,
-                    w8a8)
+                    w8a8, mesh_of(params))
 
 
 def prefill(
@@ -501,7 +549,8 @@ def prefill_extend(
     Returns:
       (hidden [B, T, D] final-norm output, the tail's KVCache [L, B, T, KH, Dh]).
     """
-    KH, Dh = cfg.num_key_value_heads, cfg.head_dim
+    mesh = mesh_of(params)
+    KH, Dh = local_heads(cfg, mesh)[1], cfg.head_dim
     pk, pv = prefix
     if cache_is_quantized(prefix):
         Bp, P = pk["q"].shape[1:3]
@@ -516,7 +565,7 @@ def prefill_extend(
             return extend_attention(q, k, v, pk[i], pv[i], prefix_mask)
 
     return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend,
-                    w8a8=w8a8)
+                    w8a8=w8a8, mesh=mesh)
 
 
 def kv_int8_reader_layout(x: torch.Tensor) -> dict:
@@ -546,15 +595,18 @@ def decode_step(
       position: [B] rope position of the current token.
       cache: KVCache, dense or int8, read only.
       key_mask: [B, M, Smax] bool, True = attend that cache slot.
+      tp_mesh: the mesh of TP-sharded params (``parallel/mesh.py``); found
+        from the params when not given.  The cache and k/v then hold this
+        rank's heads (G = H / KH is unchanged), which K1 / K3 read as they
+        read a whole cache.
       w8a8: int8 activations for int8 projections (``_mm_w8a8``): the
         decode rows are B x M.
     Returns:
       (hidden [B, M, D], k_new [L, B, M, KH, Dh], v_new [L, B, M, KH, Dh])
     """
-    if tp_mesh is not None:
-        raise NotImplementedError("tensor parallelism is not ported yet (ROADMAP Queue 1 item 16)")
+    mesh = tp_mesh if tp_mesh is not None else mesh_of(params)
     B = x.shape[0]
-    KH, Dh = cfg.num_key_value_heads, cfg.head_dim
+    KH, Dh = local_heads(cfg, mesh)[1], cfg.head_dim
     cos, sin = rotary_embedding(position, Dh, cfg.rope_theta)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
     key_mask = key_mask.contiguous()
@@ -573,7 +625,7 @@ def decode_step(
                 q, cache.k[i], cache.v[i], k, v.contiguous(), key_mask
             )
 
-    hidden, kv = _forward(params, cfg, x, cos, sin, attend, w8a8=w8a8)
+    hidden, kv = _forward(params, cfg, x, cos, sin, attend, w8a8=w8a8, mesh=mesh)
     return hidden, kv.k, kv.v
 
 
@@ -640,8 +692,11 @@ def decode_step_attn(
       (hidden [B, D], k_new [L, B, KH, Dh], v_new [L, B, KH, Dh],
        attn [B, S]): attn is the last layer's head-mean probabilities over
       the cache slots (the self column is in the softmax, not in the row).
+      Under tensor parallelism the mean is over every head: each rank's
+      sum over its heads, all-reduced, over the global head count.
     """
-    KH, Dh = cfg.num_key_value_heads, cfg.head_dim
+    mesh = mesh_of(params)
+    KH, Dh = local_heads(cfg, mesh)[1], cfg.head_dim
     L = params["layers"]["input_ln"].shape[0]
     cos, sin = rotary_embedding(position, Dh, cfg.rope_theta)
     cos, sin = cos[:, None, None, :], sin[:, None, None, :]
@@ -656,8 +711,11 @@ def decode_step_attn(
             kc, vc, scales = cache.k[i], cache.v[i], (None, None)
         out, probs = attention_with_probs(q[:, 0], k[:, 0], v[:, 0], kc, vc, key_mask, *scales)
         if i == L - 1:
-            last.append(probs.mean(dim=(1, 2)))
+            if mesh is None:
+                last.append(probs.mean(dim=(1, 2)))
+            else:
+                last.append(all_reduce(probs.sum(dim=(1, 2)), mesh) / cfg.num_attention_heads)
         return out[:, None]
 
-    hidden, kv = _forward(params, cfg, x[:, None], cos, sin, attend)
+    hidden, kv = _forward(params, cfg, x[:, None], cos, sin, attend, mesh=mesh)
     return hidden[:, 0], kv.k[:, :, 0], kv.v[:, :, 0], last[0]

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.basic import act_fn
+from ..parallel.mesh import all_reduce, mesh_of
 from ..utils.hf_io import hf_leaf
 
 
@@ -29,5 +30,7 @@ def params_from_hf(
 
 
 def apply(params: dict, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
+    """Under tensor parallelism fc1 is column-parallel and fc2 row-parallel:
+    its product is all-reduced before the whole ``fc2_b`` is added."""
     h = act_fn(act)(x @ params["fc1_w"] + params["fc1_b"])
-    return h @ params["fc2_w"] + params["fc2_b"]
+    return all_reduce(h @ params["fc2_w"], mesh_of(params)) + params["fc2_b"]

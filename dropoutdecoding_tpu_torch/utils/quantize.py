@@ -207,9 +207,16 @@ def quantize_llama_params_int4(
     return out
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, reduce_amax=None):
     """Per-row (last-axis) symmetric int8 of activations, the "a8" half of
     the w8a8 mode (JAX ``utils/quantize.py:245``): the K/V quantizer's
-    scheme, so the two never part.  Returns (q int8 [..., D], s f32 [..., 1])."""
-    d = quantize_kv(x)
+    scheme, so the two never part.  ``reduce_amax``: applied to the row
+    maxima [..., 1] before the scale is taken (under tensor parallelism an
+    all-reduce of them, when ``x`` holds a shard of each row).  Returns
+    (q int8 [..., D], s f32 [..., 1])."""
+    if reduce_amax is None:
+        d = quantize_kv(x)
+    else:
+        x32 = x.float()
+        d = _quantize(x32, reduce_amax(x32.abs().amax(dim=-1, keepdim=True)))
     return d["q"], d["s"]

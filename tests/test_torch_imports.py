@@ -34,7 +34,7 @@ EXPECTED_MODULES = [
     "models.blip_vit", "models.qformer", "models.instructblip", "engine.instructblip_engine",
     "cli.fused_gap", "cli.stall_probe", "cli.baseline_batch_bench", "cli.step_gen",
     "cli.run_acceptance", "cli.run_experiments", "cli.compare_results", "cli.calibrate_metrics",
-    "evalsuite.metrics.calibration",
+    "evalsuite.metrics.calibration", "parallel.mesh", "parallel.distributed",
 ]
 # an import statement of JAX or of the JAX package, in any source line
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax\b|dropoutdecoding_tpu(\.|\s|$))", re.M)

@@ -208,15 +208,25 @@ def test_decode_step_members_share_cache(tiny, rng):
 
 def test_unported_branches_raise(tiny):
     """int8 weights and the int8 cache (``test_torch_quantize.py``), packed
-    int4 weights (``test_torch_int4.py``) and w8a8 (``test_torch_w8a8.py``)
-    are ported; tensor parallelism still raises."""
+    int4 weights (``test_torch_int4.py``), w8a8 (``test_torch_w8a8.py``)
+    and tensor parallelism (``test_torch_tp.py``) are ported: nothing
+    raises.  ``decode_step(tp_mesh=...)`` runs; over a one-rank model axis
+    it is the unsharded step, bit for bit."""
+    from dropoutdecoding_tpu_torch.parallel.mesh import Mesh
+
     cfg = tiny["tcfg"].text
-    x = torch.zeros(1, 1, 48)
+    r = np.random.default_rng(4)
+    x = torch.from_numpy(r.normal(size=(1, 2, 48)).astype(np.float32))
     cache = tllama.empty_cache(cfg, 1, 8, torch.float32, "cpu")
-    mask = torch.ones(1, 1, 8, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 16"):
-        tllama.decode_step(tiny["tp"].lm, cfg, x, torch.zeros(1, dtype=torch.long), cache, mask,
-                           tp_mesh=object())
+    tllama.cache_seed(cache, tllama.KVCache(
+        *(torch.from_numpy(r.normal(size=(2, 1, 5, 4, 12)).astype(np.float32)) for _ in "kv")))
+    mask = torch.ones(1, 2, 8, dtype=torch.bool)
+    mask[:, 1, 2] = False
+    pos = torch.full((1,), 5, dtype=torch.long)
+    plain = tllama.decode_step(tiny["tp"].lm, cfg, x, pos, cache, mask)
+    got = tllama.decode_step(tiny["tp"].lm, cfg, x, pos, cache, mask, tp_mesh=Mesh(1, 1))
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
 
 
 def test_w8a8_on_dense_weights_matches_jax(tiny):
