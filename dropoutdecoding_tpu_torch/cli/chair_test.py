@@ -490,7 +490,7 @@ def _progress(done: int, total: int, what: str = "captioned") -> None:
 def main(args, device="cuda"):
     from PIL import Image
 
-    from ..engine.trace import StageTimer, profile_trace
+    from ..engine.trace import StageTimer, profile_trace, recording
     from ..evalsuite.metrics.evalcap import chunked_self_critical_eval
 
     engine, processor = make_engine(args, device=device)
@@ -522,60 +522,65 @@ def main(args, device="cuda"):
     def load(path):
         return Image.open(path).convert("RGB")
 
-    timer = StageTimer()
     batch = max(getattr(args, "batch_size", 1) or 1, 1)
-    if batch > 1:
-        # batched path: dropout decoding, --original, beam search and VCD
-        # run over ``batch`` images (identical prompts, so identical merged
-        # lengths); LLaVA-NeXT rows carry their own tile stacks and sizes,
-        # InstructBLIP rows their Q-Former ids
-        import numpy as np
+    # the program's spans (engine/trace.py): prefill, decode and the decode
+    # step's phases, each a stage of stage_timings.json
+    with recording() as rec, profile_trace(getattr(args, "profile_dir", None)):
+        timer = StageTimer(rec)
+        if batch > 1:
+            # batched path: dropout decoding, --original, beam search and VCD
+            # run over ``batch`` images (identical prompts, so identical merged
+            # lengths); LLaVA-NeXT rows carry their own tile stacks and sizes,
+            # InstructBLIP rows their Q-Former ids
+            import numpy as np
 
-        for start in range(0, len(img_files), batch):
-            group = img_files[start : start + batch]
-            ids_list, px_list, size_list, qid_list = [], [], [], []
-            for path in paths[start : start + batch]:
-                image = load(path)
-                if model == "llava-next":
-                    tiles, orig = next_image_prep(engine)(image)
-                    ids_list.append(processor(PROMPTS[model])["input_ids"][0])
-                    px_list.append(tiles)
-                    size_list.append(orig)
-                else:
-                    inputs = processor(PROMPTS[model], image)
-                    ids_list.append(inputs["input_ids"][0])
-                    px_list.append(inputs["pixel_values"][0])
-                    if model == "instructblip":
-                        q = qformer_ids_for(processor, PROMPTS[model], inputs)
-                        qid_list.append(np.asarray(q)[0])
-            for rows in (ids_list, px_list, size_list, qid_list):  # the last group keeps the
-                rows.extend(rows[-1:] * (batch - len(group)))  # batch's shape
-            if model == "llava-next":
-                result = generate_arm(engine, model, np.stack(ids_list), px_list, size_list)
-            elif model == "instructblip":
-                result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list),
-                                      np.stack(qid_list))
-            else:
-                result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list))
-            for i, img_file in enumerate(group):
-                text = processor.decode(result.tokens[i][: result.num_tokens[i]])
-                emit_caption(captions_path, model, img_file, text)
-            _progress(start + len(group), len(img_files))
-    else:
-        # threads decode the next JPEGs while the card runs this one
-        from ..utils.native_image import PrefetchLoader
+            for start in range(0, len(img_files), batch):
+                group = img_files[start : start + batch]
+                ids_list, px_list, size_list, qid_list = [], [], [], []
+                for path in paths[start : start + batch]:
+                    image = load(path)
+                    if model == "llava-next":
+                        tiles, orig = next_image_prep(engine)(image)
+                        ids_list.append(processor(PROMPTS[model])["input_ids"][0])
+                        px_list.append(tiles)
+                        size_list.append(orig)
+                    else:
+                        inputs = processor(PROMPTS[model], image)
+                        ids_list.append(inputs["input_ids"][0])
+                        px_list.append(inputs["pixel_values"][0])
+                        if model == "instructblip":
+                            q = qformer_ids_for(processor, PROMPTS[model], inputs)
+                            qid_list.append(np.asarray(q)[0])
+                for rows in (ids_list, px_list, size_list, qid_list):  # the last group keeps the
+                    rows.extend(rows[-1:] * (batch - len(group)))  # batch's shape
+                rec.unit = start
+                with timer.stage("generate"):
+                    if model == "llava-next":
+                        result = generate_arm(engine, model, np.stack(ids_list), px_list, size_list)
+                    elif model == "instructblip":
+                        result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list),
+                                              np.stack(qid_list))
+                    else:
+                        result = generate_arm(engine, model, np.stack(ids_list), np.stack(px_list))
+                for i, img_file in enumerate(group):
+                    text = processor.decode(result.tokens[i][: result.num_tokens[i]])
+                    emit_caption(captions_path, model, img_file, text)
+                _progress(start + len(group), len(img_files))
+        else:
+            # threads decode the next JPEGs while the card runs this one
+            from ..utils.native_image import PrefetchLoader
 
-        loader = PrefetchLoader(paths, load, depth=4, workers=2)
-        with profile_trace(getattr(args, "profile_dir", None)):
+            loader = PrefetchLoader(paths, load, depth=4, workers=2)
             for i, ((path, image), img_file) in enumerate(zip(loader, img_files)):
+                rec.unit = i
                 with timer.stage("generate"):
                     text = run_engine(engine, processor, model, PROMPTS[model], image)
                 emit_caption(captions_path, model, img_file, text)
                 _progress(i + 1, len(img_files))
 
     print("the result is saved into", args.output_dir, filename)
-    if timer.totals:
-        report = timer.report()
+    report = timer.report()
+    if report:
         print("stage timings:", json.dumps(report))
         timer.dump(os.path.join(args.output_dir, "stage_timings.json"))
 
@@ -836,7 +841,7 @@ def build_parser():
         type=str,
         default=None,
         help="write a torch.profiler trace (trace.json, for Perfetto) of the "
-        "serial captioning loop to this dir",
+        "captioning loop, batched or serial, with the program's spans to this dir",
     )
     p.add_argument(
         "--quantize",

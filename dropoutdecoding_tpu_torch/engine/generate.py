@@ -51,6 +51,15 @@ joined at different times in one batch.  ``w8a8_prefill`` /
 prefill in pieces with a callback between two, so that a server can step
 its other rows meanwhile.
 
+Inside a ``recording()`` block (``engine/trace.py``) the prefill, the
+probes and each decode step record spans at their phases' boundaries
+(``prefill.towers``, ``prefill.lm``, ``prefill.uncertainty``,
+``prefill.cache``; ``decode.step`` and in it ``decode.forward0``,
+``decode.masks``, ``decode.members``, ``decode.vote``, ``decode.append``,
+or fused mode's ``decode.forward``, and ``decode.sample``), and count
+``decode.steps`` and ``decode.draws`` (one a call to a draw source);
+outside one they cost a no-op context each.
+
 A one-token workload (POPE) reads only the first token, which no mask can
 change, so it skips everything after the prompt's last logits:
 
@@ -97,6 +106,7 @@ from ..utils.prng import (
     StepSource,
     UniformSource,
 )
+from . import trace
 
 DONE_CHECK_EVERY = 8  # decode steps between host reads of ``done``
 TEXT_POLICIES = ("none", "logits", "entropy")
@@ -303,13 +313,17 @@ class LlavaEngine:
         """``text_lens``: optional [B] real lengths of right-padded rows;
         their pads sit after every real token, so only the first token's
         position and the fill need them."""
-        ids, merged, image_pos = self._merge_inputs(input_ids, pixel_values)
-        B, S, _ = merged.shape
-        hidden, kv = llama_mod.prefill(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
-        )
-        cur_len, text_lens = self._fill(B, S, text_lens)
-        return self._assemble_state(ids, hidden, kv, image_pos, cur_len, text_lens)
+        with trace.span("prefill"):
+            with trace.span("prefill.towers"):
+                ids, merged, image_pos = self._merge_inputs(input_ids, pixel_values)
+            B, S, _ = merged.shape
+            with trace.span("prefill.lm"):
+                hidden, kv = llama_mod.prefill(
+                    self.params.lm, self.cfg.text, merged, self._positions(B, S),
+                    w8a8=self.w8a8_prefill,
+                )
+            cur_len, text_lens = self._fill(B, S, text_lens)
+            return self._assemble_state(ids, hidden, kv, image_pos, cur_len, text_lens)
 
     # ------------------------------------------------------------------
     # chunked prefill (serving: bound the stall a long prompt causes)
@@ -394,19 +408,21 @@ class LlavaEngine:
         N = self.n_visual
         first_token, last_logits = self._head(hidden, cur_len)
         # visual-span logits -> uncertainty + top-k projection table
-        start = image_pos.clamp(0, S - N)
-        idx = start[:, None] + torch.arange(N, device=self.device)[None]
-        hidden_img = hidden.gather(1, idx[..., None].expand(B, N, E))
-        img_logits = llama_mod.lm_head(lm, hidden_img)  # [B, N, V] fp32
-        # one call: K2 finds the top-k ids while it takes its first statistics
-        uncert = vision_uncertainty_auto(img_logits, visual_mask, top_k=self.ens.topk)
-        topk_ids = uncert.pop("topk_ids")
+        with trace.span("prefill.uncertainty"):
+            start = image_pos.clamp(0, S - N)
+            idx = start[:, None] + torch.arange(N, device=self.device)[None]
+            hidden_img = hidden.gather(1, idx[..., None].expand(B, N, E))
+            img_logits = llama_mod.lm_head(lm, hidden_img)  # [B, N, V] fp32
+            # one call: K2 finds the top-k ids while it takes its first statistics
+            uncert = vision_uncertainty_auto(img_logits, visual_mask, top_k=self.ens.topk)
+            topk_ids = uncert.pop("topk_ids")
 
-        cache = llama_mod.empty_cache(
-            self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv,
-            tp_mesh=self.tp_mesh,
-        )
-        llama_mod.cache_seed(cache, kv)
+        with trace.span("prefill.cache"):
+            cache = llama_mod.empty_cache(
+                self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv,
+                tp_mesh=self.tp_mesh,
+            )
+            llama_mod.cache_seed(cache, kv)
         if visual_mask is None:
             visual_mask = torch.ones((B, N), dtype=torch.bool, device=self.device)
         state = PrefillState(
@@ -436,6 +452,7 @@ class LlavaEngine:
         of each row's own; on the engine's device."""
         rows = state.rng_id.tolist()
         steps = step if isinstance(step, list) else [step] * len(rows)
+        trace.count("decode.draws", len(rows))
         draws = [source(s, row, *rest, n) for s, row in zip(steps, rows)]
         return torch.stack(draws).to(self.device)
 
@@ -537,66 +554,76 @@ class LlavaEngine:
         if self.ensemble and self.ens.fused_step:
             # one M=K+1 forward: member 0 unmasked, members 1..K masked from
             # the previous step's argmax (and lagged logits for epis_kl)
-            drop_slots = self._member_drop_slots(
-                state, carry.prev_argmax0, draw_steps, carry.prev_logits0, cur_len, tm
-            )
-            masks = torch.cat([base_mask[:, None], base_mask[:, None] & ~drop_slots], dim=1)
+            with trace.span("decode.masks"):
+                drop_slots = self._member_drop_slots(
+                    state, carry.prev_argmax0, draw_steps, carry.prev_logits0, cur_len, tm
+                )
+                masks = torch.cat([base_mask[:, None], base_mask[:, None] & ~drop_slots], dim=1)
             M = masks.shape[1]
-            ha, ka, va = llama_mod.decode_step(
-                lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks,
-                tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
-            )
-            logits_all = llama_mod.lm_head(lm, ha)  # [B, K+1, V]
-            logits0 = logits_all[:, 0]
-            argmax0 = logits0.argmax(dim=-1)
-            winner, next_token, winner_logits = self._aggregate(logits_all[:, 1:])
-            rows = torch.arange(B, device=self.device)
-            kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, KH, D]
+            with trace.span("decode.forward"):
+                ha, ka, va = llama_mod.decode_step(
+                    lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks,
+                    tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
+                )
+                logits_all = llama_mod.lm_head(lm, ha)  # [B, K+1, V]
+                logits0 = logits_all[:, 0]
+                argmax0 = logits0.argmax(dim=-1)
+            with trace.span("decode.vote"):
+                winner, next_token, winner_logits = self._aggregate(logits_all[:, 1:])
+                rows = torch.arange(B, device=self.device)
+                kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, KH, D]
         else:
-            h0, k0, v0 = llama_mod.decode_step(
-                lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None],
-                tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
-            )
-            logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
-            argmax0 = logits0.argmax(dim=-1)
+            with trace.span("decode.forward0"):
+                h0, k0, v0 = llama_mod.decode_step(
+                    lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None],
+                    tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
+                )
+                logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
+                argmax0 = logits0.argmax(dim=-1)
             if not self.ensemble:
                 winner, next_token, winner_logits = None, argmax0, logits0
                 kw, vw = k0[:, :, 0], v0[:, :, 0]
             else:
-                drop_slots = self._member_drop_slots(
-                    state, argmax0, draw_steps, logits0, cur_len, tm
-                )
-                member_mask = base_mask[:, None, :] & ~drop_slots  # [B, K, Smax]
+                with trace.span("decode.masks"):
+                    drop_slots = self._member_drop_slots(
+                        state, argmax0, draw_steps, logits0, cur_len, tm
+                    )
+                    member_mask = base_mask[:, None, :] & ~drop_slots  # [B, K, Smax]
                 K = member_mask.shape[1]
                 xk = x[:, None].expand(B, K, x.shape[-1])
-                hk, kk, vk = llama_mod.decode_step(
-                    lm, cfg.text, xk, cur_len, cache, member_mask, tp_mesh=self.tp_mesh,
-                    w8a8=self.w8a8_decode,
-                )
-                winner, next_token, winner_logits = self._aggregate(llama_mod.lm_head(lm, hk))
-                rows = torch.arange(B, device=self.device)
-                kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, KH, D]
+                with trace.span("decode.members"):
+                    hk, kk, vk = llama_mod.decode_step(
+                        lm, cfg.text, xk, cur_len, cache, member_mask, tp_mesh=self.tp_mesh,
+                        w8a8=self.w8a8_decode,
+                    )
+                    logits_k = llama_mod.lm_head(lm, hk)
+                with trace.span("decode.vote"):
+                    winner, next_token, winner_logits = self._aggregate(logits_k)
+                    rows = torch.arange(B, device=self.device)
+                    kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, KH, D]
         if self.gen.do_sample:
             # HF samples the forward's returned (vote winner's) logits
-            next_token = self._sample_rows(state, draw_steps, winner_logits)
-        if tm is not None:
-            _record_text_stats(tm, steps, winner_logits)
+            with trace.span("decode.sample"):
+                next_token = self._sample_rows(state, draw_steps, winner_logits)
 
-        llama_mod.cache_set_rows(cache, cur_len, kw, vw)
-        next_token = torch.where(done, self.gen.pad_token_id, next_token)
-        rows = torch.arange(B, device=self.device)
-        at = steps.clamp(max=tokens.shape[1] - 1)
-        keep = done | (steps >= tokens.shape[1])  # done, or past the buffer
-        tokens[rows, at] = torch.where(keep, tokens[rows, at], next_token)
-        carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None, winner)
-        live = (~done).long()
-        return (
-            next_token,
-            cur_len + live,
-            steps + live,
-            done | (next_token == self.gen.eos_token_id),
-            carry,
-        )
+        with trace.span("decode.append"):
+            if tm is not None:
+                _record_text_stats(tm, steps, winner_logits)
+            llama_mod.cache_set_rows(cache, cur_len, kw, vw)
+            next_token = torch.where(done, self.gen.pad_token_id, next_token)
+            rows = torch.arange(B, device=self.device)
+            at = steps.clamp(max=tokens.shape[1] - 1)
+            keep = done | (steps >= tokens.shape[1])  # done, or past the buffer
+            tokens[rows, at] = torch.where(keep, tokens[rows, at], next_token)
+            carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None, winner)
+            live = (~done).long()
+            return (
+                next_token,
+                cur_len + live,
+                steps + live,
+                done | (next_token == self.gen.eos_token_id),
+                carry,
+            )
 
     @torch.no_grad()
     def decode(self, state: PrefillState, winners: list | None = None) -> torch.Tensor:
@@ -604,37 +631,41 @@ class LlavaEngine:
         Updates ``state.cache`` in place.  ``winners``, a list, gets each
         step's winning member [B] (the one whose K/V the cache keeps) in
         ensemble mode."""
-        B = state.first_token.shape[0]
-        T = self.gen.max_new_tokens
-        if self.gen.do_sample:  # every token is sampled: the first at step 0
-            token = self._sample_rows(state, 0, state.last_logits)
-        else:
-            token = state.first_token
-        tokens = torch.full(
-            (B, T), self.gen.pad_token_id, dtype=torch.long, device=self.device
-        )
-        tokens[:, 0] = token
-        done = token == self.gen.eos_token_id
-        cur_len = state.cur_len.clone()
-        tm = None
-        if self.ensemble and self.text_policy != "none":
-            zeros = [torch.zeros((B, T), device=self.device) for _ in range(3)]
-            # entry 0: the stats of the prefill, which emitted token 0
-            tm = _record_text_stats(TextMaskState(*zeros), 0, state.last_logits)
-        # fused mode's first overlap source is the prefill's argmax, also
-        # when token 0 was sampled; lagged epis_kl starts from its logits
-        carry = _Carry(tm, state.first_token, state.last_logits if self._lag_kl else None)
-        steps = torch.ones(B, dtype=torch.long, device=self.device)
-        for step in range(1, T):  # decode steps start at 1, like the JAX loop
-            if step % DONE_CHECK_EVERY == 0 and bool(done.all()):
-                break  # the only host sync in the loop
-            # every row not done is at ``step``
-            token, cur_len, steps, done, carry = self._one_step(
-                state, steps, step, token, cur_len, done, tokens, carry
+        with trace.span("decode"):
+            B = state.first_token.shape[0]
+            T = self.gen.max_new_tokens
+            if self.gen.do_sample:  # every token is sampled: the first at step 0
+                token = self._sample_rows(state, 0, state.last_logits)
+            else:
+                token = state.first_token
+            tokens = torch.full(
+                (B, T), self.gen.pad_token_id, dtype=torch.long, device=self.device
             )
-            if winners is not None:
-                winners.append(carry.winner)
-        return tokens
+            tokens[:, 0] = token
+            done = token == self.gen.eos_token_id
+            cur_len = state.cur_len.clone()
+            tm = None
+            if self.ensemble and self.text_policy != "none":
+                zeros = [torch.zeros((B, T), device=self.device) for _ in range(3)]
+                # entry 0: the stats of the prefill, which emitted token 0
+                tm = _record_text_stats(TextMaskState(*zeros), 0, state.last_logits)
+            # fused mode's first overlap source is the prefill's argmax, also
+            # when token 0 was sampled; lagged epis_kl starts from its logits
+            carry = _Carry(tm, state.first_token, state.last_logits if self._lag_kl else None)
+            steps = torch.ones(B, dtype=torch.long, device=self.device)
+            for step in range(1, T):  # decode steps start at 1, like the JAX loop
+                with trace.span("decode.step"):
+                    # every row not done is at ``step``
+                    token, cur_len, steps, done, carry = self._one_step(
+                        state, steps, step, token, cur_len, done, tokens, carry
+                    )
+                    if winners is not None:
+                        winners.append(carry.winner)
+                    trace.count("decode.steps")
+                    # before every DONE_CHECK_EVERY-th step: the only host sync in the loop
+                    if (step + 1) % DONE_CHECK_EVERY == 0 and step + 1 < T and bool(done.all()):
+                        break
+            return tokens
 
     # ------------------------------------------------------------------
     # public API
@@ -649,12 +680,16 @@ class LlavaEngine:
         ``pixel_values`` may hold only the batch's unique images, with
         ``image_index`` [B] mapping rows to them; ``text_lens`` as
         ``prefill``'s."""
-        _, merged, _ = self._merge_inputs(input_ids, pixel_values, image_index)
-        B, S, _ = merged.shape
-        hidden = llama_mod.prefill_hidden(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
-        )
-        return self._head(hidden, self._fill(B, S, text_lens)[0])
+        with trace.span("probe"):
+            with trace.span("probe.towers"):
+                _, merged, _ = self._merge_inputs(input_ids, pixel_values, image_index)
+            B, S, _ = merged.shape
+            with trace.span("probe.lm"):
+                hidden = llama_mod.prefill_hidden(
+                    self.params.lm, self.cfg.text, merged, self._positions(B, S),
+                    w8a8=self.w8a8_prefill,
+                )
+            return self._head(hidden, self._fill(B, S, text_lens)[0])
 
     def _prefix_handle(self, kv: KVCache) -> KVCache:
         if not self.int8_prefix_cache:
@@ -666,12 +701,16 @@ class LlavaEngine:
         """The K/V [L, 1, P, KH, Dh] of a prompt prefix shared by several
         questions (its image included), for ``probe_extend``; int8 reader
         leaves under ``int8_prefix_cache``."""
-        _, merged, _ = self._merge_inputs(prefix_ids, pixel_values)
-        B, S, _ = merged.shape
-        _, kv = llama_mod.prefill(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), w8a8=self.w8a8_prefill
-        )
-        return self._prefix_handle(kv)
+        with trace.span("probe_prefix"):
+            with trace.span("probe.towers"):
+                _, merged, _ = self._merge_inputs(prefix_ids, pixel_values)
+            B, S, _ = merged.shape
+            with trace.span("probe.lm"):
+                _, kv = llama_mod.prefill(
+                    self.params.lm, self.cfg.text, merged, self._positions(B, S),
+                    w8a8=self.w8a8_prefill,
+                )
+            return self._prefix_handle(kv)
 
     @torch.no_grad()
     def probe_extend(self, prefix_kv: KVCache, tail_ids, text_lens=None) -> ProbeResult:
@@ -685,18 +724,20 @@ class LlavaEngine:
     def _extend(self, prefix_kv, prefix_len, prefix_mask, tail_ids, text_lens) -> ProbeResult:
         """The tails' first tokens over a prefix of real length
         ``prefix_len`` [Bp]: their rope positions start there."""
-        ids = torch.as_tensor(tail_ids, dtype=torch.long, device=self.device)
-        B, T = ids.shape
-        positions = (prefix_len[:, None] + torch.arange(T, device=self.device)[None]).expand(B, T)
-        hidden, _ = llama_mod.prefill_extend(
-            self.params.lm, self.cfg.text, llama_mod.embed(self.params.lm, ids), positions,
-            prefix_kv, w8a8=self.w8a8_prefill, prefix_mask=prefix_mask,
-        )
-        if text_lens is None:
-            last = torch.full((B,), T, dtype=torch.long, device=self.device)
-        else:
-            last = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
-        return self._head(hidden, last)
+        with trace.span("probe_extend"):
+            ids = torch.as_tensor(tail_ids, dtype=torch.long, device=self.device)
+            B, T = ids.shape
+            positions = (prefix_len[:, None] + torch.arange(T, device=self.device)[None]).expand(B, T)
+            with trace.span("extend.lm"):
+                hidden, _ = llama_mod.prefill_extend(
+                    self.params.lm, self.cfg.text, llama_mod.embed(self.params.lm, ids), positions,
+                    prefix_kv, w8a8=self.w8a8_prefill, prefix_mask=prefix_mask,
+                )
+            if text_lens is None:
+                last = torch.full((B,), T, dtype=torch.long, device=self.device)
+            else:
+                last = torch.as_tensor(text_lens, dtype=torch.long, device=self.device)
+            return self._head(hidden, last)
 
     def _prompt_lengths(self, input_ids, *images) -> tuple[int, int]:
         """(the longest real merged prompt, the padded merged prompt) of a

@@ -47,6 +47,7 @@ import torch
 
 from ..models import llama as llama_mod
 from ..models import llavanext as next_mod
+from . import trace
 from .generate import GenerationResult, LlavaEngine, PrefillState, ProbeResult
 
 
@@ -145,15 +146,18 @@ class LlavaNextEngine(LlavaEngine):
             stacks (tile counts may differ).
           original_size: (h, w) for B = 1, or a list of B pairs.
         """
-        ids, merged, key_mask, real_len, image_pos, valid = self._merge_next(
-            input_ids, tile_pixels, original_size, text_lens
-        )
-        B, S, _ = merged.shape
-        hidden, kv = llama_mod.prefill(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask,
-            w8a8=self.w8a8_prefill,
-        )
-        return self._assemble_state(ids, hidden, kv, image_pos, real_len, text_lens, valid)
+        with trace.span("prefill"):
+            with trace.span("prefill.towers"):
+                ids, merged, key_mask, real_len, image_pos, valid = self._merge_next(
+                    input_ids, tile_pixels, original_size, text_lens
+                )
+            B, S, _ = merged.shape
+            with trace.span("prefill.lm"):
+                hidden, kv = llama_mod.prefill(
+                    self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask,
+                    w8a8=self.w8a8_prefill,
+                )
+            return self._assemble_state(ids, hidden, kv, image_pos, real_len, text_lens, valid)
 
     @torch.no_grad()
     def prefill_chunked(self, input_ids, tile_pixels, original_size, chunk: int = 256,
@@ -176,15 +180,18 @@ class LlavaNextEngine(LlavaEngine):
         """First tokens and their logits, as ``LlavaEngine.probe``; with
         ``image_index`` [B], ``tile_pixels`` / ``original_size`` are lists
         of the batch's unique images."""
-        _, merged, key_mask, real_len, _, _ = self._merge_next(
-            input_ids, tile_pixels, original_size, text_lens, image_index
-        )
-        B, S, _ = merged.shape
-        hidden = llama_mod.prefill_hidden(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask,
-            w8a8=self.w8a8_prefill,
-        )
-        return self._head(hidden, real_len)
+        with trace.span("probe"):
+            with trace.span("probe.towers"):
+                _, merged, key_mask, real_len, _, _ = self._merge_next(
+                    input_ids, tile_pixels, original_size, text_lens, image_index
+                )
+            B, S, _ = merged.shape
+            with trace.span("probe.lm"):
+                hidden = llama_mod.prefill_hidden(
+                    self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask,
+                    w8a8=self.w8a8_prefill,
+                )
+            return self._head(hidden, real_len)
 
     @torch.no_grad()
     def probe_prefix(self, prefix_ids, tile_pixels, original_size):
@@ -192,13 +199,18 @@ class LlavaNextEngine(LlavaEngine):
         key_mask [1, S])`` of one image's shared prompt prefix for
         ``probe_extend``; ``kv`` in int8 reader leaves under
         ``int8_prefix_cache``."""
-        _, merged, key_mask, real_len, _, _ = self._merge_next(prefix_ids, tile_pixels, original_size)
-        B, S, _ = merged.shape
-        _, kv = llama_mod.prefill(
-            self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask,
-            w8a8=self.w8a8_prefill,
-        )
-        return self._prefix_handle(kv), real_len, key_mask
+        with trace.span("probe_prefix"):
+            with trace.span("probe.towers"):
+                _, merged, key_mask, real_len, _, _ = self._merge_next(
+                    prefix_ids, tile_pixels, original_size
+                )
+            B, S, _ = merged.shape
+            with trace.span("probe.lm"):
+                _, kv = llama_mod.prefill(
+                    self.params.lm, self.cfg.text, merged, self._positions(B, S), key_mask=key_mask,
+                    w8a8=self.w8a8_prefill,
+                )
+            return self._prefix_handle(kv), real_len, key_mask
 
     @torch.no_grad()
     def probe_extend(self, prefix, tail_ids, text_lens=None) -> ProbeResult:

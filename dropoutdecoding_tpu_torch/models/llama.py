@@ -53,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..engine import trace
 from ..ops.attention import (
     extend_attention,
     extend_attention_int8prefix,
@@ -556,13 +557,15 @@ def prefill_extend(
         Bp, P = pk["q"].shape[1:3]
 
         def attend(i, q, k, v):
-            return extend_attention_int8prefix(
-                q, k, v, pk["q"][i].view(Bp, P, KH, Dh), pk["s"][i],
-                pv["q"][i].view(Bp, P, KH, Dh), pv["s"][i], prefix_mask,
-            )
+            with trace.span("extend.attention"):
+                return extend_attention_int8prefix(
+                    q, k, v, pk["q"][i].view(Bp, P, KH, Dh), pk["s"][i],
+                    pv["q"][i].view(Bp, P, KH, Dh), pv["s"][i], prefix_mask,
+                )
     else:
         def attend(i, q, k, v):
-            return extend_attention(q, k, v, pk[i], pv[i], prefix_mask)
+            with trace.span("extend.attention"):
+                return extend_attention(q, k, v, pk[i], pv[i], prefix_mask)
 
     return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend,
                     w8a8=w8a8, mesh=mesh)

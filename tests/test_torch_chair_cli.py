@@ -516,6 +516,24 @@ def test_stage_timer_and_profile_trace(tmp_path):
     assert json.load(open(tmp_path / "prof" / "trace.json"))["traceEvents"]
 
 
+@pytest.mark.parametrize("extra", [[], ["--batch-size", "2"]], ids=["serial", "batched"])
+def test_stage_timings_are_the_programs_spans(synthetic_coco, tmp_path, monkeypatch, weights, extra):
+    """``stage_timings.json`` is the summary of the program's recording
+    (``engine/trace.py``) on the serial and the batched path: each
+    ``generate`` call, its prefill and its phases, the decode loop and each
+    step's phases."""
+    monkeypatch.setattr(tcli, "make_engine", _port_make_engine(weights))
+    _run(tcli, synthetic_coco, tmp_path / "run", extra, monkeypatch, device="cpu")
+    report = json.load(open(tmp_path / "run" / "outputs" / "stage_timings.json"))
+    calls = 2 if extra else 4
+    assert report["generate"]["count"] == report["prefill"]["count"] == report["decode"]["count"] == calls
+    for name in ("prefill.towers", "prefill.lm", "prefill.uncertainty", "prefill.cache", "decode.forward0",
+                 "decode.masks", "decode.members", "decode.vote", "decode.append"):
+        want = report["decode.step"]["count"] if name.startswith("decode") else calls
+        assert report[name]["count"] == want, name
+    assert report["decode.step"]["count"] >= calls
+
+
 # --- speculative decoding (--spec-gamma) -------------------------------------------------
 
 
