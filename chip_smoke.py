@@ -83,7 +83,11 @@ Phases, each fatal on failure:
    On bf16 the same runs go on through the other arms (``LLAVA_RUNS``):
    fused and exact "epis_kl", sampling at top-k 1 (tokens equal to the
    arm's unsampled ones) and at temperature 0.7 / top-p 0.9, and the
-   "logits" and "entropy" text masks; then the per-step cost of the
+   "logits" and "entropy" text masks; on bf16 (greedy, exact, fused),
+   int8 (K3), int4 and NeXT (exact) the decode loop on its CUDA graphs
+   against the eager forward (``graph_check``: tokens and winners equal,
+   launch counts exact, a forward's logits against eager, the capture's
+   host ms and the graph pool's bytes); then the per-step cost of the
    "epis_kl" keep set and of the top-p sort.  On bf16, int4 and NeXT, POPE
    (``pope_full``): twelve questions on two images through the batched
    ``probe`` (B = 8, two unique images), ``probe`` a row at a time and
@@ -1805,6 +1809,108 @@ def drive(make, args, tier: str, runs: list, ens, int8_kv: bool = False,
     return runs_counts
 
 
+def _graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds in CUDA graphs' private pools."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def graph_check(make, args, tier: str, runs: list, ens, int8_kv: bool = False,
+                int4: bool = False) -> dict:
+    """The decode loop on its CUDA graphs (``engine/decode_graphs.py``)
+    against the same engine with the eager forward (its runner patched out
+    here, ``_graphs = None``), each of ``runs`` at 32 new tokens: tokens
+    and winners equal; the launch counts of a ``generate`` exactly
+    ``want_counts`` on both (a replay adds what its capture counted);
+    ``decode.graph_captures`` one a forward and ``decode.graph_replays``
+    the rest.  Then one forward of each width (M = 1, and the members' M =
+    K with random masks) from a prefill state: the replay's logits, K and V
+    against the eager forward's (the largest difference, 0 where
+    bit-equal, printed), the capture's host ms (the warm-up forward and the
+    capture), a replay's and an eager forward's host ms, and the bytes the
+    graph pool holds.  Returns the records by run."""
+    import dataclasses
+
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine import trace
+    from dropoutdecoding_tpu_torch.models import llama as llama_mod
+    from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
+
+    wrappers, T, records = _wrappers(), 32, {}
+    for label, ensemble, ens_kw, gen_kw, fields, _ in runs:
+        gen = GenerationConfig(max_new_tokens=T, eos_token_id=-1, pad_token_id=0, **gen_kw)
+        run_ens = dataclasses.replace(ens, **ens_kw)
+        forwards = 2 if ensemble and not run_ens.fused_step else 1
+        got = {}
+        for side in ("eager", "graph"):
+            eng = make(ensemble, gen, ens=run_ens, **fields)
+            if eng._graphs is None:
+                raise AssertionError(f"{tier} {label}: no graph runner on the card")
+            if side == "eager":
+                eng._graphs = None
+            L = eng.cfg.text.num_hidden_layers
+            want = want_counts(T, L, forwards, eng._prompt_lengths(*args)[1], int8_kv, int4)
+            eng.generate(*args)  # every shape, and the graphs of this cache's storage
+            for fn in wrappers.values():
+                fn.launches = 0
+            with trace.recording() as rec:
+                result, secs = _sync_time(lambda: eng.generate(*args))
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            _check_counts(f"{tier} {label} {side} graph_check", counts, want)
+            state, winners = eng.prefill(*args), []
+            tokens = eng.decode(state, winners)
+            winners = torch.stack(winners).cpu() if ensemble else None
+            got[side] = (result.tokens, tokens.cpu(), winners, rec.counters, secs)
+        (gen_e, tok_e, win_e, _, secs_e), (gen_g, tok_g, win_g, ctr, secs_g) = got["eager"], got["graph"]
+        if not (np.array_equal(gen_e, gen_g) and torch.equal(tok_e, tok_g)
+                and (win_e is None or torch.equal(win_e, win_g))):
+            raise AssertionError(f"{tier} {label}: graph tokens {tok_g[0, :8].tolist()} or "
+                                 f"winners differ from eager {tok_e[0, :8].tolist()}")
+        replays, captures = ctr["decode.graph_replays"], ctr["decode.graph_captures"]
+        if replays + captures != forwards * (T - 1) or captures > forwards:
+            raise AssertionError(f"{tier} {label}: {replays} replays and {captures} captures of "
+                                 f"{forwards * (T - 1)} forwards")
+        records[label] = {"eager_ms_step": secs_e / (T - 1) * 1e3,
+                          "graph_ms_step": secs_g / (T - 1) * 1e3,
+                          "replays": replays, "captures": captures}
+
+    # one forward of each width, graph against eager, from a prefill state
+    eng = make(True, GenerationConfig(max_new_tokens=T), ens=ens)
+    state = eng.prefill(*args)
+    B, K = state.first_token.shape[0], len(ens.voting_probs)
+    x = llama_mod.embed(eng.params.lm, state.first_token)
+    base = torch.arange(eng.max_len, device="cuda")[None] < state.cur_len[:, None]
+    g = torch.Generator(device="cuda").manual_seed(41)
+    drop = torch.rand(B, K, eng.max_len, device="cuda", generator=g) < 0.3
+    widths = {}
+    for M, mask in ((1, base[:, None]), (K, base[:, None] & ~drop)):
+        runner, eng._graphs = eng._graphs, None
+        ref, eager_s = _wall(lambda: eng._decode_forward(x, state.cur_len, state.cache, mask))
+        eng._graphs = runner
+        torch.cuda.synchronize()
+        pool = _graph_pool_bytes()
+        warm, capture_s = _wall(lambda: eng._decode_forward(x, state.cur_len, state.cache, mask))
+        torch.cuda.synchronize()
+        pool = _graph_pool_bytes() - pool
+        out, replay_s = _wall(lambda: eng._decode_forward(x, state.cur_len, state.cache, mask))
+        torch.cuda.synchronize()
+        widths[f"M={M}"] = {
+            # the largest difference from the eager forward: 0 where bit-equal
+            "warm_max_diff": _max_diffs(ref, warm), "replay_max_diff": _max_diffs(ref, out),
+            "capture_host_ms": capture_s * 1e3, "replay_host_ms": replay_s * 1e3,
+            "eager_host_ms": eager_s * 1e3, "pool_bytes": pool,
+        }
+    records["forwards"] = widths
+    print(f"{tier} graph_check: {json.dumps(records)}")
+    return records
+
+
+def _max_diffs(ref: tuple, got: tuple) -> dict:
+    return {name: float((a.float() - b.float()).abs().max())
+            for name, a, b in zip(("logits", "k", "v"), ref, got)}
+
+
 def step_costs(n_visual: int, V: int) -> None:
     """The per-step cost of the epis_kl keep set over [1, ``n_visual``, V]
     fp32 visual-token logits beside its byte floor (the logits read once),
@@ -3344,6 +3450,8 @@ def end_to_end() -> tuple:
     params, secs = _sync_time(lambda: synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=0))
     print(f"synthetic 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     drive(llava(params, False), (ids, pixels), "bf16", LLAVA_RUNS, EnsembleConfig())
+    graph_check(llava(params, False), (ids, pixels), "bf16", [GREEDY, EXACT, FUSED],
+                EnsembleConfig())
     step_costs(cfg.vision.num_patches, cfg.text.vocab_size)
     batch_of_two(llava_pair_engine(params, False), llava_pair(cfg), "bf16", int8_kv=False)
     base = baselines_full(llava(params, False), (ids, pixels), "bf16")
@@ -3367,6 +3475,7 @@ def end_to_end() -> tuple:
     print(f"synthetic int8 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     int8 = drive(llava(params, True), (ids, pixels), "int8", [GREEDY, EXACT, FUSED],
                  EnsembleConfig(), int8_kv=True)["exact K=3"]
+    graph_check(llava(params, True), (ids, pixels), "int8", [EXACT], EnsembleConfig(), int8_kv=True)
     batch_of_two(llava_pair_engine(params, True), llava_pair(cfg), "int8", int8_kv=True)
     colmajor = params._replace(lm=int8_column_major(params.lm))  # the CLI's w8a8 layout
     serving["w8a8"] = w8a8_full(llava(params, True), llava(colmajor, True), cfg)
@@ -3378,6 +3487,8 @@ def end_to_end() -> tuple:
     print(f"synthetic int4 7B params: {torch.cuda.memory_allocated() / 2**30:.2f} GiB in {secs:.1f} s")
     int4 = drive(llava(params, True), (ids, pixels), "int4", [GREEDY, EXACT, FUSED],
                  EnsembleConfig(), int8_kv=True, int4=True)["exact K=3"]
+    graph_check(llava(params, True), (ids, pixels), "int4", [EXACT], EnsembleConfig(),
+                int8_kv=True, int4=True)
     pope["int4"] = pope_full(llava(params, True)(True, GenerationConfig()), (pope_pixels,), "int4",
                              {**no_kernel, "K6": 4 * L})  # the head is int8: 4 K6 launches a layer
     del params, vision, projector, lm
@@ -3401,6 +3512,7 @@ def end_to_end() -> tuple:
         )
 
     nxt = drive(make_next, (ids, tiles, size), "next", [GREEDY, EXACT, FUSED], ens)["exact K=3"]
+    graph_check(make_next, (ids, tiles, size), "next", [EXACT], ens)
     noised = baselines.noised_pixels(make_next(False, GenerationConfig()), tiles)
     baselines_full(make_next, (ids, tiles, size), "next", noised=noised)
     step_costs(llavanext.max_image_tokens(ncfg), ncfg.text.vocab_size)

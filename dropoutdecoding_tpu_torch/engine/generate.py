@@ -42,7 +42,10 @@ every projection through K6, ``ops/cuda_int4_matmul.py``) its int4 tier
 has no field for it.
 
 The loop makes no host sync per token: it reads ``done`` back only every
-``DONE_CHECK_EVERY`` steps.  CUDA graphs are later work.  Each row keeps
+``DONE_CHECK_EVERY`` steps.  On the card with no TP mesh each decode forward
+(``decode_step`` and ``lm_head``) replays a CUDA graph
+(``engine/decode_graphs.py``); the masks, their draws, the vote, the append
+and the token write stay eager.  Each row keeps
 its own generation index (``steps``, as the JAX engine's): a finished row
 stops there, and the serving layer (``engine/serving.py``) steps rows that
 joined at different times in one batch.  ``w8a8_prefill`` /
@@ -57,7 +60,8 @@ probes and each decode step record spans at their phases' boundaries
 ``prefill.cache``; ``decode.step`` and in it ``decode.forward0``,
 ``decode.masks``, ``decode.members``, ``decode.vote``, ``decode.append``,
 or fused mode's ``decode.forward``, and ``decode.sample``), and count
-``decode.steps`` and ``decode.draws`` (one a call to a draw source);
+``decode.steps``, ``decode.draws`` (one a call to a draw source),
+``decode.graph_replays`` and ``decode.graph_captures``;
 outside one they cost a no-op context each.
 
 A one-token workload (POPE) reads only the first token, which no mask can
@@ -106,7 +110,7 @@ from ..utils.prng import (
     StepSource,
     UniformSource,
 )
-from . import trace
+from . import decode_graphs, trace
 
 DONE_CHECK_EVERY = 8  # decode steps between host reads of ``done``
 TEXT_POLICIES = ("none", "logits", "entropy")
@@ -267,6 +271,7 @@ class LlavaEngine:
         # carry their mesh; decode_step gets it, and under DP a row keeps its
         # global rng_id (_assemble_state)
         self.tp_mesh = mesh_of(self.params)
+        self._graphs = decode_graphs.for_engine(self.device, self.tp_mesh)
         if self.uniform is None:
             self.uniform = PhiloxUniform(self.seed, self.device)
         if self.text_uniform is None:
@@ -531,6 +536,27 @@ class LlavaEngine:
         rows = torch.arange(logits_k.shape[0], device=self.device)
         return winner, token, logits_k[rows, winner]
 
+    def _decode_forward(self, x, cur_len, cache: KVCache, mask):
+        """(fp32 logits [B, M, V], k_new, v_new [L, B, M, KH, Dh]) of one
+        decode forward: the token's embedding ``x`` [B, D] for every member
+        at position ``cur_len`` [B] over ``cache`` under the key masks
+        ``mask`` [B, M, Smax].  With the engine's graphs, a replay whose
+        outputs the graph's next replay overwrites."""
+        lm, cfg = self.params.lm, self.cfg.text
+
+        def forward(x, cur_len, mask):
+            B, M = mask.shape[:2]
+            h, k, v = llama_mod.decode_step(
+                lm, cfg, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, mask,
+                tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
+            )
+            return llama_mod.lm_head(lm, h), k, v
+
+        if self._graphs is None:
+            return forward(x, cur_len, mask)
+        baked = (decode_graphs.addresses(lm), decode_graphs.addresses(cache), self.w8a8_decode)
+        return self._graphs(forward, (x, cur_len, mask), baked)
+
     def _one_step(self, state, steps, draw_steps, token, cur_len, done, tokens, carry: _Carry):
         """One decode step of every row at its own generation index (JAX
         ``engine/generate.py:630``).
@@ -543,7 +569,7 @@ class LlavaEngine:
         buffer, keeps it) and its K/V at ``cur_len[b]``, both in place.
         Returns (next_token, cur_len, steps, done, carry): fill and index
         advance only on rows that were not done."""
-        cfg, lm = self.cfg, self.params.lm
+        lm = self.params.lm
         cache = state.cache
         B = token.shape[0]
         x = llama_mod.embed(lm, token)  # [B, D]
@@ -559,13 +585,8 @@ class LlavaEngine:
                     state, carry.prev_argmax0, draw_steps, carry.prev_logits0, cur_len, tm
                 )
                 masks = torch.cat([base_mask[:, None], base_mask[:, None] & ~drop_slots], dim=1)
-            M = masks.shape[1]
             with trace.span("decode.forward"):
-                ha, ka, va = llama_mod.decode_step(
-                    lm, cfg.text, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, masks,
-                    tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
-                )
-                logits_all = llama_mod.lm_head(lm, ha)  # [B, K+1, V]
+                logits_all, ka, va = self._decode_forward(x, cur_len, cache, masks)  # [B, K+1, V]
                 logits0 = logits_all[:, 0]
                 argmax0 = logits0.argmax(dim=-1)
             with trace.span("decode.vote"):
@@ -574,11 +595,8 @@ class LlavaEngine:
                 kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, KH, D]
         else:
             with trace.span("decode.forward0"):
-                h0, k0, v0 = llama_mod.decode_step(
-                    lm, cfg.text, x[:, None], cur_len, cache, base_mask[:, None],
-                    tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
-                )
-                logits0 = llama_mod.lm_head(lm, h0)[:, 0]  # [B, V]
+                logits0, k0, v0 = self._decode_forward(x, cur_len, cache, base_mask[:, None])
+                logits0 = logits0[:, 0]  # [B, V]
                 argmax0 = logits0.argmax(dim=-1)
             if not self.ensemble:
                 winner, next_token, winner_logits = None, argmax0, logits0
@@ -589,14 +607,8 @@ class LlavaEngine:
                         state, argmax0, draw_steps, logits0, cur_len, tm
                     )
                     member_mask = base_mask[:, None, :] & ~drop_slots  # [B, K, Smax]
-                K = member_mask.shape[1]
-                xk = x[:, None].expand(B, K, x.shape[-1])
                 with trace.span("decode.members"):
-                    hk, kk, vk = llama_mod.decode_step(
-                        lm, cfg.text, xk, cur_len, cache, member_mask, tp_mesh=self.tp_mesh,
-                        w8a8=self.w8a8_decode,
-                    )
-                    logits_k = llama_mod.lm_head(lm, hk)
+                    logits_k, kk, vk = self._decode_forward(x, cur_len, cache, member_mask)
                 with trace.span("decode.vote"):
                     winner, next_token, winner_logits = self._aggregate(logits_k)
                     rows = torch.arange(B, device=self.device)
@@ -615,7 +627,8 @@ class LlavaEngine:
             at = steps.clamp(max=tokens.shape[1] - 1)
             keep = done | (steps >= tokens.shape[1])  # done, or past the buffer
             tokens[rows, at] = torch.where(keep, tokens[rows, at], next_token)
-            carry = _Carry(tm, argmax0, logits0 if self._lag_kl else None, winner)
+            # the lagged logits outlive the step: a copy, not a graph's output
+            carry = _Carry(tm, argmax0, logits0.clone() if self._lag_kl else None, winner)
             live = (~done).long()
             return (
                 next_token,
