@@ -140,7 +140,18 @@ Phases, each fatal on failure:
    ratios printed, not gated (``baseline_bench_full``).  Launch counts
    exact in each, and in the kernels line beside the kernel's check at the
    tool's shapes.
-8. Tensor and data parallelism (``parallel_phase``): TP params under an
+8. The MLA + MoE decoder (``mla_moe_phase``; Kimi-VL-A3B's language model
+   behind CLIP ViT-L/336): K7 (the grouped-expert SwiGLU,
+   ``ops/cuda_moe.py``) against its twin at D = 2048, I = 1408, 64 experts,
+   top-6, over 32 and 96 routed rows and 96 rows over 16 experts (48 with
+   no row, groups over 32 rows), equal bits twice, its time beside its
+   bytes' bound; K2's streaming route timed at [32, 576, 163840]; then the
+   whole decoder at its published widths (synthetic bf16, 32 GB) through
+   ``LlavaEngine`` greedy / exact / fused with its decode forwards replayed
+   from CUDA graphs against eager: tokens, winners and the latent cache
+   bit-equal, K7 one call a routed layer a forward, and one forward of each
+   width bit-equal.
+9. Tensor and data parallelism (``parallel_phase``): TP params under an
    NCCL world of one, LLaVA-1.5-7B bf16 at full width and depth, greedy /
    exact / fused tokens and the prefill bit-equal to the unsharded engine
    (the sharding and the engine's plumbing: over a one-rank axis the
@@ -5492,6 +5503,217 @@ KERNELS = {
 }
 
 
+# K7 against its twin: both sum in fp32 and round h to bf16 once, but the
+# tensor cores' fp32 adder truncates (about 1e-4 of a 2048-term sum), so some
+# 5% of the h land on the neighbouring bf16 value (2^-8 of themselves); over
+# 1408 terms of either sign that moves a y by about 1e-3 of the largest |y|
+# (measured 1.2e-3 to 2.2e-3 at the cell's widths).  A block's rows or
+# experts mixed up move it by the whole size of y.
+K7_ATOL = 5e-3  # a share of max|y| of the twin
+MLA_IMAGE_TOKEN = 163605  # inside Kimi-VL-A3B's 163,840-token vocabulary
+
+
+def mla_moe_config():
+    """Kimi-VL-A3B's decoder at its published widths behind CLIP ViT-L/336
+    (the benchmark's ``kimi-vl-a3b.clip336``)."""
+    from dropoutdecoding_tpu_torch.utils.config import LlavaConfig, MlaMoeConfig
+
+    return LlavaConfig(text=MlaMoeConfig(), image_token_index=MLA_IMAGE_TOKEN, pad_token_id=0)
+
+
+def _routing(rows: int, E: int, k: int, experts: int, seed: int) -> torch.Tensor:
+    """[rows, k] distinct expert ids a row, drawn from the first ``experts``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    scores = torch.rand(rows, E, device="cuda", generator=g)
+    scores[:, experts:] = -1.0
+    return scores.topk(k, dim=-1).indices
+
+
+def check_moe_experts() -> dict:
+    """K7 (``ops/cuda_moe.py``) against its twin at the cell's widths (D =
+    2048, I = 1408, 64 experts, top-6): the exact step's unmasked forward
+    (32 rows), its members' (96), and 96 rows over 16 experts, so that 48
+    experts have no row and some have more than 32 (two row chunks); and a
+    prefill's 32 x 595 rows (about 1,800 an expert).  Each call twice for
+    equal bits, one entry call a call; the kernel's time (``time_ms``, L2
+    flushed), the eager twin's, the prefill's per-expert loop's
+    (``_grouped_eager``, the path the prefill takes), and the bound: the
+    touched experts' three matrices and the rows in and out once over 3.35
+    TB/s, or the operations over 989 TFLOP/s.  Returns records by case."""
+    from dropoutdecoding_tpu_torch.models.mla_moe import _grouped_eager, sort_by_expert
+    from dropoutdecoding_tpu_torch.ops.cuda_moe import moe_experts, moe_experts_twin
+
+    D, I, E, k = 2048, 1408, 64, 6
+    g = torch.Generator(device="cuda").manual_seed(71)
+
+    def nrm(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="cuda").normal_(0, 0.02, generator=g)
+
+    wg, wu, wd = nrm(E, D, I), nrm(E, D, I), nrm(E, I, D)
+    records, failed = {}, []
+    lp = {"gate_proj": wg, "up_proj": wu, "down_proj": wd}
+    for label, rows, experts in (("K7 32 rows", 32, E), ("K7 96 rows", 96, E),
+                                 ("K7 96 rows over 16 experts", 96, 16),
+                                 ("K7 at a prefill's groups", 32 * 595, E)):
+        idx = _routing(rows, E, k, experts, seed=rows + experts)
+        order, offsets = sort_by_expert(idx, E)
+        x = torch.empty(rows, D, dtype=torch.bfloat16, device="cuda").normal_(generator=g)
+        xs = x[order // k].contiguous()
+        calls = moe_experts.launches
+        got = moe_experts(xs, offsets, wg, wu, wd)
+        again = moe_experts(xs, offsets, wg, wu, wd)
+        torch.cuda.synchronize()
+        if moe_experts.launches != calls + 2:
+            raise AssertionError(f"{label}: {moe_experts.launches - calls} entry calls, not 2")
+        ref = moe_experts_twin(xs, offsets, wg, wu, wd)
+        err = (got - ref).abs().max().item()
+        limit = K7_ATOL * ref.abs().max().item()
+        if not (err <= limit and torch.equal(got, again)):
+            failed.append(f"{label}: max err {err:.3e} (limit {limit:.3e}), "
+                          f"equal bits {torch.equal(got, again)}")
+        sizes = offsets.diff()
+        touched = int((sizes > 0).sum())
+        nbytes = touched * 3 * D * I * 2 + xs.numel() * 2 + got.numel() * 4
+        ms = time_ms(lambda: moe_experts(xs, offsets, wg, wu, wd))
+        plain_ms = _eager_ms(lambda: moe_experts_twin(xs, offsets, wg, wu, wd), reps=5)
+        loop_ms = _eager_ms(lambda: _grouped_eager(xs, offsets, lp), reps=5)
+        bound = least_time(nbytes, 2 * 3 * D * I * xs.shape[0], "bf16")
+        records[label] = {"assignments": int(xs.shape[0]), "touched_experts": touched,
+                          "largest_group": int(sizes.max()), "max_err": err, "limit": limit,
+                          "kernel_us": ms * 1e3, "plain_us": plain_ms * 1e3,
+                          "prefill_loop_us": loop_ms * 1e3,
+                          "bound_us": bound["bound_ms"] * 1e3, "bound_by": bound["bound_by"],
+                          "bound_share_pct": 100 * bound["bound_ms"] / ms}
+        print(f"{label}: {json.dumps(records[label])}")
+    if failed:
+        raise AssertionError("K7: " + "; ".join(failed))
+    return records
+
+
+def k2_stream_time() -> dict:
+    """K2 on the streaming route at the Kimi-VL cell's [32, 576, 163840]
+    (12.1 GB of fp32 logits): its time (``time_ms``) beside the bytes bound
+    of one read."""
+    from dropoutdecoding_tpu_torch.ops.cuda_uncertainty import (
+        uncertainty_route,
+        vision_uncertainty_fused,
+    )
+
+    B, L, V = 32, 576, 163840
+    logits = torch.empty(B, L, V, dtype=torch.float32, device="cuda").normal_(0, 1.3)
+    route = uncertainty_route(L, V, 5, aligned=True)
+    ms = time_ms(lambda: vision_uncertainty_fused(logits, None, top_k=5), reps=5)
+    bound = least_time(_nbytes(logits), 8 * logits.numel(), "fp32")
+    del logits
+    torch.cuda.empty_cache()
+    rec = {"shape": [B, L, V], "route": route, "kernel_ms": ms, "bound_ms": bound["bound_ms"],
+           "bound_by": bound["bound_by"]}
+    print(f"K2 streaming: {json.dumps(rec)}")
+    return rec
+
+
+def mla_moe_graph_check(B: int = 4, T: int = 16) -> dict:
+    """Kimi-VL-A3B's decoder at its published widths (synthetic bf16 weights,
+    32 GB) through ``LlavaEngine``: greedy, exact and fused, each with the
+    decode forwards replayed from CUDA graphs against the same engine with
+    them eager (``_graphs = None``): tokens, winners and the latent cache
+    after ``decode`` bit-equal; K7 one entry call a routed layer a forward
+    on both, replays as eager; then one forward of each width (M = 1, and
+    the members' M = K under random masks) from a prefill state, the
+    replay's logits, new latents and keys against eager's (0 where
+    bit-equal).  Returns records by run."""
+    import numpy as np
+
+    from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
+    from dropoutdecoding_tpu_torch.engine import trace
+    from dropoutdecoding_tpu_torch.ops.cuda_moe import moe_experts
+    from dropoutdecoding_tpu_torch.utils.config import EnsembleConfig, GenerationConfig
+    from dropoutdecoding_tpu_torch.utils.convert import synthetic_llava_params
+
+    cfg = mla_moe_config()
+    params = synthetic_llava_params(cfg, "cuda", torch.bfloat16, seed=83)
+    rng = np.random.default_rng(83)
+    ids = rng.integers(3, MLA_IMAGE_TOKEN, size=(B, 20))
+    ids[:, 0], ids[:, 5] = 1, MLA_IMAGE_TOKEN
+    pixels = torch.rand(B, 3, 336, 336, device="cuda") * 3.9 - 1.8
+    moe_layers = cfg.text.n_moe_layers
+    records = {}
+    for label, ensemble, fused in (("greedy", False, False), ("exact K=3", True, False),
+                                   ("fused K=3", True, True)):
+        forwards = 2 if ensemble and not fused else 1
+        got = {}
+        for side in ("eager", "graph"):
+            eng = LlavaEngine(cfg, params, ens=EnsembleConfig(fused_step=fused),
+                              gen=GenerationConfig(max_new_tokens=T, eos_token_id=-1),
+                              max_len=640, ensemble=ensemble)
+            if side == "eager":
+                eng._graphs = None
+            eng.generate(ids, pixels)  # the graphs of this cache's storage
+            calls = moe_experts.launches
+            state, winners = eng.prefill(ids, pixels), []
+            with trace.recording() as rec:
+                tokens, secs = _sync_time(lambda: eng.decode(state, winners))
+            want = forwards * (T - 1) * moe_layers
+            if moe_experts.launches - calls != want:
+                raise AssertionError(f"MLA {label} {side}: {moe_experts.launches - calls} K7 "
+                                     f"calls, not {want}")
+            got[side] = (tokens.cpu(), torch.stack(winners).cpu() if ensemble else None,
+                         state.cache.ckv.clone(), rec.counters, secs)
+            del eng, state
+        (tok_e, win_e, ckv_e, _, secs_e), (tok_g, win_g, ckv_g, ctr, secs_g) = got["eager"], got["graph"]
+        if not (torch.equal(tok_e, tok_g) and (win_e is None or torch.equal(win_e, win_g))
+                and torch.equal(ckv_e, ckv_g)):
+            raise AssertionError(f"MLA {label}: graph tokens {tok_g[0, :8].tolist()}, winners or "
+                                 f"latent cache differ from eager {tok_e[0, :8].tolist()}")
+        replays, captures = ctr.get("decode.graph_replays", 0), ctr.get("decode.graph_captures", 0)
+        if replays + captures != forwards * (T - 1) or captures > forwards:
+            raise AssertionError(f"MLA {label}: {replays} replays, {captures} captures")
+        records[label] = {"eager_ms_step": secs_e / (T - 1) * 1e3,
+                          "graph_ms_step": secs_g / (T - 1) * 1e3,
+                          "moe_assignments": ctr.get("moe.assignments", 0)}
+        del got
+        torch.cuda.empty_cache()
+
+    eng = LlavaEngine(cfg, params, gen=GenerationConfig(max_new_tokens=T), max_len=640)
+    state = eng.prefill(ids, pixels)
+    x = eng.lm_mod.embed(params.lm, state.first_token)
+    base = torch.arange(eng.max_len, device="cuda")[None] < state.cur_len[:, None]
+    g = torch.Generator(device="cuda").manual_seed(41)
+    drop = torch.rand(B, 3, eng.max_len, device="cuda", generator=g) < 0.3
+    widths = {}
+    for M, mask in ((1, base[:, None]), (3, base[:, None] & ~drop)):
+        runner, eng._graphs = eng._graphs, None
+        ref, eager_s = _wall(lambda: eng._decode_forward(x, state.cur_len, state.cache, mask))
+        eng._graphs = runner
+        torch.cuda.synchronize()
+        warm, capture_s = _wall(lambda: eng._decode_forward(x, state.cur_len, state.cache, mask))
+        torch.cuda.synchronize()
+        out, replay_s = _wall(lambda: eng._decode_forward(x, state.cur_len, state.cache, mask))
+        torch.cuda.synchronize()
+        widths[f"M={M}"] = {"warm_max_diff": _max_diffs(ref, warm),
+                            "replay_max_diff": _max_diffs(ref, out),
+                            "capture_host_ms": capture_s * 1e3, "replay_host_ms": replay_s * 1e3,
+                            "eager_host_ms": eager_s * 1e3}
+        if any(v != 0 for v in widths[f"M={M}"]["replay_max_diff"].values()):
+            raise AssertionError(f"MLA M={M}: replay differs from eager {widths[f'M={M}']}")
+    records["forwards"] = widths
+    print(f"MLA graph_check: {json.dumps(records)}")
+    del eng, state, params
+    torch.cuda.empty_cache()
+    return records
+
+
+def mla_moe_phase(card: str) -> dict:
+    """K7 against its twin, K2's streaming route at the Kimi-VL cell's shape,
+    and the decoder's graph replay against eager (``mla_moe_graph_check``)."""
+    t0 = time.perf_counter()
+    out = {"K7": check_moe_experts(), "K2 streaming": k2_stream_time(),
+           "graphs": mla_moe_graph_check()}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"MLA + MoE phase: {json.dumps(out)}; card {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a GPU", file=sys.stderr)
@@ -5555,6 +5777,8 @@ def main() -> int:
     print(f"speculative and consistency phases, s: {json.dumps(spec_s)}, "
           f"{sum(spec_s.values()):.1f} s added; ClipZeroShot {json.dumps(clip)}")
     print(f"harness tool phases, s: {json.dumps(tools_s)}, {sum(tools_s.values()):.1f} s added")
+    torch.cuda.empty_cache()
+    mla_moe_phase(card)
     torch.cuda.empty_cache()
     par_launches, parallel = parallel_phase(card)
     launches.update(par_launches)

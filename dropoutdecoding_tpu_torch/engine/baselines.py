@@ -30,7 +30,7 @@ from ..models import llama as llama_mod
 from ..models.llama import KVCache
 from ..ops.sampling import sample_token
 from ..utils.prng import PhiloxNormal, PhiloxVcdGumbel
-from .generate import DONE_CHECK_EVERY, GenerationResult, first_index
+from .generate import DONE_CHECK_EVERY, GenerationResult, first_index, require_dense
 
 NEG = -1e9
 
@@ -49,6 +49,7 @@ def length_norm(seq_len, lp: float) -> np.float32:
 
 
 def _dense_only(engine, what: str) -> None:
+    require_dense(engine, what)
     if engine.int8_kv:
         raise NotImplementedError(
             f"{what} requires a dense-KV engine (int8_kv=False), as in the JAX package"

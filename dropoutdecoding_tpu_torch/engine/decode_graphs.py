@@ -78,10 +78,12 @@ def _counted() -> tuple:
     )
     from ..ops.cuda_flash_prefill import flash_prefill_attention
     from ..ops.cuda_int4_matmul import int4_matmul
+    from ..ops.cuda_moe import moe_experts
     from ..ops.cuda_uncertainty import vision_uncertainty_fused
 
     return (ensemble_decode_attention_fused, ensemble_decode_attention_int8kv_fused,
-            int4_matmul, cache_append_int8, flash_prefill_attention, vision_uncertainty_fused)
+            int4_matmul, cache_append_int8, flash_prefill_attention, vision_uncertainty_fused,
+            moe_experts)
 
 
 def _launch_counts() -> dict:

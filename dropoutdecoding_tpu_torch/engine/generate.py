@@ -64,6 +64,14 @@ or fused mode's ``decode.forward``, and ``decode.sample``), and count
 ``decode.graph_replays`` and ``decode.graph_captures``;
 outside one they cost a no-op context each.
 
+The decoder's module follows the text config (``decoder_module``):
+``models/llama.py`` for the Llama / Mistral configs, ``models/mla_moe.py``
+for a DeepSeek-V3-style ``MlaMoeConfig`` (latent cache, routed experts; its
+decode forwards count ``moe.assignments``, rows x members x top-k).  The
+masks, the vote and the append do not read the cache's layout.  With the
+MLA + MoE decoder the int8 KV cache, w8a8, a TP mesh, the chunked prefill
+and the prefix cache raise ``ValueError``.
+
 A one-token workload (POPE) reads only the first token, which no mask can
 change, so it skips everything after the prompt's last logits:
 
@@ -93,6 +101,7 @@ from ..decoding.masks import (
 )
 from ..models import llama as llama_mod
 from ..models import llava as llava_mod
+from ..models import mla_moe as mla_moe_mod
 from ..models.llama import KVCache
 from ..ops.sampling import sample_token
 from ..ops.uncertainty import (
@@ -101,7 +110,7 @@ from ..ops.uncertainty import (
     vision_uncertainty_auto,
 )
 from ..parallel.mesh import mesh_of
-from ..utils.config import EnsembleConfig, GenerationConfig, LlavaConfig
+from ..utils.config import EnsembleConfig, GenerationConfig, LlavaConfig, is_mla_moe
 from ..utils.prng import (
     PhiloxGumbel,
     PhiloxTextUniform,
@@ -114,6 +123,19 @@ from . import decode_graphs, trace
 
 DONE_CHECK_EVERY = 8  # decode steps between host reads of ``done``
 TEXT_POLICIES = ("none", "logits", "entropy")
+
+
+def decoder_module(text_cfg):
+    """The module of the decoder a text config describes: ``models/mla_moe.py``
+    for a DeepSeek-V3-style ``model_type``, ``models/llama.py`` else."""
+    return mla_moe_mod if is_mla_moe(text_cfg) else llama_mod
+
+
+def require_dense(engine, what: str) -> None:
+    """Raises where ``engine`` runs the MLA + MoE decoder: ``what`` (a path
+    that reads the Llama cache or leaves) is not supported with it."""
+    if getattr(engine, "_moe", False):
+        raise mla_moe_mod.unsupported(what)
 
 
 def extract_probe_ids(
@@ -271,6 +293,10 @@ class LlavaEngine:
         # carry their mesh; decode_step gets it, and under DP a row keeps its
         # global rng_id (_assemble_state)
         self.tp_mesh = mesh_of(self.params)
+        self.lm_mod = decoder_module(self.cfg.text)
+        self._moe = self.lm_mod is mla_moe_mod
+        if self._moe:
+            self._check_mla_moe()
         self._graphs = decode_graphs.for_engine(self.device, self.tp_mesh)
         if self.uniform is None:
             self.uniform = PhiloxUniform(self.seed, self.device)
@@ -278,6 +304,15 @@ class LlavaEngine:
             self.text_uniform = PhiloxTextUniform(self.seed, self.device)
         if self.gumbel is None:
             self.gumbel = PhiloxGumbel(self.seed, self.device)
+
+    def _check_mla_moe(self) -> None:
+        """What the MLA + MoE decoder does not run raises at construction."""
+        for flag, what in ((self.int8_kv, "an int8 KV cache"),
+                           (self.w8a8_prefill or self.w8a8_decode, "w8a8"),
+                           (self.int8_prefix_cache, "an int8 prefix cache")):
+            if flag:
+                raise mla_moe_mod.unsupported(what)
+        mla_moe_mod.check_params(self.params.lm)
 
     @property
     def n_visual(self) -> int:
@@ -298,7 +333,7 @@ class LlavaEngine:
         feats = llava_mod.image_features(cfg, self.params, pix)
         if image_index is not None:
             feats = feats[torch.as_tensor(image_index, dtype=torch.long, device=self.device)]
-        text_embeds = llama_mod.embed(lm, torch.where(ids == cfg.image_token_index, 0, ids))
+        text_embeds = self.lm_mod.embed(lm, torch.where(ids == cfg.image_token_index, 0, ids))
         return ids, llava_mod.merge_image_features(text_embeds, feats, image_pos), image_pos
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
@@ -323,7 +358,7 @@ class LlavaEngine:
                 ids, merged, image_pos = self._merge_inputs(input_ids, pixel_values)
             B, S, _ = merged.shape
             with trace.span("prefill.lm"):
-                hidden, kv = llama_mod.prefill(
+                hidden, kv = self.lm_mod.prefill(
                     self.params.lm, self.cfg.text, merged, self._positions(B, S),
                     w8a8=self.w8a8_prefill,
                 )
@@ -377,6 +412,7 @@ class LlavaEngine:
         (``DecodeServer.submit_chunked``).  The state is ``prefill``'s up to
         summation order."""
         self._check_one(input_ids)
+        require_dense(self, "the chunked prefill")
         ids, merged, image_pos = self._merge_inputs(input_ids, *rest)
         B, S, _ = merged.shape
         hidden, kv = self._lm_chunked(merged, S, chunk, pump)
@@ -387,7 +423,7 @@ class LlavaEngine:
         of ``hidden`` [B, S, D], and their argmax."""
         B, S, _ = hidden.shape
         rows = torch.arange(B, device=self.device)
-        last_logits = llama_mod.lm_head(self.params.lm, hidden[rows, (cur_len - 1).clamp(0, S - 1)])
+        last_logits = self.lm_mod.lm_head(self.params.lm, hidden[rows, (cur_len - 1).clamp(0, S - 1)])
         return ProbeResult(last_logits.argmax(dim=-1), last_logits)
 
     def _assemble_state(
@@ -417,17 +453,17 @@ class LlavaEngine:
             start = image_pos.clamp(0, S - N)
             idx = start[:, None] + torch.arange(N, device=self.device)[None]
             hidden_img = hidden.gather(1, idx[..., None].expand(B, N, E))
-            img_logits = llama_mod.lm_head(lm, hidden_img)  # [B, N, V] fp32
+            img_logits = self.lm_mod.lm_head(lm, hidden_img)  # [B, N, V] fp32
             # one call: K2 finds the top-k ids while it takes its first statistics
             uncert = vision_uncertainty_auto(img_logits, visual_mask, top_k=self.ens.topk)
             topk_ids = uncert.pop("topk_ids")
 
         with trace.span("prefill.cache"):
-            cache = llama_mod.empty_cache(
+            cache = self.lm_mod.empty_cache(
                 self.cfg.text, B, self.max_len, self.dtype, self.device, quantized=self.int8_kv,
                 tp_mesh=self.tp_mesh,
             )
-            llama_mod.cache_seed(cache, kv)
+            self.lm_mod.cache_seed(cache, kv)
         if visual_mask is None:
             visual_mask = torch.ones((B, N), dtype=torch.bool, device=self.device)
         state = PrefillState(
@@ -537,20 +573,24 @@ class LlavaEngine:
         return winner, token, logits_k[rows, winner]
 
     def _decode_forward(self, x, cur_len, cache: KVCache, mask):
-        """(fp32 logits [B, M, V], k_new, v_new [L, B, M, KH, Dh]) of one
-        decode forward: the token's embedding ``x`` [B, D] for every member
-        at position ``cur_len`` [B] over ``cache`` under the key masks
-        ``mask`` [B, M, Smax].  With the engine's graphs, a replay whose
-        outputs the graph's next replay overwrites."""
-        lm, cfg = self.params.lm, self.cfg.text
+        """(fp32 logits [B, M, V], k_new, v_new [L, B, M, ...]) of one decode
+        forward: the token's embedding ``x`` [B, D] for every member at
+        position ``cur_len`` [B] over ``cache`` under the key masks ``mask``
+        [B, M, Smax].  k_new / v_new are the new-token K and V [.., KH, Dh]
+        (the MLA + MoE decoder: latent [.., 512] and roped key [.., 64]).
+        With the engine's graphs, a replay whose outputs the graph's next
+        replay overwrites."""
+        lm, cfg, mod = self.params.lm, self.cfg.text, self.lm_mod
+        if self._moe:
+            trace.count("moe.assignments", mask.shape[0] * mask.shape[1] * cfg.num_experts_per_tok)
 
         def forward(x, cur_len, mask):
             B, M = mask.shape[:2]
-            h, k, v = llama_mod.decode_step(
+            h, k, v = mod.decode_step(
                 lm, cfg, x[:, None].expand(B, M, x.shape[-1]), cur_len, cache, mask,
                 tp_mesh=self.tp_mesh, w8a8=self.w8a8_decode,
             )
-            return llama_mod.lm_head(lm, h), k, v
+            return mod.lm_head(lm, h), k, v
 
         if self._graphs is None:
             return forward(x, cur_len, mask)
@@ -572,7 +612,7 @@ class LlavaEngine:
         lm = self.params.lm
         cache = state.cache
         B = token.shape[0]
-        x = llama_mod.embed(lm, token)  # [B, D]
+        x = self.lm_mod.embed(lm, token)  # [B, D]
         slots = torch.arange(self.max_len, device=self.device)
         base_mask = slots[None, :] < cur_len[:, None]  # [B, Smax]
         tm = carry.tm
@@ -592,7 +632,7 @@ class LlavaEngine:
             with trace.span("decode.vote"):
                 winner, next_token, winner_logits = self._aggregate(logits_all[:, 1:])
                 rows = torch.arange(B, device=self.device)
-                kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, KH, D]
+                kw, vw = ka[:, rows, winner + 1], va[:, rows, winner + 1]  # [L, B, ...]
         else:
             with trace.span("decode.forward0"):
                 logits0, k0, v0 = self._decode_forward(x, cur_len, cache, base_mask[:, None])
@@ -612,7 +652,7 @@ class LlavaEngine:
                 with trace.span("decode.vote"):
                     winner, next_token, winner_logits = self._aggregate(logits_k)
                     rows = torch.arange(B, device=self.device)
-                    kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, KH, D]
+                    kw, vw = kk[:, rows, winner], vk[:, rows, winner]  # [L, B, ...]
         if self.gen.do_sample:
             # HF samples the forward's returned (vote winner's) logits
             with trace.span("decode.sample"):
@@ -621,7 +661,7 @@ class LlavaEngine:
         with trace.span("decode.append"):
             if tm is not None:
                 _record_text_stats(tm, steps, winner_logits)
-            llama_mod.cache_set_rows(cache, cur_len, kw, vw)
+            self.lm_mod.cache_set_rows(cache, cur_len, kw, vw)
             next_token = torch.where(done, self.gen.pad_token_id, next_token)
             rows = torch.arange(B, device=self.device)
             at = steps.clamp(max=tokens.shape[1] - 1)
@@ -698,7 +738,7 @@ class LlavaEngine:
                 _, merged, _ = self._merge_inputs(input_ids, pixel_values, image_index)
             B, S, _ = merged.shape
             with trace.span("probe.lm"):
-                hidden = llama_mod.prefill_hidden(
+                hidden = self.lm_mod.prefill_hidden(
                     self.params.lm, self.cfg.text, merged, self._positions(B, S),
                     w8a8=self.w8a8_prefill,
                 )
@@ -714,6 +754,7 @@ class LlavaEngine:
         """The K/V [L, 1, P, KH, Dh] of a prompt prefix shared by several
         questions (its image included), for ``probe_extend``; int8 reader
         leaves under ``int8_prefix_cache``."""
+        require_dense(self, "the prefix cache")
         with trace.span("probe_prefix"):
             with trace.span("probe.towers"):
                 _, merged, _ = self._merge_inputs(prefix_ids, pixel_values)
@@ -730,6 +771,7 @@ class LlavaEngine:
         """``probe`` of [prefix + tail] for a batch of question tails [B, T]
         (plain text, right-padded; ``text_lens`` their real lengths) over a
         ``probe_prefix`` handle: the prefix is not run again."""
+        require_dense(self, "the prefix cache")
         leaf = prefix_kv.k["q"] if llama_mod.cache_is_quantized(prefix_kv) else prefix_kv.k
         P = torch.full((1,), leaf.shape[2], dtype=torch.long, device=self.device)
         return self._extend(prefix_kv, P, None, tail_ids, text_lens)

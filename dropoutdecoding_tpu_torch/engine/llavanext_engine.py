@@ -47,6 +47,8 @@ import torch
 
 from ..models import llama as llama_mod
 from ..models import llavanext as next_mod
+from ..models import mla_moe as mla_moe_mod
+from ..utils.config import is_mla_moe
 from . import trace
 from .generate import GenerationResult, LlavaEngine, PrefillState, ProbeResult
 
@@ -57,6 +59,8 @@ class LlavaNextEngine(LlavaEngine):
     ``LlavaNextConfig`` and ``params`` ``LlavaNextParams``."""
 
     def __post_init__(self):
+        if is_mla_moe(self.cfg.text):
+            raise mla_moe_mod.unsupported("LLaVA-NeXT's anyres engine")
         super().__post_init__()
         self._n_max = next_mod.max_image_tokens(self.cfg)
 

@@ -29,7 +29,7 @@ import torch
 from ..decoding.opera import attn_log_row, rollback_trigger
 from ..models import llama as llama_mod
 from .baselines import NEG, Hypotheses, length_norm, repeat_rows, scan_candidates, stable_top_k
-from .generate import GenerationResult, first_index
+from .generate import GenerationResult, first_index, require_dense
 
 
 def cand_phi(attn_log: torch.Tensor, cand_logrow: torch.Tensor, step: int):
@@ -73,6 +73,7 @@ def opera_generate(
     The knobs are the reference's generate surface; ``max_rollbacks`` caps
     the retrospections (each position triggers at most once).  ``stats``,
     when given, receives the rollback and iteration counts."""
+    require_dense(engine, "OPERA")
     B = state.first_token.shape[0] if state is not None else np.shape(input_ids)[0]
     if B != 1:
         raise ValueError("opera_generate runs one image per call (B=1)")

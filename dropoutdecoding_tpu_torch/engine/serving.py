@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..models import llama as llama_mod
-from .generate import PrefillState, TextMaskState, _Carry, _record_text_stats
+from .generate import PrefillState, TextMaskState, _Carry, _record_text_stats, require_dense
 
 
 @dataclass
@@ -53,6 +53,7 @@ class DecodeServer:
 
     def __post_init__(self):
         eng = self.engine
+        require_dense(eng, "the decode server")
         T = eng.gen.max_new_tokens
         S, N, V = self.n_slots, eng.n_visual, eng.cfg.text.vocab_size
         dev = eng.device

@@ -51,7 +51,9 @@ import numpy as np
 import torch
 
 from ..models import llama as llama_mod
+from ..models import mla_moe as mla_moe_mod
 from ..parallel.mesh import mesh_of
+from ..utils.config import is_mla_moe
 
 
 def _stamp(device: torch.device):
@@ -95,6 +97,8 @@ class SpeculativeGreedy:
     on_verify: Callable | None = None
 
     def __post_init__(self):
+        if is_mla_moe(self.engine.cfg.text):
+            raise mla_moe_mod.unsupported("speculative decoding")
         if getattr(self.engine, "ensemble", True):
             raise ValueError(
                 "speculative decoding accelerates the GREEDY baseline "

@@ -9,8 +9,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import clip_vit, llama, projector
-from ..utils.config import LlavaConfig
+from . import clip_vit, llama, mla_moe, projector
+from ..utils.config import LlavaConfig, is_mla_moe
 
 
 class LlavaParams(NamedTuple):
@@ -51,7 +51,9 @@ def params_from_hf(
             cfg.vision, sd, dtype, device, prefix="vision_tower.vision_model."
         ),
         projector=projector.params_from_hf(sd, dtype, device),
-        lm=llama.params_from_hf(cfg.text, sd, dtype, device, prefix="language_model."),
+        lm=(mla_moe if is_mla_moe(cfg.text) else llama).params_from_hf(
+            cfg.text, sd, dtype, device, prefix="language_model."
+        ),
     )
 
 

@@ -56,6 +56,8 @@ _SIGNATURES = {
     "dd_int4_matmul": [_I] * 2 + [_P] * 5 + [_I] * 8 + [_P],
     # x, q4, words, R, D2, E, width, stages, mode, blocks, stream
     "dd_int4_stream_probe": [_P] * 3 + [_I] * 7 + [_P],
+    # x, offsets, w_gate, w_up, w_down, h, y, A, D, I, E, stream
+    "dd_moe_grouped": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

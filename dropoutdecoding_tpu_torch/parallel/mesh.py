@@ -301,6 +301,9 @@ def _sharded(tree: dict, specs: dict, mesh: Mesh) -> ShardedParams:
 
 
 def _reject_fused(lm: dict) -> None:
+    if "moe" in lm:
+        raise ValueError("tensor parallelism is not supported with the MLA + MoE decoder "
+                         "(models/mla_moe.py)")
     if "qkv_proj" in lm.get("layers", {}):
         raise ValueError(
             "params carry fused qkv/gate_up leaves "

@@ -7,6 +7,11 @@ InstructBLIP-Vicuna-7B and CLIP ViT-L/336 widths).
 The port cannot import that module: ``dropoutdecoding_tpu.utils`` imports
 JAX from its package ``__init__`` (through ``utils/prng.py``).
 ``tests/test_torch_imports.py`` holds the two copies equal field by field.
+
+``MlaMoeConfig`` is the port's own: a DeepSeek-V3-style decoder (latent
+attention, sigmoid-routed experts; Kimi-VL-A3B's language model), which
+``LlavaConfig.text`` may hold in place of a ``LlamaConfig``
+(``models/mla_moe.py``).  The JAX package has no such decoder.
 """
 from __future__ import annotations
 
@@ -56,6 +61,89 @@ class LlamaConfig:
             attention_bias=d.get("attention_bias", False),
             mlp_bias=d.get("mlp_bias", False),
         )
+
+
+MLA_MOE_TYPES = ("deepseek_v3",)  # text model_types that run models/mla_moe.py
+
+
+@dataclass(frozen=True)
+class MlaMoeConfig:
+    """DeepSeek-V3-style decoder: multi-head latent attention (no q-LoRA)
+    and sigmoid-routed experts with shared experts after
+    ``first_k_dense_replace`` dense layers.  Defaults are Kimi-VL-A3B's
+    language model (``moonshotai/Kimi-VL-A3B-Instruct`` config.json)."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264  # the dense layers' FFN
+    moe_intermediate_size: int = 1408  # one routed expert's FFN
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    moe_layer_freq: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    max_position_embeddings: int = 131072
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    tie_word_embeddings: bool = False
+    model_type: str = "deepseek_v3"
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of a cache row: the normalised latent and the roped key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def n_moe_layers(self) -> int:
+        return self.num_hidden_layers - self.first_k_dense_replace
+
+    @classmethod
+    def from_hf_dict(cls, d: dict) -> "MlaMoeConfig":
+        """A published DeepseekV3 ``text_config``.  What this decoder does not
+        compute raises: q-LoRA, rope scaling, attention biases, grouped
+        routing, softmax scores, expert layers that skip."""
+        unsupported = {
+            "q_lora_rank": d.get("q_lora_rank"), "rope_scaling": d.get("rope_scaling"),
+            "attention_bias": d.get("attention_bias") or None,
+            "n_group": None if d.get("n_group", 1) == 1 else d["n_group"],
+            "moe_layer_freq": None if d.get("moe_layer_freq", 1) == 1 else d["moe_layer_freq"],
+            "scoring_func": None if d.get("scoring_func", "sigmoid") == "sigmoid" else d["scoring_func"],
+            "topk_method": None if d.get("topk_method", "noaux_tc") == "noaux_tc" else d["topk_method"],
+            "hidden_act": None if d.get("hidden_act", "silu") == "silu" else d["hidden_act"],
+        }
+        bad = {k: v for k, v in unsupported.items() if v is not None}
+        if bad:
+            raise ValueError(f"the MLA + MoE decoder does not run {bad}")
+        names = [f.name for f in cls.__dataclass_fields__.values()]
+        return cls(**{k: d[k] for k in names if k in d})
+
+
+def text_config_from_hf(d: dict):
+    """The decoder config of an HF ``text_config``: ``MlaMoeConfig`` for a
+    DeepSeek-V3-style ``model_type``, else ``LlamaConfig``."""
+    if d.get("model_type") in MLA_MOE_TYPES:
+        return MlaMoeConfig.from_hf_dict(d)
+    return LlamaConfig.from_hf_dict(d)
+
+
+def is_mla_moe(text_cfg) -> bool:
+    return isinstance(text_cfg, MlaMoeConfig)
 
 
 @dataclass(frozen=True)
@@ -199,7 +287,7 @@ class LlavaConfig:
     @classmethod
     def from_hf_dict(cls, d: dict) -> "LlavaConfig":
         return cls(
-            text=LlamaConfig.from_hf_dict(d["text_config"]),
+            text=text_config_from_hf(d["text_config"]),
             vision=ClipVisionConfig.from_hf_dict(d["vision_config"]),
             image_token_index=d.get("image_token_index", 32000),
             pad_token_id=d.get("pad_token_id", 32001) or 32001,

@@ -12,7 +12,14 @@ import torch
 from ..models.instructblip import InstructBlipParams
 from ..models.llava import LlavaParams
 from ..models.llavanext import LlavaNextParams
-from .config import InstructBlipConfig, LlamaConfig, LlavaConfig, LlavaNextConfig
+from .config import (
+    InstructBlipConfig,
+    LlamaConfig,
+    LlavaConfig,
+    LlavaNextConfig,
+    MlaMoeConfig,
+    is_mla_moe,
+)
 from .quantize import INT4_GROUP, _fit_group, quantize_matrix, quantize_matrix_int4
 
 
@@ -92,7 +99,8 @@ def synthetic_llava_params(
         "fc1_w": nrm(D, E), "fc1_b": zeros(E),
         "fc2_w": nrm(E, E), "fc2_b": zeros(E),
     }
-    return LlavaParams(vision=vision, projector=projector, lm=_synthetic_dense_lm(tc, nrm, ones))
+    make_lm = _synthetic_mla_moe_lm if is_mla_moe(tc) else _synthetic_dense_lm
+    return LlavaParams(vision=vision, projector=projector, lm=make_lm(tc, nrm, ones))
 
 
 def _synthetic_dense_lm(tc: LlamaConfig, nrm, ones) -> dict:
@@ -118,6 +126,43 @@ def _synthetic_dense_lm(tc: LlamaConfig, nrm, ones) -> dict:
         },
         "norm": ones(E),
         "lm_head": nrm(E, V),
+    }
+
+
+def _synthetic_mla_moe_lm(tc: MlaMoeConfig, nrm, ones) -> dict:
+    """The MLA + MoE decoder's params (``models/mla_moe.py``) at ``tc`` from
+    the callers' draws; the router's bias drawn the same way, in fp32."""
+    D, L, H, V = tc.hidden_size, tc.num_hidden_layers, tc.num_attention_heads, tc.vocab_size
+    Ld, Lm, E = tc.first_k_dense_replace, tc.n_moe_layers, tc.n_routed_experts
+    Ie, Is, R = tc.moe_intermediate_size, tc.moe_intermediate_size * tc.n_shared_experts, tc.kv_lora_rank
+    return {
+        "embed_tokens": nrm(V, D),
+        "layers": {
+            "input_ln": ones(L, D),
+            "post_attn_ln": ones(L, D),
+            "q_proj": nrm(L, D, H * tc.qk_head_dim),
+            "kv_a_proj": nrm(L, D, tc.latent_dim),
+            "kv_a_ln": ones(L, R),
+            "kv_b_proj": nrm(L, R, H * (tc.qk_nope_head_dim + tc.v_head_dim)),
+            "o_proj": nrm(L, H * tc.v_head_dim, D),
+        },
+        "dense": {
+            "gate_proj": nrm(Ld, D, tc.intermediate_size),
+            "up_proj": nrm(Ld, D, tc.intermediate_size),
+            "down_proj": nrm(Ld, tc.intermediate_size, D),
+        },
+        "moe": {
+            "router": nrm(Lm, D, E),
+            "router_bias": nrm(Lm, E).float(),
+            "gate_proj": nrm(Lm, E, D, Ie),
+            "up_proj": nrm(Lm, E, D, Ie),
+            "down_proj": nrm(Lm, E, Ie, D),
+            "shared_gate_proj": nrm(Lm, D, Is),
+            "shared_up_proj": nrm(Lm, D, Is),
+            "shared_down_proj": nrm(Lm, Is, D),
+        },
+        "norm": ones(D),
+        "lm_head": nrm(D, V),
     }
 
 

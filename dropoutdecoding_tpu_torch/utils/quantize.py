@@ -87,10 +87,19 @@ def int8_column_major(params: dict) -> dict:
     return {**params, "layers": layers}
 
 
+def _check_llama(params: dict) -> None:
+    """The weight tiers quantize a Llama decoder's leaves; the MLA + MoE
+    decoder's tree (``models/mla_moe.py``, its experts under "moe") raises."""
+    if "moe" in params:
+        raise ValueError("an int8 / int4 weight tier is not supported with the MLA + MoE "
+                         "decoder (models/mla_moe.py)")
+
+
 def quantize_llama_params(params: dict) -> dict:
     """Quantize the per-layer projections and ``lm_head`` of a Llama
     parameter dict, as the JAX CLI's ``--quantize int8`` does.  Norms and
     embeddings keep their dtype."""
+    _check_llama(params)
     layers = dict(params["layers"])
     for name in _QUANT_NAMES:
         layers[name] = quantize_matrix(layers[name])
@@ -191,6 +200,7 @@ def quantize_llama_params_int4(
     the group fitted to each in-dim (``_fit_group``); norms and embeddings
     keep their dtype.  ``lm_head``: "int8" (the default), "int4", or None
     (kept dense)."""
+    _check_llama(params)
     if lm_head not in ("int8", "int4", None):
         raise ValueError(f"lm_head must be 'int8', 'int4' or None, got {lm_head!r}")
     layers = dict(params["layers"])

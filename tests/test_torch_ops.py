@@ -213,7 +213,7 @@ def test_build_names_library_by_source_hash():
     assert path.parent == _build.BUILD_DIR
     assert {p.name for p in _build.sources()} == {
         "cache_append.cu", "decode_attention.cu", "flash_prefill.cu", "int4_matmul.cu",
-        "uncertainty.cu",
+        "moe_grouped.cu", "uncertainty.cu",
     }
     # the header the wgmma kernels share names the library too
     assert {p.name for p in _build.headers()} == {"hopper.cuh"}
