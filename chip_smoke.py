@@ -69,7 +69,8 @@ Phases, each fatal on failure:
    LLaVA-1.5-7B width and depth, first with synthetic bf16 weights and a
    bf16 cache (K1, K2), then synthetic int8 fused weights and an int8 cache
    (K2, K3, K4), on both a batch of two requests too, whose rows stop at
-   different steps; then synthetic packed int4 fused weights, an int8 head and
+   different steps, K5 in every layer of every prefill; then synthetic
+   packed int4 fused weights, an int8 head and
    an int8 cache (K2, K3, K4 and K6 in every projection of every forward);
    then ``LlavaNextEngine.generate`` at full
    LLaVA-v1.6-Mistral-7B width and depth with synthetic bf16 weights and
@@ -92,13 +93,13 @@ Phases, each fatal on failure:
    (``pope_full``): twelve questions on two images through the batched
    ``probe`` (B = 8, two unique images), ``probe`` a row at a time and
    ``probe_prefix`` + ``probe_extend``, agreeing within ``POPE_MODES_RTOL``,
-   launch counts exact (no kernel on bf16, K2 none anywhere, K6 128 a
-   forward on int4, K5 32 a NeXT prefill and none in its extend), ms a
+   launch counts exact (K5 32 a prefill and none in an extend, K2 none
+   anywhere, K6 128 a forward on int4, nothing else), ms a
    question and the device peak of each mode.  Serving at 8 slots
    (``serving_full``, bf16): 12 requests of 32 tokens in three waves, fused
    and exact, against ``generate`` one at a time (ms a step, tokens/s,
    requests/s, device peak; each request equal to its run alone in the
-   server; K1 32 / 64 a server step, K2 one a submit); w8a8 on the int8
+   server; K1 32 / 64 a server step, K2 one and K5 32 a submit); w8a8 on the int8
    weights (``w8a8_full``: prefill ms beside the int8 tier's, the first
    step at which greedy tokens part, an 8-slot step with and without
    ``w8a8_decode``); on NeXT a request joining 7 decoding slots by
@@ -106,7 +107,7 @@ Phases, each fatal on failure:
    between two tokens of an active slot; K5 32 / 0 in the join).  Then
    InstructBLIP-Vicuna-7B at full width and depth with synthetic bf16 weights
    (``instructblip_full``): greedy / exact / fused K=3 (K1 992 / 1984 /
-   992, K2 1, K5 0), a batch of two requests whose rows stop at different
+   992, K2 1, K5 32), a batch of two requests whose rows stop at different
    steps, VCD, beam search and OPERA, the vision tower and the Q-Former on
    their own, and POPE through the batched ``probe`` (B = 8, two unique
    images: the ViT twice, the Q-Former on 8 rows) and a row at a time.
@@ -757,26 +758,36 @@ def check_flash_prefill() -> dict:
     tail, at G = 4 and G = 1 in bf16 and in fp32; on the wgmma kernel (bf16,
     D = 128) also S = 1024 and 1025, B = 2 with two different key-mask
     tails, B = 8 with eight (NeXT's batched POPE probe), and rows with no attendable key (masked leading keys: the twin's
-    softmax is uniform over all S keys there); the same on the mma.sync
+    softmax is uniform over all S keys there); with no key mask, the
+    LLaVA-1.5 prefills the Llama prefill runs K5 at too: BakLLaVA's B = 64,
+    S = 595, G = 4, LLaVA-1.5-7B's S = 595 (the merged prompt of this
+    script's 7B paths: 576 visual and 19 text tokens), G = 1, at 32 heads
+    and at a TP rank's 16, and InstructBLIP's S = 52 (32 queries and 20 text
+    ids), G = 1, each also timed beside the dense plain ``prefill_attention``; the same on the mma.sync
     kernel (D = 64) and the scalar one (fp32, D = 16).  Two more wgmma cases
     make single key tiles matter: "peaked" scales q by 8, so that a row's
     weight sits on a few keys and a skipped or stale tile moves the rows
     that peak there by about their own size; "stepped" adds (tile mod 4) -
     1.5 to v by key tile of 128, so that the tiles' shares cancel in a whole
     walk and one tile missing, or one phantom or masked tile counted, shows
-    in every later row.  Each case must take the kernel named beside it.  No
-    output may be NaN or Inf.  Operations are counted from the mask: a (query,
+    in every later row.  Each case must take the kernel named beside it and
+    count one ``prefill.k5_layers``.  No output may be NaN or Inf.  Operations are counted from the mask: a (query,
     key) pair for each attendable key at or before the query.  Returns the
     records of the main path's NeXT prefill (the first case) and of
     stall_probe's one-shot join, by kernels-line key."""
-    from dropoutdecoding_tpu_torch.ops.attention import chunked_prefill_attention
+    from dropoutdecoding_tpu_torch.engine import trace
+    from dropoutdecoding_tpu_torch.ops.attention import chunked_prefill_attention, prefill_attention
     from dropoutdecoding_tpu_torch.ops.cuda_flash_prefill import flash_prefill_attention
 
     records = {}
     recorded = {"S=2950 G=4 bf16": "K5", "S=2955 G=4 bf16 (stall_probe)": "K5 stall_probe",
                 "S=2950 G=4 bf16 H=16 (TP shard)": "K5 TP"}
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [  # (label, B, S, H, KH, D, dtype, real keys per row of B, masked leading keys, kernel)
+    # the LLaVA-1.5 prefills, timed beside the dense plain attention
+    short = ("B=64 S=595 G=4 bf16 (BakLLaVA's prefill)", "S=595 G=1 bf16 (LLaVA-1.5-7B's prefill)",
+             "S=595 G=1 bf16 H=16 (LLaVA-1.5-7B's TP rank)", "S=52 G=1 bf16 (InstructBLIP's prefill)")
+    cases = [  # (label, B, S, H, KH, D, dtype, real keys per row of B or None: no mask,
+        #        masked leading keys, kernel)
         ("S=2950 G=4 bf16", 1, 2950, 32, 8, 128, bf16, [2362], 0, "wgmma"),
         # a TP rank's NeXT prefill at n_model = 2: 16 heads over 4 KV heads
         ("S=2950 G=4 bf16 H=16 (TP shard)", 1, 2950, 16, 4, 128, bf16, [2362], 0, "wgmma"),
@@ -801,6 +812,10 @@ def check_flash_prefill() -> dict:
         # NeXT's batched POPE probe: eight rows on two images, each its own key tail
         ("B=8 S=2950 G=4 bf16, eight key tails", 8, 2950, 32, 8, 128, bf16,
          [2357, 2360, 2362, 2358, 2161, 2164, 2166, 2160], 0, "wgmma"),
+        (short[0], 64, 595, 32, 8, 128, bf16, None, 0, "wgmma"),
+        (short[1], 1, 595, 32, 32, 128, bf16, None, 0, "wgmma"),
+        (short[2], 1, 595, 16, 16, 128, bf16, None, 0, "wgmma"),
+        (short[3], 1, 52, 32, 32, 128, bf16, None, 0, "wgmma"),
     ]
     for i, (label, B, S, H, KH, D, dtype, real, lead, kernel) in enumerate(cases):
         g = torch.Generator(device="cuda").manual_seed(400 + i)
@@ -814,13 +829,18 @@ def check_flash_prefill() -> dict:
         if label.endswith("stepped"):
             v += (torch.arange(S, device="cuda") // 128 % 4 - 1.5)[None, :, None, None]
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-        mask = torch.arange(S, device="cuda") < torch.tensor(real, device="cuda")[:, None]
-        mask[:, :lead] = False
+        if real is None:  # every key real: the kernel gets no mask, the count one of all ones
+            mask, kmask = torch.ones(B, S, dtype=torch.bool, device="cuda"), None
+        else:
+            mask = torch.arange(S, device="cuda") < torch.tensor(real, device="cuda")[:, None]
+            mask[:, :lead] = False
+            kmask = mask
         before = dict(flash_prefill_attention.route_launches)
-        got = flash_prefill_attention(q, k, v, mask)
+        with trace.recording() as rec:
+            got = flash_prefill_attention(q, k, v, kmask)
         torch.cuda.synchronize()
         took = [r for r, n in flash_prefill_attention.route_launches.items() if n != before[r]]
-        ref = chunked_prefill_attention(q, k, v, mask).float()
+        ref = chunked_prefill_attention(q, k, v, kmask).float()
         finite = bool(torch.isfinite(got).all())
         diff = (got.float() - ref).abs()
         err = diff.max().item()
@@ -833,17 +853,22 @@ def check_flash_prefill() -> dict:
         line = (f"K5 {label} ({'/'.join(took)}): max_abs_err {err:.3e} (bound {atol:g} "
                 f"{f'row max|ref| (at most {K5_ATOL_CAP:g}) ' if dtype == bf16 else ''}+ {rtol:g} |ref|; the least atol "
                 f"that passes: {max(needs, 0.0):.2e}), finite {finite}")
-        timed = (S in (2950, 2955) and H == 32) or label in recorded
+        timed = (S in (2950, 2955) and H == 32) or label in recorded or label in short
         if timed:
             # causal QK^T and PV over the pairs the mask leaves
             flops = 4 * H * D * mask.cumsum(1).sum().item()
-            ms = time_ms(lambda: flash_prefill_attention(q, k, v, mask))
-            plain_ms = time_ms(lambda: chunked_prefill_attention(q, k, v, mask))
+            ms = time_ms(lambda: flash_prefill_attention(q, k, v, kmask))
+            plain_ms = time_ms(lambda: chunked_prefill_attention(q, k, v, kmask))
             line += (f", kernel {ms * 1e3:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s over "
                      f"{flops / 4 / H / D:.0f} pairs a head), plain {plain_ms * 1e3:.1f} us")
+        if label in short:
+            dense_ms = time_ms(lambda: prefill_attention(q, k, v, causal=True))
+            line += f", dense plain prefill_attention {dense_ms:.3f} ms"
         print(line)
         if took != [kernel]:
             raise AssertionError(f"K5 {label}: took {took}, not the {kernel} kernel")
+        if rec.counters["prefill.k5_layers"] != 1:
+            raise AssertionError(f"K5 {label}: prefill.k5_layers {rec.counters['prefill.k5_layers']}")
         if not finite or not within:
             raise AssertionError(f"K5 {label}: finite {finite}, max_abs_err {err} out of bounds")
         if label in recorded:
@@ -1373,14 +1398,14 @@ def small_pope() -> None:
     ``last_logits`` card against CPU within ``POPE_NARROW_RTOL`` of their
     scale, by the head's input (over an int8 prefix, the card reads the
     CPU's handle, so both extend over the same bytes).  Launches on the card, exact: K2 none; K5
-    once a layer in each NeXT ``probe`` and ``probe_prefix``, none in its
+    once a layer in each ``probe`` and ``probe_prefix``, none in the
     extend; K6 four a layer in each int4 forward."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.engine.generate import LlavaEngine
     from dropoutdecoding_tpu_torch.engine.llavanext_engine import LlavaNextEngine
     from dropoutdecoding_tpu_torch.models import llavanext
-    from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL, KVCache
+    from dropoutdecoding_tpu_torch.models.llama import KVCache
     from dropoutdecoding_tpu_torch.models.llava import LlavaParams
     from dropoutdecoding_tpu_torch.utils.convert import (
         synthetic_llava_params,
@@ -1428,13 +1453,9 @@ def small_pope() -> None:
                     tail_lens, prefix_only=int8_prefix)
                 if device == "cpu":
                     continue
-                # the text ids of each prefill (the extend runs none)
-                text = {"probe": rows.shape[1], "probe whole": whole[0].shape[1],
-                        "prefix": prefix_len}
                 for mode, got in counts.items():
-                    long = mode in text and text[mode] - 1 + eng.n_visual >= LONG_PREFILL
                     want = dict.fromkeys(got, 0)
-                    want["K5"] = L if long else 0
+                    want["K5"] = 0 if mode == "extend" else L  # every prefill's layers
                     want["K6"] = 4 * L if "int4" in name else 0
                     _check_counts(f"small pope {name} {mode}", got, want)
             if device == "cuda":  # the card's extend over the CPU's int8 handle, below
@@ -1515,7 +1536,7 @@ def small_instructblip() -> None:
     equal and last_logits within ``POPE_NARROW_RTOL``.  Launches on the
     card, exact: K1 a layer of every decode forward (none under OPERA, none
     on an int8 cache, where K3 reads and K4 appends once a step), K2 once a
-    prefill, K5 and K6 none, nothing in the probe."""
+    prefill, K5 once a layer of every prefill (the probe's too), K6 none."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.decoding.vcd import diffusion_noise
@@ -1540,7 +1561,6 @@ def small_instructblip() -> None:
     noise = torch.from_numpy(rng.normal(size=pixels[0].size).astype(np.float32))
     gumbel = -torch.log(-torch.log(torch.from_numpy(
         rng.random((T, V), dtype=np.float32)).clamp(min=1e-38)))
-    S = ids.shape[1] + N  # the merged prompt
     # the probe's rows: right-padded ids, their Q-Former ids and masks, two images
     lens, q_lens = np.array([8, 5, 7, 3]), np.array([5, 2, 4, 3])
     rows = np.where(np.arange(8)[None] < lens[:, None], rng.integers(2, V, size=(4, 8)), 0)
@@ -1579,7 +1599,7 @@ def small_instructblip() -> None:
             eng = make(ensemble, ens, int8_kv)
             res[label], counts[label] = counted(lambda: eng.generate(ids, pixels[:1], q_ids).tokens)
             epis[device, label] = eng.prefill(ids, pixels[:1], q_ids).epis.cpu()
-            want = want_counts(T, L, 2 if ensemble and not ens else 1, S, int8_kv, False)
+            want = want_counts(T, L, 2 if ensemble and not ens else 1, int8_kv, False)
             want = {k: n for k, n in want.items() if n}
             if device == "cuda":
                 _check_counts(f"narrow instructblip {label}", counts[label], want)
@@ -1603,9 +1623,9 @@ def small_instructblip() -> None:
             rows, pixels, q_rows, text_lens=lens, qformer_attention_mask=q_mask,
             image_index=image_index))
         if device == "cuda":
-            for label, want in (("VCD", {"K1": (T - 1) * L, "K2": 2}),
-                                ("beam nb=3", {"K1": (T - 1) * L, "K2": 1}),
-                                ("OPERA", {"K2": 1}), ("probe", {})):
+            for label, want in (("VCD", {"K1": (T - 1) * L, "K2": 2, "K5": 2 * L}),
+                                ("beam nb=3", {"K1": (T - 1) * L, "K2": 1, "K5": L}),
+                                ("OPERA", {"K2": 1, "K5": L}), ("probe", {"K5": L})):
                 _check_counts(f"narrow instructblip {label}", counts[label], want)
             print(f"narrow instructblip: launches on the card {counts}; OPERA {stats}")
         out[device] = res
@@ -1686,19 +1706,17 @@ def _wrappers() -> dict:
     }
 
 
-def want_counts(T: int, L: int, forwards: int, S: int, int8_kv: bool, int4: bool) -> dict:
+def want_counts(T: int, L: int, forwards: int, int8_kv: bool, int4: bool) -> dict:
     """Each kernel's launches in a ``generate`` of ``T`` tokens on an
     ``L``-layer model whose decode step runs ``forwards`` forwards (greedy
-    and fused 1, exact 2) after a prefill of ``S`` tokens."""
-    from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL
-
+    and fused 1, exact 2) after one prefill."""
     attention = (T - 1) * forwards * L  # every layer of every decode forward
     return {
         "K1": 0 if int8_kv else attention,
         "K2": 1,
         "K3": attention if int8_kv else 0,
         "K4": T - 1 if int8_kv else 0,  # one append per decode step
-        "K5": L if S >= LONG_PREFILL else 0,  # every layer of the one prefill
+        "K5": L,  # every layer of the one prefill
         # the four fused projections of every layer of every forward
         "K6": 4 * L * (1 + (T - 1) * forwards) if int4 else 0,
     }
@@ -1804,7 +1822,7 @@ def drive(make, args, tier: str, runs: list, ens, int8_kv: bool = False,
             raise AssertionError(
                 f"{tier} {label}: epis shape {tuple(unc['epis_uncert_per_token'].shape)}"
             )
-        want = want_counts(T, L, 2 if ensemble and not fused else 1, S, int8_kv, int4)
+        want = want_counts(T, L, 2 if ensemble and not fused else 1, int8_kv, int4)
         # every K5 launch, and K6's four projections of every layer of the prefill
         want_wgmma = {"K5": want["K5"], "K6": 4 * L if int4 else 0}
         print(
@@ -1861,7 +1879,7 @@ def graph_check(make, args, tier: str, runs: list, ens, int8_kv: bool = False,
             if side == "eager":
                 eng._graphs = None
             L = eng.cfg.text.num_hidden_layers
-            want = want_counts(T, L, forwards, eng._prompt_lengths(*args)[1], int8_kv, int4)
+            want = want_counts(T, L, forwards, int8_kv, int4)
             eng.generate(*args)  # every shape, and the graphs of this cache's storage
             for fn in wrappers.values():
                 fn.launches = 0
@@ -2284,8 +2302,8 @@ def baselines_full(make, args, tier: str, noised=None) -> dict:
     its entry point with every kernel's launch count set to 0 just before and
     checked exactly just after: K1 32 a decode forward of VCD (2 rows) and
     beam search (3 rows), none in OPERA (``decode_step_attn`` is plain
-    torch); K2 one a prefill (two under VCD); K5 32 a prefill from 1024
-    tokens (LLaVA-NeXT); the others none.  ``make(ensemble, gen)`` builds the
+    torch); K2 one a prefill (two under VCD); K5 32 a prefill; the others
+    none.  ``make(ensemble, gen)`` builds the
     engine; ``noised`` is LLaVA-NeXT's noised tile stack (VCD then runs
     through ``states``).  Prints each run's ms a decode step, its device peak
     and tokens; then beam search's cache reorder in ms a step (the rows it
@@ -2296,7 +2314,6 @@ def baselines_full(make, args, tier: str, noised=None) -> dict:
 
     from dropoutdecoding_tpu_torch.engine import baselines, opera
     from dropoutdecoding_tpu_torch.models import llama as llama_mod
-    from dropoutdecoding_tpu_torch.models.llama import LONG_PREFILL
     from dropoutdecoding_tpu_torch.ops.cuda_decode_attention import ensemble_decode_attention_fused
     from dropoutdecoding_tpu_torch.utils.config import GenerationConfig
 
@@ -2306,7 +2323,7 @@ def baselines_full(make, args, tier: str, noised=None) -> dict:
     text = eng.cfg.text
     L, V = text.num_hidden_layers, text.vocab_size
     S = eng._prompt_lengths(*args)[1]  # the merged (padded) prompt
-    k5 = L if S >= LONG_PREFILL else 0
+    k5 = L  # every layer of a prefill
     prefill_s = statistics.median(_sync_time(lambda: eng.prefill(*args))[1] for _ in range(2))
     if noised is None:
         vcd = lambda: baselines.vcd_generate(eng, *args)  # noqa: E731
@@ -2426,7 +2443,7 @@ def small_serving() -> None:
     ``DecodeServer`` with staggered joins (``_staggered``) on LLaVA in exact
     and fused mode, each request's tokens equal to its solo ``generate`` on
     the card and card equal to CPU; K1 launched L x forwards times a
-    server step and K2 once a submit.  Then LLaVA-NeXT: a request joining by
+    server step, K2 once a submit and K5 L times a submit.  Then LLaVA-NeXT: a request joining by
     ``submit_chunked`` (1320 slots in pieces of 256, 2 pumped steps between
     two) while another decodes, against one joining by ``submit``: the
     active slot advanced 10 steps during the chunked join, K5 none in the
@@ -2495,7 +2512,8 @@ def small_serving() -> None:
     def check(label, params, ens, forwards, **fields):
         got = {dev: run(params, dev, ens, **fields) for dev in ("cuda", "cpu")}
         (card, card_solo, counts, steps), (cpu, _, _, _) = got["cuda"], got["cpu"]
-        want = {**dict.fromkeys(wrappers, 0), "K1": steps * L * forwards, "K2": len(reqs)}
+        want = {**dict.fromkeys(wrappers, 0), "K1": steps * L * forwards, "K2": len(reqs),
+                "K5": L * len(reqs)}  # K2 and every layer's K5 once a submit's prefill
         same_solo = all(np.array_equal(card[r], card_solo[r]) for r in reqs)
         same_cpu = all(np.array_equal(card[r], cpu[r]) for r in reqs)
         print(f"narrow serving {label}: {steps} server steps, launches {counts} (want {want}); "
@@ -2635,7 +2653,7 @@ def serving_full(make, cfg, label: str = "bf16") -> dict:
     8-slot server (``alone_in_server``); how many equal the solo
     ``generate`` is printed (bf16 rows depend on the row count).  Launches
     exact: K1 32 a server step fused, 64 exact, over all 8 rows, whatever
-    their fill; K2 one a submit.  Returns, by mode, ms a step(8) (median),
+    their fill; K2 one a submit, K5 32.  Returns, by mode, ms a step(8) (median),
     tokens/s and requests/s of the server and of the sequential runs, the
     device peak and the launches."""
     import numpy as np
@@ -2666,7 +2684,8 @@ def serving_full(make, cfg, label: str = "bf16") -> dict:
         counts = {k: fn.launches for k, fn in wrappers.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         del eng._one_step  # the class's again
-        want = {**dict.fromkeys(wrappers, 0), "K1": steps[0] * L * forwards, "K2": len(reqs)}
+        want = {**dict.fromkeys(wrappers, 0), "K1": steps[0] * L * forwards, "K2": len(reqs),
+                "K5": L * len(reqs)}  # K2 and every layer's K5 once a submit's prefill
         alone = alone_in_server(eng, reqs, T)
         solo, seq_s = _sync_time(lambda: {rid: eng.generate(*a).tokens[0] for rid, a in reqs.items()})
         same_alone = [rid for rid in reqs if np.array_equal(got[rid], alone[rid])]
@@ -2901,11 +2920,12 @@ def spec_launches(n_acc: list, gamma: int, L: int, lm: bool, int4: bool) -> dict
     more at the start of each cycle that follows a full acceptance (F6),
     each one K1 a layer over the draft cache and, on an ``int4`` draft, one
     K6 a fused projection of a layer, as is its prefill; K2 once, the
-    target's prefill; the verify runs the plain extend attention and the
-    plain block write."""
+    target's prefill; K5 once a layer of the target's prefill and of the
+    draft tower's; the verify runs the plain extend attention and the plain
+    block write."""
     c = len(n_acc)
     steps = gamma * c + sum(1 for a in n_acc[:-1] if a == gamma) if lm else 0
-    return {"K1": L * steps, "K2": 1, "K3": 0, "K4": 0, "K5": 0,
+    return {"K1": L * steps, "K2": 1, "K3": 0, "K4": 0, "K5": L * (2 if lm else 1),
             "K6": 4 * L * (1 + steps) if lm and int4 else 0}
 
 
@@ -3254,9 +3274,11 @@ def spec_consistency_cli(ckpt: str, coco: str, files: list, images: list, proces
     Then the consistency analyses over the int4 arm's captions and their
     CHAIR results (``ChairEvaluator`` on the written annotations):
     ``--consistency`` (``lm_consistency_report``: a distribution for every
-    caption word, no kernel launched) and ``--consistency-im projection``
-    (``im_consistency_report``: K2 once an image, labels equal to those of
-    the plain top-k table of the same logits).  Returns the records."""
+    caption word, K5 in every layer of its one blank-image prefill and no
+    other kernel) and ``--consistency-im projection``
+    (``im_consistency_report``: K2 and K5's layers once an image, labels
+    equal to those of the plain top-k table of the same logits).  Returns
+    the records."""
     import dataclasses
     import shutil
 
@@ -3331,6 +3353,7 @@ def spec_consistency_cli(ckpt: str, coco: str, files: list, images: list, proces
         want = {k: sum(spec_launches(g, G, L, lm=draft == "int4", int4=True)[k] for g in gens)
                 for k in wrappers}
         want["K2"] = len(files)  # the target's prefill, once a caption
+        want["K5"] = len(files) * L * (2 if draft == "int4" else 1)  # and the draft's
         holds, direct = [], os.path.join(work, "direct.jsonl")
         for img_file, a, gr in zip(files, direct_args, greedy):
             hold = spec_hold(eng._spec, a, f"chair_cli --spec-draft {draft} {img_file}", gr,
@@ -3367,7 +3390,10 @@ def spec_consistency_cli(ckpt: str, coco: str, files: list, images: list, proces
     if {k: len(v) for k, v in lm["distributions"].items()} != words or any(
             not d for v in lm["distributions"].values() for d in v.values()):
         raise AssertionError("--consistency: a caption word without its distribution")
-    (check_counts or _check_counts)("chair_cli --consistency", counts, dict.fromkeys(wrappers, 0))
+    # one blank-image prefill a caption with words
+    blank_prefills = sum(1 for r in recs if r["caption"].split())
+    (check_counts or _check_counts)("chair_cli --consistency", counts,
+                                    {**dict.fromkeys(wrappers, 0), "K5": blank_prefills * L})
     print(f"chair_cli --consistency: {hallucinated} hallucinated words in {len(recs)} captions, "
           f"mean blank-image rank {lm['mean_rank']:.2f}, per image {lm['per_image']}; {lm_s:.2f} s, "
           f"launches {counts}")
@@ -3395,7 +3421,8 @@ def spec_consistency_cli(ckpt: str, coco: str, files: list, images: list, proces
     if list(im["labels"].values()) != twin:
         raise AssertionError("--consistency-im: labels differ from the plain top-k table's")
     (check_counts or _check_counts)("chair_cli --consistency-im", counts,
-                                    {**dict.fromkeys(wrappers, 0), "K2": len(files)})
+                                    {**dict.fromkeys(wrappers, 0), "K2": len(files),
+                                     "K5": len(files) * L})
     record["--consistency-im projection"] = {"consistency": im["consistency"],
                                              "hallucinated": im["hallucinated"], "seconds": im_s}
     return record
@@ -3474,7 +3501,7 @@ def end_to_end() -> tuple:
     no_kernel = dict.fromkeys(_wrappers(), 0)
     L = cfg.text.num_hidden_layers
     pope = {"bf16": pope_full(llava(params, False)(True, GenerationConfig()), (pope_pixels,), "bf16",
-                              no_kernel)}
+                              {**no_kernel, "K5": L})}  # each prefill's layers
     serving = {"bf16": serving_full(llava(params, False), cfg)}
 
     # free the bf16 tower before the int8 one exists; keep vision + projector
@@ -3501,7 +3528,7 @@ def end_to_end() -> tuple:
     graph_check(llava(params, True), (ids, pixels), "int4", [EXACT], EnsembleConfig(),
                 int8_kv=True, int4=True)
     pope["int4"] = pope_full(llava(params, True)(True, GenerationConfig()), (pope_pixels,), "int4",
-                             {**no_kernel, "K6": 4 * L})  # the head is int8: 4 K6 launches a layer
+                             {**no_kernel, "K5": L, "K6": 4 * L})  # the head is int8: 4 K6 a layer
     del params, vision, projector, lm
     free()
 
@@ -3564,9 +3591,9 @@ def pope_instructblip(eng, pixels) -> dict:
     run on 2 images and its Q-Former on 8 rows (counted at the models'
     ``apply``); the modes must agree within ``POPE_MODES_RTOL`` of the
     largest |logit|, first tokens equal wherever the top-2 margin exceeds
-    that bound; no kernel launches (a probe skips K2 and the cache, and 40
-    tokens are far below K5's switch).  Returns ms a question and the device
-    peak of each mode."""
+    that bound; K5 once a layer of each prefill (2 groups, or 12 rows) and no
+    other kernel (a probe skips K2 and the cache).  Returns ms a question and
+    the device peak of each mode."""
     import numpy as np
 
     from dropoutdecoding_tpu_torch.models import blip_vit, qformer
@@ -3591,7 +3618,8 @@ def pope_instructblip(eng, pixels) -> dict:
     blip_vit.apply = lambda c, p, px: seen.append(("vit", px.shape[0])) or vit_apply(c, p, px)
     qformer.apply = lambda c, p, i, *a: seen.append(("qformer", i.shape[0])) or qformer_apply(c, p, i, *a)
     try:
-        for mode, fn in (("batched probe", batched), ("per-row probe", per_row)):
+        L = eng.cfg.text.num_hidden_layers
+        for mode, fn, prefills in (("batched probe", batched, 2), ("per-row probe", per_row, 12)):
             fn()  # warm-up
             seen.clear()
             for w in wrappers.values():
@@ -3606,7 +3634,8 @@ def pope_instructblip(eng, pixels) -> dict:
             print(f"pope instructblip {mode}: {secs * 1e3 / 12:.2f} ms a question ({secs * 1e3:.1f} "
                   f"ms for 12), device peak {peak:.2f} GiB, launches {counts}; the towers' rows a "
                   f"call {seen}")
-            _check_counts(f"pope instructblip {mode}", counts, dict.fromkeys(wrappers, 0))
+            _check_counts(f"pope instructblip {mode}", counts,
+                          {**dict.fromkeys(wrappers, 0), "K5": prefills * L})
             if out.shape != (12, eng.cfg.text.vocab_size) or not torch.isfinite(out).all():
                 raise AssertionError(f"pope instructblip {mode}: last_logits {tuple(out.shape)}")
     finally:
@@ -3633,7 +3662,7 @@ def instructblip_full() -> tuple:
     (EVA ViT-g/14 39 x 1408, Q-Former 12 x 768, 32 queries, Vicuna-7B with
     vocabulary 32001), synthetic bf16 weights, a 20-token instruction and
     its 12 Q-Former ids: greedy, exact K=3 and fused K=3 under
-    ``epis_quantile`` through ``drive`` (K1 992 / 1984 / 992, K2 1, K5 0,
+    ``epis_quantile`` through ``drive`` (K1 992 / 1984 / 992, K2 1, K5 32,
     exact); two requests in one batch whose rows stop at different steps
     (``batch_of_two``); VCD, beam search (nb = 3) and OPERA at the CLI's
     defaults (``baselines_full``); the vision tower and the Q-Former on their
@@ -4083,7 +4112,7 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
     ``vcd_generate``, ``beam_generate``, ``opera_generate``), and the CLI's
     run launches K1 32 times a step on ``--original``, VCD (over 2 rows) and
     beam search (over 3), 64 on the default arm and none under OPERA, K2
-    once a prefill (twice a caption under VCD).  Then the POPE CLI on the
+    once a prefill (twice a caption under VCD), K5 L times a prefill.  Then the POPE CLI on the
     same engine (``pope_cli``) and, on LLaVA-1.5, the serve CLI
     (``serve_cli``), then ``--spec-gamma`` and the consistency analyses
     (``spec_consistency_cli``).  ``cfg`` / ``config`` / ``device`` make a
@@ -4302,7 +4331,7 @@ def chair_cli(cfg=None, config: dict | None = None, device: str = "cuda", max_ne
             same = recs == [json.loads(line) for line in open(direct)]  # files are in id order
             steps = len(files) * (max_new - 1)
             want = {"K1": steps * L * forwards, "K2": len(files) * prefills,
-                    "K3": 0, "K4": 0, "K5": 0, "K6": 0}
+                    "K3": 0, "K4": 0, "K5": len(files) * prefills * L, "K6": 0}
             print(f"chair_cli {model} {arm}: {len(recs)} captions in {cli_s:.2f} s through the CLI, "
                   f"equal to the engine call made directly: {same}; launches {counts} (want "
                   f"{want}); first caption: {recs[0]['caption']!r}")
@@ -4340,7 +4369,7 @@ def serve_cli(engine, vlm_processor, root: str, device: str = "cuda", check_coun
     request run alone in an 8-slot server (``alone_in_server``), the
     stream's deltas to its caption, the counters to 4 requests of
     ``max_new`` tokens; K1 launched L times a server step, K2 once a
-    request.  Returns the phase's numbers."""
+    request, K5 L times a request.  Returns the phase's numbers."""
     import concurrent.futures as cf
     import dataclasses
     import http.client
@@ -4428,7 +4457,8 @@ def serve_cli(engine, vlm_processor, root: str, device: str = "cuda", check_coun
     deltas = [json.loads(e)["delta"] for e in events[:-1]]
     streamed = " ".join(d for d in deltas if d)  # a delta of special tokens only is empty
     L = eng.cfg.text.num_hidden_layers
-    want = {**dict.fromkeys(wrappers, 0), "K1": n_steps * L, "K2": len(paths)}
+    want = {**dict.fromkeys(wrappers, 0), "K1": n_steps * L, "K2": len(paths),
+            "K5": L * len(paths)}
     ok = (all(s == 200 for s, _ in replies) and captions == want_captions[:3]
           and events[-1] == "[DONE]" and streamed == want_captions[3]
           and stats["requests_done"] == 4 and stats["tokens_generated"] == 4 * max_new)
@@ -4456,8 +4486,10 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
     groups of 8 right-padded rows with their unique images, InstructBLIP's
     with their padded Q-Former ids; ``probe_prefix`` of each image's shared
     template + ``probe_extend`` of its tails).  Launches: K2 once a question
-    serially (``generate``'s prefill; one new token runs no decode step),
-    nothing else in any mode.  Answers carry their token ids
+    serially (``generate``'s prefill; one new token runs no decode step), K5
+    once a layer of every prefill (a question's serially, a group's under
+    ``--batch-size``, an image run's prefix under ``--prefix-cache``; none
+    in an extend), nothing else in any mode.  Answers carry their token ids
     (``vlm_processor``'s word, then the id), so the archives compare tokens.
     ``main`` prints the confusion matrices; this prints the s a question of
     each mode."""
@@ -4570,7 +4602,14 @@ def pope_cli(engine, vlm_processor, root: str, device: str = "cuda", check_count
         want = {s: calls([prompt.format(q["text"]) for q in qs], [q["image"] for q in qs])
                 for s, qs in questions.items()}
         total = sum(len(qs) for qs in questions.values())
-        want_counts = {**dict.fromkeys(wrappers, 0), "K2": total if mode == "serial" else 0}
+        prefills = {  # the LM prefills of the mode's run
+            "serial": total,
+            "--batch-size 8": sum(-(-len(qs) // 8) for qs in questions.values()),
+            "--prefix-cache": sum(len(pope.image_runs([q["image"] for q in qs]))
+                                  for qs in questions.values()),
+        }[mode]
+        want_counts = {**dict.fromkeys(wrappers, 0), "K2": total if mode == "serial" else 0,
+                       "K5": prefills * engine.cfg.text.num_hidden_layers}
         print(f"pope_cli {model} {mode}: {total} questions in {secs:.2f} s through the CLI, "
               f"{secs / total:.4f} s a question; archives equal to the engine calls made directly: "
               f"{archives == want}; answers {sorted(set(a for v in archives.values() for a in v))}; "
@@ -4664,7 +4703,7 @@ def fused_gap_full(P: int = 2, T: int = 24) -> tuple:
     # a prompt: exact (2 forwards a step), fused (1), the reseeded exact
     # (2), greedy (1)
     want = dict.fromkeys(wrappers, 0)
-    want.update(K2=P, K3=6 * P * L * (T - 1), K4=4 * P * (T - 1))
+    want.update(K2=P, K3=6 * P * L * (T - 1), K4=4 * P * (T - 1), K5=P * L)
     print(f"fused_gap production (int8, K=3, epis, {P} x {T}): {prod_s:.1f} s, launches {counts}; "
           f"{json.dumps(prod)}")
     _check_counts("fused_gap production", counts, want)
@@ -4677,7 +4716,7 @@ def fused_gap_full(P: int = 2, T: int = 24) -> tuple:
     # int8 (2), greedy int8 and int4 (1 each); K6 in every int4 forward's
     # four fused projections
     want4 = dict.fromkeys(wrappers, 0)
-    want4.update(K2=2, K3=8 * L * (T - 1), K4=5 * (T - 1), K6=4 * L * (1 + 3 * (T - 1)))
+    want4.update(K2=2, K3=8 * L * (T - 1), K4=5 * (T - 1), K5=2 * L, K6=4 * L * (1 + 3 * (T - 1)))
     print(f"fused_gap int4prod (1 x {T}): {int4_s:.1f} s, launches {counts4}; {json.dumps(int4)}")
     _check_counts("fused_gap int4prod", counts4, want4)
     _rates(int4, "fused_gap int4prod")
@@ -4821,10 +4860,10 @@ PARALLEL_MODES = (("greedy", False, {}), ("exact K=3", True, {}),
                   ("fused K=3", True, {"fused_step": True}))
 
 
-def _tp_want(T: int, L: int, forwards: int, S: int, int8_kv: bool, int4: bool) -> dict:
+def _tp_want(T: int, L: int, forwards: int, int8_kv: bool, int4: bool) -> dict:
     """``want_counts`` for split (unfused) projections, the TP layout: K6
     runs q, k, v, o, gate, up and down, 7 a layer of every forward."""
-    want = want_counts(T, L, forwards, S, int8_kv, False)
+    want = want_counts(T, L, forwards, int8_kv, False)
     want["K6"] = 7 * L * (1 + (T - 1) * forwards) if int4 else 0
     return want
 
@@ -4952,9 +4991,8 @@ def _rank_runs(rank: int, label: str, make, params, args, runs, int8_kv=False,
         with _int4_by_shape(shapes):
             result, secs = _sync_time(lambda: eng.generate(*args))
         counts = {k: fn.launches for k, fn in wrappers.items()}
-        S = eng._prompt_lengths(*args)[1]
         forwards = 2 if ensemble and not ens_kw.get("fused_step") else 1
-        want = _tp_want(PARALLEL_T, eng.cfg.text.num_hidden_layers, forwards, S, int8_kv, int4)
+        want = _tp_want(PARALLEL_T, eng.cfg.text.num_hidden_layers, forwards, int8_kv, int4)
         _check_counts(f"rank {rank} {label} {mode}", counts, want)
         tokens = result.tokens.tolist()
         if rank == 0 and ref is not None:

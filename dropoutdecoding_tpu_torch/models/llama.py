@@ -2,8 +2,8 @@
 dict; port of ``dropoutdecoding_tpu/models/llama.py``.
 
 - ``prefill``: full-sequence causal forward; returns the final-norm hidden
-  states and every layer's K/V to seed the cache.  From 1024 tokens on its
-  attention is K5 (``ops/cuda_flash_prefill.py``).  ``prefill_hidden`` is
+  states and every layer's K/V to seed the cache.  Its attention is K5
+  (``ops/cuda_flash_prefill.py``) at every length.  ``prefill_hidden`` is
   the same forward for callers that read no cache (the probe): it keeps no
   layer's K/V.
 - ``prefill_extend``: T new tokens over a cached prefix, dense or in the
@@ -54,11 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..engine import trace
-from ..ops.attention import (
-    extend_attention,
-    extend_attention_int8prefix,
-    prefill_attention,
-)
+from ..ops.attention import extend_attention, extend_attention_int8prefix
 from ..ops.basic import apply_rope, rms_norm, rotary_embedding
 from ..ops.cuda_cache_append import cache_append_int8
 from ..ops.cuda_decode_attention import (
@@ -71,8 +67,6 @@ from ..parallel.mesh import all_gather, all_reduce, mesh_of
 from ..utils.config import LlamaConfig
 from ..utils.hf_io import hf_leaf, hf_stacked
 from ..utils.quantize import quantize_activations, quantize_kv
-
-LONG_PREFILL = 1024  # prefill length from which attention runs K5
 
 
 class KVCache(NamedTuple):
@@ -468,14 +462,10 @@ def _rope_tables(positions: torch.Tensor, cfg: LlamaConfig):
 
 
 def _prefill(params, cfg, inputs_embeds, positions, key_mask, keep_kv, w8a8):
-    S = inputs_embeds.shape[1]
-
     def attend(i, q, k, v):
-        if S >= LONG_PREFILL:
-            return flash_prefill_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(), key_mask, causal=True
-            )
-        return prefill_attention(q, k, v, causal=True, key_mask=key_mask)
+        return flash_prefill_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), key_mask, causal=True
+        )
 
     return _forward(params, cfg, inputs_embeds, *_rope_tables(positions, cfg), attend, keep_kv,
                     w8a8, mesh_of(params))
@@ -491,11 +481,10 @@ def prefill(
 ):
     """Full-sequence causal forward.
 
-    Attention is dense below ``LONG_PREFILL`` tokens (LLaVA-1.5's ~600) and
-    runs K5, the flash prefill kernel (``ops/cuda_flash_prefill.py``), from
-    there on (LLaVA-NeXT's ~2.9k), as the JAX package does
-    (``models/llama.py:677-689``); on the CPU K5's wrapper computes its
-    query-chunked twin.
+    Attention runs K5, the flash prefill kernel (``ops/cuda_flash_prefill.py``),
+    at every length: LLaVA-1.5's ~600 tokens as LLaVA-NeXT's ~2.9k (the JAX
+    package switches to its kernel at 1024 tokens, ``models/llama.py:677-689``,
+    a TPU choice).  On the CPU K5's wrapper computes its query-chunked twin.
 
     Args:
       inputs_embeds: [B, S, D] merged (visual + text) embeddings.

@@ -1,11 +1,11 @@
 """Attention for prefill and ensemble decode, in plain PyTorch (port of
 ``dropoutdecoding_tpu/ops/attention.py``).
 
-- ``prefill_attention``: dense causal attention over the merged (visual +
-  text) sequence.  At LLaVA-1.5's S of about 600 the [H, S, S] score tensor
-  is small, so this stays plain torch, as it stayed XLA in the JAX package.
-- ``chunked_prefill_attention``: the same, query-chunked, for S >= 1024
-  (LLaVA-NeXT); the plain twin of K5 (``ops/cuda_flash_prefill.py``).
+- ``prefill_attention``: dense attention, causal or not, over a whole
+  sequence: the vision towers' and the CLIP text tower's, and Kimi-VL's
+  latent-attention prefill (a 192-wide query head, which K5 does not take).
+- ``chunked_prefill_attention``: the same, query-chunked; the plain twin of
+  K5 (``ops/cuda_flash_prefill.py``), which the Llama prefill runs.
 - ``ensemble_decode_attention``: M members read one shared cache, each with
   its own key mask, plus each member's own new token.  It is the plain twin
   of the CUDA kernel in ``ops/cuda_decode_attention.py``: that wrapper calls
@@ -80,8 +80,8 @@ def chunked_prefill_attention(
 ) -> torch.Tensor:
     """Query-chunked ``prefill_attention``: the scores exist only as a
     [B, H, chunk, S] transient, not [B, H, S, S].  The plain twin of K5
-    (``ops/cuda_flash_prefill.py``), and what the JAX package runs for
-    S >= 1024 off the TPU.
+    (``ops/cuda_flash_prefill.py``): what the Llama prefill computes on the
+    CPU, and what the JAX package runs for S >= 1024 off the TPU.
 
     A row with no attendable key (every key masked) scores -1e30
     everywhere, so its softmax is uniform over all S keys.

@@ -3,6 +3,8 @@
 Replaces the TPU kernel ``flash_prefill_attention``
 (``dropoutdecoding_tpu/ops/pallas_attention.py:66``), which the JAX package
 runs for prefills of S >= 1024 (LLaVA-NeXT's ~2.9k-token merged prompt).
+The port's Llama prefill runs it at every S: LLaVA-1.5's ~600 tokens and
+InstructBLIP's ~50 as well.
 Query heads read their KV group in place (no ``repeat_kv`` copy); head dims
 16, 32, 64 and 128.  Three kernels, picked here from the call's shape
 (``prefill_route``) and named to the C entry: bf16 at D = 128 runs the
@@ -12,7 +14,9 @@ dims the ``mma.sync`` kernel, fp32 a scalar kernel of the same walk.
 For CPU tensors the wrapper computes its plain twin,
 ``ops.attention.chunked_prefill_attention``.  For CUDA tensors it launches
 the kernel or raises; it never falls back.  ``launches`` counts kernel
-launches, ``route_launches`` the same by route.
+launches, ``route_launches`` the same by route, and each launch adds one to
+the program counter ``prefill.k5_layers`` (the Llama prefill launches K5
+once a layer; the twin counts nothing).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import math
 
 import torch
 
+from ..engine import trace
 from . import _build
 from .attention import chunked_prefill_attention
 
@@ -106,6 +111,7 @@ def flash_prefill_attention(
     _build.check(err, f"flash_prefill_attention kernel ({route})")
     flash_prefill_attention.launches += 1
     flash_prefill_attention.route_launches[route] += 1
+    trace.count("prefill.k5_layers")
     return out
 
 

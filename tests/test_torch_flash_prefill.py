@@ -1,5 +1,5 @@
 """K5's plain twin (``ops.attention.chunked_prefill_attention``), its
-wrapper, and the long prefill that runs it, against the JAX package.
+wrapper, and the Llama prefill that runs it, against the JAX package.
 
 The TPU kernel ``flash_prefill_attention`` runs in interpret mode, as the
 JAX package's own tests run it (``tests/test_pallas_kernels.py``).
@@ -168,10 +168,19 @@ def _lm_config(C):
     )
 
 
-def test_long_prefill_matches_jax(rng):
-    """``llama.prefill`` at S = 1100 >= 1024 with a padded key mask: the port
-    takes K5's switch (its twin on the CPU), JAX its chunked attention.
-    atol 1e-4 as the other LM parity tests: two layers of fp32 sums."""
+@pytest.mark.parametrize(
+    "S,real", [(40, 30), (1100, 1000)], ids=["S40-jax-dense", "S1100-jax-chunked"]
+)
+def test_long_prefill_matches_jax(rng, monkeypatch, S, real):
+    """``llama.prefill`` with a padded key mask, below and above the JAX
+    package's 1024-token switch: the port runs K5 in every layer at both
+    lengths (its twin on the CPU), JAX its dense attention at S = 40 and its
+    chunked attention at S = 1100.  Each layer calls K5's wrapper once; on
+    the CPU the wrapper computes the twin and launches nothing, so
+    ``prefill.k5_layers`` (a count of launches) stays 0.  atol 1e-4 as the
+    other LM parity tests: two layers of fp32 sums."""
+    from dropoutdecoding_tpu_torch.engine import trace
+
     E, L, H, KH, Dh, F = 64, 2, 4, 2, 16, 128
 
     def n(*shape, sc=0.2):
@@ -188,18 +197,27 @@ def test_long_prefill_matches_jax(rng):
         "norm": 1 + n(E, sc=0.1),
         "lm_head": n(E, 128),
     }
-    S = 1100
     x = rng.normal(size=(1, S, E)).astype(np.float32)
     pos = np.arange(S)[None]
-    mask = np.arange(S)[None] < 1000
+    mask = np.arange(S)[None] < real
     ref_h, ref_kv = jllama.prefill(
         jax.tree.map(jnp.asarray, lm), _lm_config(jax_config), jnp.asarray(x), jnp.asarray(pos),
         key_mask=jnp.asarray(mask),
     )
-    got_h, got_kv = tllama.prefill(
-        _to_torch(lm, "cpu", torch.float32), _lm_config(torch_config), torch.from_numpy(x),
-        torch.from_numpy(pos), key_mask=torch.from_numpy(mask),
-    )
+    calls = []
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return k5.flash_prefill_attention(*args, **kwargs)
+
+    monkeypatch.setattr(tllama, "flash_prefill_attention", counted)
+    with trace.recording() as rec:
+        got_h, got_kv = tllama.prefill(
+            _to_torch(lm, "cpu", torch.float32), _lm_config(torch_config), torch.from_numpy(x),
+            torch.from_numpy(pos), key_mask=torch.from_numpy(mask),
+        )
+    assert calls == [(1, S, H, Dh)] * L
+    assert rec.counters["prefill.k5_layers"] == 0
     np.testing.assert_allclose(got_h.numpy(), np.asarray(ref_h), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(got_kv.k.numpy(), np.asarray(ref_kv.k), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(got_kv.v.numpy(), np.asarray(ref_kv.v), rtol=1e-5, atol=1e-4)

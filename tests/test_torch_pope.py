@@ -6,8 +6,9 @@ POPE CLI.
 Weights are numpy from a seed and go to both packages: the tiny LLaVA of
 ``test_torch_models`` (LM 48 wide, MHA) and the narrow LLaVA-NeXT of
 ``test_torch_llavanext`` (LM 64 wide, 4 heads over 2 KV heads; 1312 visual
-slots, so its prompts take the S >= 1024 switch; a 150 x 220 image fills
-982 of them, so its prefixes carry 330 pad slots).  Tolerances, all fp32:
+slots, so its prompts pass the JAX package's S >= 1024 switch; a 150 x 220
+image fills 982 of them, so its prefixes carry 330 pad slots).  Tolerances,
+all fp32:
 
 - the extend attention: atol 1e-5 (one softmax, summation order only);
 - ``kv_int8_reader_layout``: bit-equal (one quantizer, IEEE division);
